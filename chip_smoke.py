@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py            # the paper's Fig. 1 pair, 1,048,576 rows
+    python3 chip_smoke.py            # Fig. 1 pair (1,048,576 rows), then
+                                     # Zamba2-7B at full width and depth
 
 Phases, in order, one line each with its seconds; the first failure ends
 the run with a nonzero exit code (nothing is caught):
 
  1. environment — nvidia-smi name and power limit, torch and CUDA versions;
- 2. build       — nvcc compiles the four SpMV kernels (repro_torch/csrc)
-                  into build/repro_torch/;
- 3. kernels     — each kernel against its plain torch version on the card
-                  at small random shapes (σ-sorted SELL with empty slices,
-                  BCSR with empty block rows, Block-ELL with padding
+ 2. build       — nvcc compiles the sources of repro_torch/csrc (the four
+                  SpMV kernels, and K5 ssd_chunk), one nvcc per source, all
+                  at once, and links them into one library in
+                  build/repro_torch/;
+ 3. kernels     — each SpMV kernel against its plain torch version on the
+                  card at small random shapes (σ-sorted SELL with empty
+                  slices, BCSR with empty block rows, Block-ELL with padding
                   blocks, SpMM widths 1, 3, 8, 33), float32 and float64;
+                  then K5 at small random shapes (T = 8, 16, 128, several
+                  B·H, a nonzero incoming state, f32 and bf16) and through
+                  ssd_scan over chunk views of a longer sequence;
  4. main path   — the paper's SpMV cell through repro_torch.launch
                   .spmv_bench.run_cell (plan → build → verify → IOS/YAX →
                   instrumented CG): fig1_shuffled with baseline and rcm,
@@ -23,33 +29,61 @@ the run with a nonzero exit code (nothing is caught):
                   pattern, values U(-1, 1) from a seed): sell (K1, and K2
                   at k = 8), bcsr (K3) and bell (K4), each verified, then
                   IOS-timed;
- 6. kernel times — each kernel at the shape phase 5 gave it, against its
-                  plain version (error, median ms of 20 launches), its
+ 6. kernel times — each SpMV kernel at the shape phase 5 gave it, against
+                  its plain version (error, median ms of 20 launches), its
                   byte bound and torch's CSR SpMV/SpMM on the same matrix;
  7. controls    — planted faults at the main-path shape must fail the
                   checks: each kernel with its largest stored chunk or
-                  block dropped, and a diagonal-only operator under verify.
+                  block dropped, and a diagonal-only operator under verify;
+ 8. lm prefill  — the SpMV tensors are freed; Zamba2-7B at full width and
+                  depth (81 Mamba2 layers, the shared attention block after
+                  each group of 6), random f32 parameters from a seeded
+                  generator on the card (embedding scaled, see EMBED_SCALE),
+                  B = 2 prompts of S = 4096 tokens through
+                  repro_torch.serving.decode.prefill: with K5 (2592
+                  launches) and with the plain SSD chunk, and as a witness
+                  the plain SSD with chunks of 64 against that of 128 (the
+                  same function, another rounding); every Mamba2 layer
+                  of it held, on the input the K5 path gave it, against the
+                  plain SSD within 1e-5; the same prefill cut to 15 layers
+                  (2 groups and the tail), K5 against plain, logits within
+                  1e-3 of the largest, with the witness beside it; then the 81-layer bf16 prefill timed (CUDA
+                  events, median of 5) in tokens/s, and profiled once
+                  (device busy share, device time by kernel group);
+ 9. lm decode   — generate (greedy, f32, 81 layers) at B = 4, prompt 16,
+                  32 new tokens, in tokens/s; one decode step profiled as
+                  the prefill is; then 17 tokens decoded one by
+                  one through the cache against a K5 prefill over the same
+                  17 tokens (padded to one chunk), within rtol = atol =
+                  2e-2, at 15 layers (and reported at 81);
+10. ssd times   — K5 at the main-path shape (B = 2, T = 128, H = 112,
+                  N = P = 64; the second chunk of the first Mamba2 layer of
+                  phase 8, with the state the first chunk left), bf16 and
+                  f32: error, median ms of 20 launches, bound, plain ms;
+11. ssd control — K5 given xw with its last time step zeroed must fail the
+                  check against the intact plain result.
 
-Every kernel launch counter is set to 0 just before each cell of phase 4
-and each forced path of phase 5 and read just after it; a forced path that
-did not launch its kernel, or a cell whose plan picked a kernel engine
-that launched nothing, fails the run. The kernels line reports, for each
-kernel, the launches of the forced path that feeds its row.
+Every kernel launch counter is set to 0 just before each cell of phase 4,
+each forced path of phase 5 and the f32 prefill of phase 8, and read just
+after it; a forced path that did not launch its kernel, a cell whose plan
+picked a kernel engine that launched nothing, or a prefill whose K5 count
+is not 81 x 32, fails the run. The kernels line reports, for each kernel,
+the launches of the path that feeds its row.
 
 Verification is against the numpy float64 oracle at rel err <= 1e-4 (the
 error over the oracle's largest entry); a kernel against its plain version
-at rel err <= 1e-5 in float32 (same terms, different summation order) and
-1e-12 in float64. The generators give every row a diagonal of m = 1,048,576
-at this size, about 1e5 times the rest of the row, and an error divided by
-that scale hides wrong off-diagonal terms; so every check at the
-main-path shape also runs on the structure twin, where each term counts
-(phase 7 shows that it catches what the original matrix hides). TF32 is
-off for the plain versions' einsum products. The last lines are one JSON
-object with every kernel's numbers, the nvidia-smi line, and the result
-line.
+at rel err <= 1e-5 in float32 (same terms, different summation order),
+1e-12 in float64 and 1e-2 in bf16. The generators give every row a diagonal
+of m = 1,048,576 at this size, about 1e5 times the rest of the row, and an
+error divided by that scale hides wrong off-diagonal terms; so every check
+at the main-path shape also runs on the structure twin, where each term
+counts (phase 7 shows that it catches what the original matrix hides). TF32
+is off for every f32 product. The last lines are one JSON object with every
+kernel's numbers, the nvidia-smi line, and the result line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -61,7 +95,11 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
-KERNEL_TOL = {"float32": 1e-5, "float64": 1e-12}
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+KERNEL_TOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 1e-2}
+LM_TOL = 1e-3                    # prefill logits, K5 against the plain SSD
+LAYER_TOL = 1e-5                 # one Mamba2 layer, K5 against the plain SSD
+DECODE_TOL = 2e-2                # decode through the cache vs the prefill
 VERIFY_TOL = 1e-4
 ITERS = 20
 
@@ -70,8 +108,23 @@ KERNELS = {
     "sell_spmm": "src/repro/kernels/sell_spmm/kernel.py:56",
     "bcsr_spmv": "src/repro/kernels/bcsr_spmv/kernel.py:42",
     "bell_spmv": "src/repro/kernels/bell_spmv/kernel.py:38",
+    "ssd_chunk": "src/repro/kernels/ssd_chunk/kernel.py:54",
 }
 SOURCE = "src/repro_torch/csrc/spmv_kernels.cu"
+SSD_SOURCE = "src/repro_torch/csrc/ssd_chunk.cu"
+LM_ARCH = "zamba2-7b"
+# The reference draws the embedding at std 0.02 and runs no residual around
+# its Mamba2 blocks: at that scale each block's gated RMS norm sits under its
+# eps, the activations shrink to 0 within a few layers at any width, and
+# every logit of the 81-layer model is exactly 0, so no comparison could see
+# a fault. The smoke run draws the reference's parameters and scales the
+# embedding to std 0.2, past which every layer carries activations of RMS
+# ~0.9. Those random layers, with no residual, amplify a difference in
+# rounding by ~1.5x each (10x per group of 6), so two correct SSD paths
+# decorrelate well before layer 81: the end-to-end comparisons run at a
+# depth of 15 layers (2 groups and the tail), and the full-depth prefill
+# holds K5 against the plain SSD layer by layer.
+EMBED_SCALE = 10.0
 
 
 def phase(name: str, t0: float, **fields) -> None:
@@ -134,8 +187,9 @@ def operator_bytes(op) -> int:
                if isinstance(v, torch.Tensor))
 
 
-def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+def bound_ms(nbytes: int, flops: int,
+             flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -457,6 +511,469 @@ def planted_faults(forced, rmat, vmat, dev) -> None:
           f"{seen:.3e} on its structure twin, caught", flush=True)
 
 
+# -- K5 ssd_chunk: small shapes, the Zamba2 path, times, control -----------
+def ssd_inputs(b, t, h, n, p, gen, dtype, dev):
+    """la, xw, B, C and a nonzero incoming state, drawn as
+    tests/test_ssd_kernel.py draws them (la in [-0.2, -0.001])."""
+    import torch
+
+    la = -(torch.rand((b, t, h), generator=gen, dtype=torch.float64)
+           * 0.199 + 0.001)
+    rest = [torch_randn(shape, gen, dtype, dev)
+            for shape in ((b, t, h, p), (b, t, n), (b, t, n), (b, h, n, p))]
+    return (la.to(dev, torch.float32), *rest)
+
+
+def ssd_errors(got, want) -> tuple[float, float]:
+    """(max abs error, max rel error) over both outputs, y and the state."""
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def ssd_small(dev) -> int:
+    import torch
+
+    from repro_torch.kernels.ssd_chunk.kernel import (ssd_chunk,
+                                                      ssd_chunk_plain)
+    from repro_torch.kernels.ssd_chunk.ops import ssd_scan
+
+    gen = torch_generator(2)
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t, h, n, p in ((2, 8, 4, 4, 16), (2, 16, 3, 8, 8),
+                              (1, 16, 1, 64, 64), (3, 128, 5, 16, 32),
+                              (2, 128, 112, 64, 64)):
+            args = ssd_inputs(b, t, h, n, p, gen, dtype, dev)
+            for part, got, want in zip(("y", "state"), ssd_chunk(*args),
+                                       ssd_chunk_plain(*args)):
+                check_close(f"ssd_chunk {part} B={b} T={t} H={h} N={n} "
+                            f"P={p}", got, want, dtype)
+            checked += 1
+        # chunks as batch-strided views of a longer sequence, y written
+        # through out=, the state carried from chunk to chunk
+        args = ssd_inputs(2, 384, 6, 64, 64, gen, dtype, dev)
+        for part, got, want in zip(
+                ("y", "state"), ssd_scan(*args, chunk=128),
+                ssd_scan(*args, chunk=128, use_kernel="ref")):
+            check_close(f"ssd_scan {part} S=384", got, want, dtype)
+        checked += 1
+    return checked
+
+
+def tree_bytes(tree) -> tuple[int, int]:
+    """(elements, bytes) of every tensor in a nested dict."""
+    if isinstance(tree, dict):
+        parts = [tree_bytes(v) for v in tree.values()]
+        return sum(p[0] for p in parts), sum(p[1] for p in parts)
+    return tree.numel(), tensor_bytes(tree)
+
+
+def cut_depth(cfg, params, groups: int):
+    """The first `groups` groups and the tail of a Zamba2 model: the config
+    and views of the same parameters (no copy)."""
+    import dataclasses
+
+    from repro_torch.models.model import _layer
+
+    period = cfg.hybrid_attn_period
+    tail = params["tail_layers"]["in_proj"]["w"].shape[0]
+    cut = dict(params, layers=_layer(params["layers"],
+                                     slice(0, groups * period)))
+    return dataclasses.replace(cfg, n_layers=groups * period + tail), cut
+
+
+def logits_check(name, got, want, shape) -> tuple[float, float]:
+    """Shape, finiteness and max error of `got` over the largest |want|."""
+    import torch
+
+    for lg in (got, want):
+        if tuple(lg.shape) != shape or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{name}: logits {tuple(lg.shape)} (want "
+                                 f"{shape}) or not finite")
+    err = float((got - want).abs().max())
+    return err, err / float(want.abs().max())
+
+
+def chunk_witness(cfg, params, batch, want, shape) -> tuple[float, float]:
+    """The plain SSD with chunks of 64 against `want`, the plain SSD with the
+    config's chunks of 128: the same function summed in another order, so
+    its error is what rounding alone does to the logits at this depth."""
+    import dataclasses
+
+    from repro_torch.serving.decode import prefill
+
+    half = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, chunk=cfg.ssm.chunk // 2))
+    _, logits = prefill(params, batch, half, use_kernel="ref")
+    return logits_check(f"{cfg.n_layers}-layer plain prefill, chunk "
+                        f"{half.ssm.chunk}", logits, want, shape)
+
+
+def layerwise_ssd(cfg, params, tokens) -> tuple[float, int]:
+    """Every Mamba2 layer of the full-depth prefill, on the input that the
+    K5 path gave it, with K5 and with the plain SSD chunk; the walk is
+    _zamba_forward's. Returns (largest rel err of a layer's output,
+    layers checked)."""
+    from repro_torch.models import model as MDL
+    from repro_torch.models.layers import mamba2 as M
+    from repro_torch.models.layers.common import embed
+
+    worst, checked = 0.0, 0
+
+    def mamba(lp, x):
+        nonlocal worst, checked
+        y = M.mamba2_block(lp, x, cfg.ssm, use_kernel="auto")[0]
+        want = M.mamba2_block(lp, x, cfg.ssm, use_kernel="ref")[0]
+        worst = max(worst, rel_err(y, want)[1])
+        checked += 1
+        return y
+
+    x = embed(params["embed"], tokens)
+    period = cfg.hybrid_attn_period
+    for g in range(params["layers"]["in_proj"]["w"].shape[0] // period):
+        for j in range(period):
+            x = mamba(MDL._layer(params["layers"], g * period + j), x)
+        x = MDL._shared_attn_block(params["shared_attn"], x, cfg)[0]
+    for j in range(params["tail_layers"]["in_proj"]["w"].shape[0]):
+        x = mamba(MDL._layer(params["tail_layers"], j), x)
+    return worst, checked
+
+
+def lm_prefill(dev) -> dict:
+    """Phase 8: the Zamba2-7B prefill at full width and depth."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MDL
+    from repro_torch.serving.decode import cast_params, prefill
+
+    cfg = registry.get(LM_ARCH)
+    t0 = time.perf_counter()
+    params = MDL.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    params["embed"]["table"].mul_(EMBED_SCALE)
+    torch.cuda.synchronize()
+    nparams, nbytes = tree_bytes(params)
+    phase("lm params", t0, arch=cfg.name, layers=cfg.n_layers,
+          d_model=cfg.d_model, params=nparams, f32_bytes=nbytes)
+
+    bsz, seq = 2, 4096
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (bsz, seq), generator=gen,
+                           device=dev)
+    batch = {"tokens": tokens}
+    shape = (bsz, seq, cfg.padded_vocab)
+    want_launches = cfg.n_layers * (seq // cfg.ssm.chunk)
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    next_k, logits_k = prefill(params, batch, cfg, use_kernel="auto")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches["ssd_chunk"] != want_launches:
+        raise AssertionError(f"the prefill launched ssd_chunk "
+                             f"{launches['ssd_chunk']} times, expected "
+                             f"{want_launches}")
+    phase("lm prefill f32 kernel", t0, tokens=f"{bsz}x{seq}",
+          launches=json.dumps(launches), argmax=next_k.tolist())
+    t0 = time.perf_counter()
+    next_r, logits_r = prefill(params, batch, cfg, use_kernel="ref")
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES != launches:
+        raise AssertionError("the plain prefill launched a kernel")
+    err, rel = logits_check("81-layer prefill", logits_k, logits_r, shape)
+    phase("lm prefill f32 plain", t0, argmax=next_r.tolist(),
+          logits_max_abs_err=f"{err:.3e}", rel=f"{rel:.3e}",
+          note="random layers amplify any rounding difference; gated per "
+               "layer and at 15 layers below")
+    del logits_k
+    t0 = time.perf_counter()
+    err, rel = chunk_witness(cfg, params, batch, logits_r, shape)
+    phase("lm prefill f32 witness", t0, pair="plain chunk 64 vs plain "
+          "chunk 128", logits_max_abs_err=f"{err:.3e}", rel=f"{rel:.3e}")
+    del logits_r
+
+    t0 = time.perf_counter()
+    worst, checked = layerwise_ssd(cfg, params, tokens)
+    if not worst <= LAYER_TOL:
+        raise AssertionError(f"a Mamba2 layer with K5 against the plain SSD: "
+                             f"rel err {worst:.3e} > {LAYER_TOL:.0e}")
+    phase("lm prefill f32 per layer", t0, layers=checked,
+          worst_rel_err=f"{worst:.3e}")
+
+    t0 = time.perf_counter()
+    cfg15, params15 = cut_depth(cfg, params, 2)
+    kernels.reset_launches()
+    next_k, logits_k = prefill(params15, batch, cfg15, use_kernel="auto")
+    k5 = kernels.LAUNCHES["ssd_chunk"]
+    next_r, logits_r = prefill(params15, batch, cfg15, use_kernel="ref")
+    torch.cuda.synchronize()
+    if k5 != cfg15.n_layers * (seq // cfg.ssm.chunk) \
+            or kernels.LAUNCHES["ssd_chunk"] != k5:
+        raise AssertionError(f"the 15-layer prefills launched ssd_chunk "
+                             f"{kernels.LAUNCHES['ssd_chunk']} times")
+    err, rel = logits_check("15-layer prefill", logits_k, logits_r, shape)
+    if not rel <= LM_TOL:
+        raise AssertionError(f"15-layer prefill logits, K5 against the "
+                             f"plain SSD: rel err {rel:.3e} > {LM_TOL:.0e}")
+    _, w_rel = chunk_witness(cfg15, params15, batch, logits_r, shape)
+    phase(f"lm prefill f32 {cfg15.n_layers} layers", t0, launches=k5,
+          argmax_kernel=next_k.tolist(), argmax_plain=next_r.tolist(),
+          logits_max_abs_err=f"{err:.3e}", rel=f"{rel:.3e}",
+          witness_rel=f"{w_rel:.3e}")
+    del logits_k, logits_r
+
+    t0 = time.perf_counter()
+    params_bf = cast_params(params, torch.bfloat16)
+    kernels.reset_launches()
+    prefill(params_bf, batch, cfg)                 # warm-up
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(5)]
+    torch.cuda.reset_peak_memory_stats()
+    for start, end in ev:
+        start.record()
+        next_b, _ = prefill(params_bf, batch, cfg)
+        end.record()
+    torch.cuda.synchronize()
+    runs = [s.elapsed_time(e) for s, e in ev]
+    ms = float(np.median(runs))
+    phase("lm prefill bf16 timed", t0, ms=f"{ms:.3f}",
+          runs_ms=json.dumps([round(r, 3) for r in runs]),
+          tokens_per_s=f"{bsz * seq / (ms / 1e3):.1f}",
+          ssd_launches_per_prefill=kernels.LAUNCHES["ssd_chunk"] / 6,
+          argmax=next_b.tolist(),
+          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    t0 = time.perf_counter()
+    profile_call("bf16 prefill", lambda: prefill(params_bf, batch, cfg))
+    phase("lm prefill bf16 profiled", t0)
+    return {"cfg": cfg, "params": params, "params_bf": params_bf,
+            "tokens": tokens, "launches": launches["ssd_chunk"],
+            "prefill_bf16_ms": ms}
+
+
+def kernel_group(name: str) -> str:
+    for group, keys in (("ssd_chunk (K5)", ("ssd_chunk_kernel",)),
+                        ("matmul", ("gemm", "nvjet", "xmma", "gemv")),
+                        ("copy", ("copy",)),
+                        ("elementwise", ("elementwise",)),
+                        ("reduce", ("reduce",))):
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
+
+def profile_call(label: str, fn) -> None:
+    """fn() once under torch.profiler: device busy time against the wall
+    time of the same call (CUDA events), device time by kernel group, and
+    the kernels that take the most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    if not kernels:
+        print(f"[profile] {label}: the trace holds no device time: not "
+              f"measured", flush=True)
+        return
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    groups: dict = {}
+    for e in kernels:
+        g = groups.setdefault(kernel_group(e.key), {"calls": 0, "ms": 0.0})
+        g["calls"] += e.count
+        g["ms"] += e.self_device_time_total / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"[profile] {label}: " + json.dumps({
+        "wall_ms": wall, "device_busy_ms": busy,
+        "idle_share": 1 - busy / wall, "groups": groups,
+        "top": [{"kernel": e.key[:80], "calls": e.count,
+                 "ms": e.self_device_time_total / 1e3} for e in top]}),
+        flush=True)
+
+
+def decode_vs_prefill(cfg, params, toks) -> tuple[int, float, float]:
+    """Decode `toks` one by one through the cache; hold the last step's
+    logits against a prefill over the same tokens. Returns (logits off by
+    more than rtol = atol = DECODE_TOL, max abs err, max |logit|)."""
+    import torch
+
+    from repro_torch.models import model as MDL
+    from repro_torch.serving.decode import prefill
+
+    _, full = prefill(params, {"tokens": toks}, cfg)
+    cache = MDL.init_cache(cfg, 1, 32, dtype=torch.float32,
+                           device=toks.device)
+    for t in range(toks.shape[1]):
+        logits, cache, _ = MDL.forward(params, {"tokens": toks[:, t:t + 1]},
+                                       cfg, cache=cache)
+    got, want = logits[0, 0], full[0, -1]
+    diff = (got - want).abs()
+    bad = int((diff > DECODE_TOL + DECODE_TOL * want.abs()).sum())
+    return bad, float(diff.max()), float(want.abs().max())
+
+
+def lm_decode(dev, lm: dict) -> None:
+    """Phase 9: greedy generate in f32, then decode through the cache
+    against the prefill."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.models import model as MDL
+    from repro_torch.serving.decode import generate, make_serve_step
+
+    cfg, params = lm["cfg"], lm["params"]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bsz, prompt_len, new = 4, 16, 32
+    prompt = torch.randint(0, cfg.vocab, (bsz, prompt_len), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(cfg, params, prompt, new,
+                   cache_len=prompt_len + new + 1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if tuple(out.shape) != (bsz, new) or not bool(
+            ((out >= 0) & (out < cfg.padded_vocab)).all()):
+        raise AssertionError(f"generate gave {tuple(out.shape)} tokens "
+                             f"outside the vocabulary")
+    steps = prompt_len + new - 1
+    phase("lm decode generate f32", t0, batch=bsz, prompt=prompt_len,
+          new_tokens=new, steps=steps,
+          tokens_per_s=f"{bsz * new / dt:.2f}",
+          ms_per_step=f"{dt / steps * 1e3:.2f}", sample=out[0].tolist())
+
+    t0 = time.perf_counter()
+    step = make_serve_step(cfg, compute_dtype=torch.float32)
+    cache = MDL.init_cache(cfg, bsz, prompt_len + 2, dtype=torch.float32,
+                           device=dev)
+    for t in range(prompt_len):
+        tok, cache = step(params, {"tokens": prompt[:, t:t + 1]}, cache)
+    profile_call("f32 decode step", lambda: step(
+        params, {"tokens": tok[:, None]}, cache))
+    phase("lm decode step profiled", t0, batch=bsz, position=prompt_len)
+
+    toks = torch.randint(0, cfg.vocab, (1, 17), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    cfg15, params15 = cut_depth(cfg, params, 2)
+    kernels.reset_launches()
+    bad, err, top = decode_vs_prefill(cfg15, params15, toks)
+    if bad:
+        raise AssertionError(f"{cfg15.n_layers}-layer decode through the "
+                             f"cache: {bad} "
+                             f"logits off the prefill's by more than rtol = "
+                             f"atol = {DECODE_TOL}")
+    phase(f"lm decode vs prefill {cfg15.n_layers} layers", t0, tokens=17,
+          prefill_ssd_launches=kernels.LAUNCHES["ssd_chunk"],
+          max_abs_err=f"{err:.3e}", max_abs_logit=f"{top:.3e}")
+    t0 = time.perf_counter()
+    bad, err, top = decode_vs_prefill(cfg, params, toks)
+    phase(f"lm decode vs prefill {cfg.n_layers} layers", t0, tokens=17,
+          logits_off=bad, max_abs_err=f"{err:.3e}",
+          max_abs_logit=f"{top:.3e}", note="not gated, as the full-depth "
+          "prefill comparison")
+
+
+def ssd_main_inputs(cfg, params, tokens):
+    """la, xw, B, C of the second chunk of the first Mamba2 layer of the
+    prefill, and the state the kernel left after the first chunk."""
+    from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk
+    from repro_torch.models.layers import mamba2 as M
+    from repro_torch.models.layers.common import embed
+    from repro_torch.models.model import _layer
+
+    lp = _layer(params["layers"], 0)
+    _, xh, dt, b_mat, c_mat, _ = M._mix(lp, embed(params["embed"], tokens),
+                                        cfg.ssm)
+    la, xw = M._discretize(xh, dt, lp["a_log"])
+    t = cfg.ssm.chunk
+    bsz, _, h, p = xh.shape
+    first = [a[:, :t].contiguous() for a in (la, xw, b_mat, c_mat)]
+    _, state = ssd_chunk(*first, xh.new_zeros((bsz, h, cfg.ssm.d_state, p)))
+    return [a[:, t:2 * t].contiguous() for a in (la, xw, b_mat, c_mat)] \
+        + [state]
+
+
+def ssd_times(lm: dict) -> tuple[dict, list]:
+    """Phase 10: K5 at the main-path shape, bf16 (the row) and f32."""
+    import torch
+
+    from repro_torch.kernels.ssd_chunk.kernel import (ssd_chunk,
+                                                      ssd_chunk_plain)
+
+    cfg = lm["cfg"]
+    out, f32_args = {}, None
+    for name, params in (("bfloat16", lm["params_bf"]),
+                         ("float32", lm["params"])):
+        args = ssd_main_inputs(cfg, params, lm["tokens"])
+        if name == "float32":
+            f32_args = args
+        bsz, t, h, p = args[1].shape
+        n = args[2].shape[-1]
+        kern = lambda: ssd_chunk(*args)                      # noqa: E731
+        plain = lambda: ssd_chunk_plain(*args)               # noqa: E731
+        got = kern()
+        abs_err, rel = ssd_errors(got, plain())
+        tol = KERNEL_TOL[name]
+        if not rel <= tol:
+            raise AssertionError(f"ssd_chunk {name}: kernel vs plain rel err "
+                                 f"{rel:.3e} > {tol:.0e} at the main-path "
+                                 f"shape")
+        nbytes = tensor_bytes(*args, *got)
+        # the least work: C·Bᵀ once per batch row (B and C do not depend on
+        # the head) and, like the decayed product with xw, on and below the
+        # diagonal only; C·state and the state update in full
+        flops = bsz * t * (t + 1) * n \
+            + bsz * h * (t * (t + 1) * p + 4 * t * n * p)
+        rate = BF16_FLOPS_PER_S if name == "bfloat16" else FP32_FLOPS_PER_S
+        bms, by = bound_ms(nbytes, flops, rate)
+        row = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+               "bound_ms": bms, "bound_by": by, "max_abs_err": abs_err,
+               "rel_err": rel, "bytes": nbytes, "flops": flops}
+        out[name] = row
+        print(f"[kernel] ssd_chunk {name} B={bsz} T={t} H={h} N={n} P={p} "
+              f"rel_err={rel:.2e} ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} library_ms=none "
+              f"bound_ms={bms:.4f} ({by}, {nbytes} B, {flops} flop) "
+              f"launches={lm['launches']} (lm prefill f32, B=2, S=4096)",
+              flush=True)
+        del got
+    bf = out["bfloat16"]
+    row = {"name": "ssd_chunk", "route": "cuda", "source": SSD_SOURCE,
+           "replaces": KERNELS["ssd_chunk"], "launches": lm["launches"],
+           "launches_path": "lm prefill f32, B=2, S=4096",
+           "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
+           "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
+           "bound_by": bf["bound_by"], "library_ms": None,
+           "dtype": "bfloat16", "float32": out["float32"]}
+    return row, f32_args
+
+
+def ssd_control(args) -> None:
+    """Phase 11: K5 with the last time step of xw zeroed must fail."""
+    from repro_torch.kernels.ssd_chunk.kernel import (ssd_chunk,
+                                                      ssd_chunk_plain)
+
+    la, xw, b_mat, c_mat, state = args
+    bad = xw.clone()
+    bad[:, -1] = 0
+    _, rel = ssd_errors(ssd_chunk(la, bad, b_mat, c_mat, state),
+                        ssd_chunk_plain(*args))
+    tol = KERNEL_TOL["float32"]
+    if not rel > tol:
+        raise AssertionError(f"ssd_chunk with xw's last step zeroed gave rel "
+                             f"err {rel:.3e}, which passes {tol:.0e}")
+    print(f"[control] ssd_chunk float32 with xw's last time step zeroed: "
+          f"rel err {rel:.3e} > {tol:.0e}, caught", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -494,13 +1011,17 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     _build.library()
-    phase("build", t0, library=_build.BUILD_INFO["path"],
-          nvcc_s=f"{_build.BUILD_INFO['seconds']:.2f}")
-    print(_build.BUILD_INFO["log"].strip(), flush=True)
+    info = _build.BUILD_INFO
+    phase("build", t0, library=info["path"], compiled=info["compiled"],
+          nvcc_s=f"{info['seconds']:.2f}")
+    print(f"[ptxas]\n{info['log'].strip()}", flush=True)
 
     t0 = time.perf_counter()
     checked = kernels_small(dev)
     phase("kernels small shapes", t0, comparisons=checked)
+    t0 = time.perf_counter()
+    checked = ssd_small(dev)
+    phase("kernels small shapes ssd_chunk", t0, comparisons=checked)
 
     forced, rmat, vmat, recs = main_path(dev, args.shuffled, args.banded,
                                          args.iters)
@@ -515,6 +1036,22 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     planted_faults(forced, rmat, vmat, dev)
     phase("controls", t0)
+
+    t0 = time.perf_counter()
+    del forced, rmat, vmat
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("free spmv", t0,
+          allocated_gib=f"{torch.cuda.memory_allocated() / 2**30:.3f}")
+    lm = lm_prefill(dev)
+    lm_decode(dev, lm)
+    t0 = time.perf_counter()
+    row, f32_args = ssd_times(lm)
+    rows.append(row)
+    phase("ssd times", t0)
+    t0 = time.perf_counter()
+    ssd_control(f32_args)
+    phase("ssd control", t0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

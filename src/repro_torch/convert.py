@@ -1,4 +1,5 @@
-"""Carry operator state and plan decisions across from the JAX package.
+"""Carry operator state, plan decisions and model parameters across from
+the JAX package.
 
 Both packages' operators speak the same state protocol: `state()` returns
 (meta, arrays) with numpy arrays, under the same array and meta names
@@ -6,7 +7,9 @@ Both packages' operators speak the same state protocol: `state()` returns
 what the reference's `state()` returns, handed here as plain numpy and
 dicts, gives the port's operator computing the same thing, and a
 reference `Plan.to_json()` plus its permutation gives the port's Plan
-holding the same decision. Nothing here imports the reference package.
+holding the same decision; a reference model's parameter pytree, as
+nested dicts of numpy arrays, gives the port's parameters. Nothing here
+imports the reference package.
 """
 from __future__ import annotations
 
@@ -61,3 +64,47 @@ def plan_from_reference(plan_json: dict, perm: Optional[np.ndarray],
         d["use_kernel"] = "auto"
     return Plan.from_json(d, perm=None if perm is None
                           else np.asarray(perm, np.int64), mat=mat)
+
+
+def params_from_reference(tree: dict, cfg, device=None, dtype=None) -> dict:
+    """The port's model parameters for a reference parameter pytree, given
+    as nested dicts of numpy arrays (`jax.device_get(params)`).
+
+    The layout is the same in both packages (`w [d_in, d_out]`, Mamba2
+    layers stacked on a leading axis), so every leaf is a plain copy: the
+    stacked axes are kept, and the port indexes them as the reference's
+    scan does. Floating leaves take `dtype` when given, else their own type
+    (bf16 included); `device=None` is the card. Only the families the port
+    runs are accepted, and the stacked layer counts must match `cfg`.
+    """
+    import torch
+
+    from .device import resolve_device
+    from .models.model import _require_hybrid_ssm
+
+    _require_hybrid_ssm(cfg)
+    dev = resolve_device(device)
+    groups, rem = divmod(cfg.n_layers, cfg.hybrid_attn_period)
+    stacks = {"layers": groups * cfg.hybrid_attn_period, "tail_layers": rem}
+    for key, n in stacks.items():
+        got = (np.shape(tree[key]["in_proj"]["w"])[0] if key in tree else 0)
+        if got != n:
+            raise ValueError(f"params_from_reference: {key} holds {got} "
+                             f"layers, {cfg.name} needs {n}")
+
+    def leaf(a):
+        arr = np.asarray(a)
+        want = dtype
+        if arr.dtype.name == "bfloat16":  # ml_dtypes: no numpy cast to torch
+            arr, want = arr.astype(np.float32), dtype or torch.bfloat16
+        t = torch.from_numpy(np.array(arr, order="C"))
+        if want is not None and t.is_floating_point():
+            t = t.to(want)
+        return t.to(dev)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return leaf(node)
+
+    return walk(tree)

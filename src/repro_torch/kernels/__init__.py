@@ -1,9 +1,10 @@
-"""Hand-written CUDA kernels for the SpMV engines (sm_90a), one package each.
+"""Hand-written CUDA kernels (sm_90a), one package each.
 
   sell_spmv  — K1, SELL-C-σ SpMV            (SellOperator.__call__)
   sell_spmm  — K2, k-tiled SELL-C-σ SpMM    (SellOperator.matmul)
   bcsr_spmv  — K3, BCSR SpMV/SpMM           (BcsrOperator)
   bell_spmv  — K4, Block-ELL SpMV/SpMM      (BellOperator)
+  ssd_chunk  — K5, one fused Mamba2 SSD chunk (ssd_scan, the Zamba2 prefill)
 
 The sources are `repro_torch/csrc/*.cu`, compiled with nvcc at first use
 (_build.py). Each kernel module holds the wrapper that launches the kernel
@@ -16,7 +17,8 @@ kernels it went through. `reset_launches()` sets every count to 0.
 """
 from __future__ import annotations
 
-LAUNCHES = {"sell_spmv": 0, "sell_spmm": 0, "bcsr_spmv": 0, "bell_spmv": 0}
+LAUNCHES = {"sell_spmv": 0, "sell_spmm": 0, "bcsr_spmv": 0, "bell_spmv": 0,
+            "ssd_chunk": 0}
 
 
 def reset_launches() -> None:

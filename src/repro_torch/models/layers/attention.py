@@ -1,0 +1,140 @@
+"""Attention: chunked online softmax over KV blocks with GQA,
+causal/bidirectional, sliding window and softcap; plus the single-token
+decode path over a KV cache.
+
+The reference writes this in jnp, not Pallas, so plain torch ops are its
+port. Scores and the weighted sum of values are f32 wherever the reference
+asks for an f32 product (`preferred_element_type=jnp.float32`): operands are
+widened to f32 before the product, so a bf16 model does not round its scores.
+Chunking over KV bounds the live score tensor to [B, H, Sq, kv_chunk].
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .common import apply_rope, init_linear, linear, softcap_fn
+
+NEG_INF = -1e30
+
+
+def init_attention(gen, d_model, n_heads, kv_heads, head_dim, qkv_bias=False,
+                   dtype=torch.float32):
+    return {
+        "wq": init_linear(gen, d_model, n_heads * head_dim, qkv_bias, dtype),
+        "wk": init_linear(gen, d_model, kv_heads * head_dim, qkv_bias, dtype),
+        "wv": init_linear(gen, d_model, kv_heads * head_dim, qkv_bias, dtype),
+        "wo": init_linear(gen, n_heads * head_dim, d_model, False, dtype),
+    }
+
+
+def _split_heads(x, n, d):
+    return x.reshape(*x.shape[:-1], n, d)
+
+
+def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
+                    softcap: Optional[float] = None, kv_chunk: int = 1024,
+                    q_offset: int = 0):
+    """q [B,Sq,H,D]; k,v [B,Sk,KVH,D] -> [B,Sq,H,D].
+
+    GQA via head grouping. q_offset: absolute position of q[0] relative to
+    k[0] (prefill: 0).
+    """
+    b, sq, h, d = q.shape
+    _, sk, kvh, _ = k.shape
+    g = h // kvh
+    dev = q.device
+    # [b, kvh, g, sq, d] in f32
+    qg = q.reshape(b, sq, kvh, g, d).permute(0, 2, 3, 1, 4).float()
+    scale = 1.0 / math.sqrt(d)
+    kv_chunk = min(kv_chunk, sk)
+    nchunks = (sk + kv_chunk - 1) // kv_chunk
+    q_pos = q_offset + torch.arange(sq, device=dev)
+
+    m = torch.full((b, kvh, g, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kvh, g, sq, d), dtype=torch.float32, device=dev)
+    for idx in range(nchunks):
+        lo = idx * kv_chunk
+        # [b, kvh, 1, ck, d]; the last chunk may be short (the reference
+        # pads it and masks the padding: the same scores)
+        kci = k[:, lo:lo + kv_chunk].permute(0, 2, 1, 3)[:, :, None]
+        vci = v[:, lo:lo + kv_chunk].permute(0, 2, 1, 3)[:, :, None]
+        s = (qg @ kci.float().transpose(-1, -2)) * scale     # [b,kvh,g,sq,ck]
+        s = softcap_fn(s, softcap)
+        k_pos = lo + torch.arange(kci.shape[3], device=dev)
+        mask = torch.ones((sq, kci.shape[3]), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = p.to(v.dtype).float() @ vci.float()
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+    return out.to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len: int, *, window=None,
+                     softcap=None):
+    """One-token decode: q [B,1,H,D]; caches [B,Smax,KVH,D]; cache_len is
+    the valid length after the new token was inserted."""
+    b, _, h, d = q.shape
+    _, smax, kvh, _ = k_cache.shape
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, d).float()
+    kf = k_cache.permute(0, 2, 1, 3).float()                  # [b,kvh,S,d]
+    s = (qg @ kf.transpose(-1, -2)) / math.sqrt(d)            # [b,kvh,g,S]
+    s = softcap_fn(s, softcap)
+    k_pos = torch.arange(smax, device=q.device)
+    mask = k_pos < cache_len
+    if window is not None:
+        mask = mask & (k_pos >= cache_len - window)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = p.to(v_cache.dtype).float() @ v_cache.permute(0, 2, 1, 3).float()
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def attention_block(params, x, *, n_heads, kv_heads, head_dim, rope_theta,
+                    causal=True, window=None, softcap=None, kv_chunk=1024,
+                    cache=None):
+    """Full attention sub-block: proj -> rope -> (flash | decode) -> out proj.
+
+    cache: None (prefill; returns (y, None)) or {k, v, len} for decode,
+    where k and v are [B, Smax, KVH, D] buffers and len the number of valid
+    positions. The reference returns updated copies of the buffers; here the
+    new keys and values are written into them in place, and the returned
+    cache holds the same buffers with len advanced.
+    """
+    b, s, _ = x.shape
+    q = _split_heads(linear(params["wq"], x), n_heads, head_dim)
+    k = _split_heads(linear(params["wk"], x), kv_heads, head_dim)
+    v = _split_heads(linear(params["wv"], x), kv_heads, head_dim)
+
+    base = 0 if cache is None else cache["len"]
+    positions = (base + torch.arange(s, device=x.device)).expand(b, s)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+
+    if cache is not None:
+        end = base + s
+        cache["k"][:, base:end] = k
+        cache["v"][:, base:end] = v
+        y = decode_attention(q, cache["k"], cache["v"], end, window=window,
+                             softcap=softcap)
+        new_cache = {"k": cache["k"], "v": cache["v"], "len": end}
+    else:
+        y = flash_attention(q, k, v, causal=causal, window=window,
+                            softcap=softcap, kv_chunk=kv_chunk)
+        new_cache = None
+    y = y.reshape(b, s, n_heads * head_dim)
+    return linear(params["wo"], y), new_cache

@@ -1,0 +1,91 @@
+"""Shared model primitives: norms, rotary, embedding, initializers.
+
+Parameters are plain nested dicts of tensors, in the reference's layout:
+a linear layer's weight is `w [d_in, d_out]` and applies as `x @ w`, so a
+reference parameter tree carries over as a plain copy. Every init_* draws
+from an explicit torch.Generator, on the generator's device; `stack` puts
+leading layer axes in front of each shape, as the reference's stacked
+layers have them.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def truncated_normal(gen: torch.Generator, shape, scale: float,
+                     dtype=torch.float32) -> torch.Tensor:
+    """scale * N(0, 1) truncated to [-2, 2], as the reference initializes."""
+    t = torch.empty(shape, dtype=dtype, device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.mul_(float(scale))
+
+
+def init_linear(gen, d_in, d_out, bias=False, dtype=torch.float32,
+                scale=None, stack=()):
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    p = {"w": truncated_normal(gen, (*stack, d_in, d_out), scale, dtype)}
+    if bias:
+        p["b"] = torch.zeros((*stack, d_out), dtype=dtype, device=gen.device)
+    return p
+
+
+def linear(p, x):
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def init_rmsnorm(gen, d, dtype=torch.float32, stack=()):
+    return {"scale": torch.ones((*stack, d), dtype=dtype, device=gen.device)}
+
+
+def rmsnorm(p, x, eps=1e-5):
+    """RMS norm computed in f32; returns the input's type."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * p["scale"].float()).to(dt)
+
+
+def init_embedding(gen, vocab, d, dtype=torch.float32):
+    return {"table": truncated_normal(gen, (vocab, d), 0.02, dtype)}
+
+
+def embed(p, tokens):
+    return p["table"][tokens]
+
+
+def unembed(p, x, softcap=None):
+    """Tied unembedding. Logits in f32."""
+    logits = x.float() @ p["table"].float().T
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    return logits
+
+
+def softcap_fn(x, cap):
+    return cap * torch.tanh(x / cap) if cap is not None else x
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding (concatenated halves, not interleaved)
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [..., S, H, D]; positions: [..., S] int."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                    # [D/2]
+    ang = positions.float()[..., None] * freqs                # [..., S, D/2]
+    cos = torch.cos(ang)[..., None, :]                        # [..., S, 1, D/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,144 @@
+"""Mamba2 (SSD) block — chunked state-space dual form [Dao & Gu 2024].
+
+Prefill: the sequence is padded to a multiple of `chunk` and scanned chunk
+by chunk by `ssd_scan`, one launch of the fused K5 kernel per chunk on the
+card. Decode: the O(1) recurrent state update, in torch ops.
+
+As in the reference: a single B/C group, a scalar A per head, a causal conv
+of width 4. State cache = (conv_state [B, W-1, d_conv_ch], ssm_state
+[B, H, N, P]).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ...kernels.ssd_chunk.ops import ssd_scan
+from .common import init_linear, init_rmsnorm, linear, rmsnorm
+
+
+def init_mamba2(gen, d_model, ssm_cfg, dtype=torch.float32, stack=()):
+    d_inner = ssm_cfg.expand * d_model
+    n, p = ssm_cfg.d_state, ssm_cfg.head_dim
+    h = d_inner // p
+    conv_ch = d_inner + 2 * n  # conv over [x, B, C]
+    dev = gen.device
+    conv_w = torch.randn((*stack, ssm_cfg.conv_width, conv_ch), dtype=dtype,
+                         device=dev, generator=gen).mul_(0.1)
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, dtype=dtype, device=dev))
+    return {
+        # in_proj -> [z, x, B, C, dt]
+        "in_proj": init_linear(gen, d_model, 2 * d_inner + 2 * n + h, False,
+                               dtype, stack=stack),
+        "conv_w": conv_w,
+        "conv_b": torch.zeros((*stack, conv_ch), dtype=dtype, device=dev),
+        "a_log": a_log.expand(*stack, h).clone(),
+        "dt_bias": torch.zeros((*stack, h), dtype=dtype, device=dev),
+        "d_skip": torch.ones((*stack, h), dtype=dtype, device=dev),
+        "norm": init_rmsnorm(gen, d_inner, dtype, stack=stack),
+        "out_proj": init_linear(gen, d_inner, d_model, False, dtype,
+                                stack=stack),
+    }
+
+
+def _causal_conv(xbc, conv_w, conv_b, conv_state=None):
+    """xbc [B,S,C]; depthwise causal conv of width W. Returns (y, state)."""
+    w = conv_w.shape[0]
+    if conv_state is None:
+        pad = xbc.new_zeros((xbc.shape[0], w - 1, xbc.shape[2]))
+    else:
+        pad = conv_state
+    xp = torch.cat([pad, xbc], dim=1)  # [B, S+W-1, C]
+    s = xbc.shape[1]
+    y = sum(xp[:, i:i + s] * conv_w[i] for i in range(w)) + conv_b
+    return F.silu(y), xp[:, -(w - 1):]
+
+
+def _discretize(xh, dt, a_log):
+    """(la [B,S,H] f32 log decay, xw [B,S,H,P] discretized input in xh's
+    type), as the reference prepares them for the SSD."""
+    la = -torch.exp(a_log.float()) * dt.float()
+    return la, xh * dt[..., None].to(xh.dtype)
+
+
+def _mix(params, x, ssm_cfg, conv_state=None):
+    """in_proj, dt and the causal conv: (z, xh [B,S,H,P], dt [B,S,H],
+    b_mat, c_mat [B,S,N], new conv state)."""
+    b, s, d = x.shape
+    d_inner = ssm_cfg.expand * d
+    n, p = ssm_cfg.d_state, ssm_cfg.head_dim
+    h = d_inner // p
+    zxbcdt = linear(params["in_proj"], x)
+    z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * n, h], dim=-1)
+    dt = F.softplus(dt + params["dt_bias"])                    # [B,S,H]
+    xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"],
+                                 conv_state)
+    xs, b_mat, c_mat = torch.split(xbc, [d_inner, n, n], dim=-1)
+    return z, xs.reshape(b, s, h, p), dt, b_mat, c_mat, new_conv
+
+
+def _ssd_chunked(xh, dt, a_log, b_mat, c_mat, chunk, init_state=None,
+                 use_kernel="auto"):
+    """SSD over a padded sequence. xh [B,S,H,P], dt [B,S,H], b/c [B,S,N].
+    Returns (y [B,S,H,P], final_state [B,H,N,P]).
+
+    The log decay is f32 and the discretized input is in xh's type, as the
+    reference prepares them; ssd_scan then runs K5 chunk by chunk."""
+    b, s, h, p = xh.shape
+    n = b_mat.shape[-1]
+    la, xw = _discretize(xh, dt, a_log)
+    s0 = (xh.new_zeros((b, h, n, p)) if init_state is None
+          else init_state.to(xh.dtype).contiguous())
+    return ssd_scan(la, xw, b_mat.contiguous(), c_mat.contiguous(), s0,
+                    chunk=chunk, use_kernel=use_kernel)
+
+
+def mamba2_block(params, x, ssm_cfg, cache=None, use_kernel="auto"):
+    """x [B,S,d]. cache None (prefill from the zero state) or {conv, ssm}
+    for decode (S = 1). Returns (y, new_cache_or_None).
+
+    No residual here: the model adds none around this block."""
+    b, s, d = x.shape
+    d_inner = ssm_cfg.expand * d
+    z, xh, dt, b_mat, c_mat, new_conv = _mix(
+        params, x, ssm_cfg, None if cache is None else cache["conv"])
+
+    if cache is None:
+        pad = (-s) % ssm_cfg.chunk
+        if pad:
+            xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+            dt = F.pad(dt, (0, 0, 0, pad))
+            b_mat = F.pad(b_mat, (0, 0, 0, pad))
+            c_mat = F.pad(c_mat, (0, 0, 0, pad))
+        y, _ = _ssd_chunked(xh, dt, params["a_log"], b_mat, c_mat,
+                            ssm_cfg.chunk, use_kernel=use_kernel)
+        y = y[:, :s]
+        new_cache = None
+    else:
+        # decode: s == 1, one recurrent step
+        la, xw = _discretize(xh[:, 0], dt[:, 0], params["a_log"])
+        a = torch.exp(la)                                      # [B,H]
+        state = cache["ssm"]
+        state = state * a[..., None, None].to(state.dtype) + \
+            torch.einsum("bn,bhp->bhnp", b_mat[:, 0], xw)
+        y = torch.einsum("bn,bhnp->bhp", c_mat[:, 0], state)[:, None]
+        new_cache = {"conv": new_conv, "ssm": state}
+
+    y = y + xh[:, :s] * params["d_skip"][None, None, :, None]  # D skip
+    y = y.reshape(b, s, d_inner)
+    y = rmsnorm(params["norm"], y * F.silu(z))                   # gated norm
+    return linear(params["out_proj"], y), new_cache
+
+
+def init_mamba2_cache(batch, d_model, ssm_cfg, dtype=torch.float32,
+                      device=None, stack=()):
+    d_inner = ssm_cfg.expand * d_model
+    n, p = ssm_cfg.d_state, ssm_cfg.head_dim
+    h = d_inner // p
+    conv_ch = d_inner + 2 * n
+    return {
+        "conv": torch.zeros((*stack, batch, ssm_cfg.conv_width - 1, conv_ch),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((*stack, batch, h, n, p), dtype=dtype,
+                           device=device),
+    }

@@ -15,7 +15,11 @@ from repro_torch.core.measure import ios
 from repro_torch.core.sparse.csr import CSRMatrix
 from repro_torch.core.spmv import plan as tplan
 from repro_torch.core.spmv.ops import make_engine
+from repro_torch.configs import registry
+from repro_torch.configs.base import smoke_config
 from repro_torch.launch import spmv_bench
+from repro_torch.models import model as lm
+from repro_torch.serving.decode import generate, prefill
 
 torch.set_num_threads(1)
 
@@ -84,6 +88,17 @@ def test_entry_points_default_to_the_card_and_raise_without_it(monkeypatch):
         ios.run_ios_batched(lambda x: x, 8, 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         spmv_bench.run_cell(mat, "baseline")
+    cfg = smoke_config(registry.get("zamba2-7b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_cache(cfg, 1, 8)
+    params = lm.init_params(cfg, device="cpu")
+    tokens = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prefill(params, {"tokens": tokens}, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(cfg, params, tokens, 2, cache_len=8)
 
 
 def test_cpu_runs_only_on_request():
