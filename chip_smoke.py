@@ -13,9 +13,13 @@ the run with a nonzero exit code (nothing is caught):
                   at once, and links them into one library in
                   build/repro_torch/;
  3. kernels     — each SpMV kernel against its plain torch version on the
-                  card at small random shapes (σ-sorted SELL with empty
-                  slices, BCSR with empty block rows, Block-ELL with padding
-                  blocks, SpMM widths 1, 3, 8, 33), float32 and float64;
+                  card at small random shapes, float32 and float64, through
+                  every body of K1 and K4: σ-sorted SELL with empty slices
+                  at C = 8, 32 and W = 8, 32, 128 (K1 at nv = 1, 3; K2 at
+                  widths 1, 3, 8, 33), BCSR with empty block rows,
+                  Block-ELL with padding blocks at bm = 4, 8, 16 and
+                  bn = 16, 100, 128 (and 4 × 4) at nv = 1, 3, 8, and K1 and
+                  K4 once more with their values off a 16-byte boundary;
                   then K5 at small random shapes (T = 8, 16, 128, several
                   B·H, a nonzero incoming state, f32 and bf16) and through
                   ssd_scan over chunk views of a longer sequence;
@@ -30,8 +34,10 @@ the run with a nonzero exit code (nothing is caught):
                   at k = 8), bcsr (K3) and bell (K4), each verified, then
                   IOS-timed;
  6. kernel times — each SpMV kernel at the shape phase 5 gave it, against
-                  its plain version (error, median ms of 20 launches), its
-                  byte bound and torch's CSR SpMV/SpMM on the same matrix;
+                  its plain version (error; ms per call, see time_ms), its
+                  byte bound and torch's CSR SpMV/SpMM on the same matrix
+                  with int32 and with int64 indices (the faster is the
+                  row's library_ms);
  7. controls    — planted faults at the main-path shape must fail the
                   checks: each kernel with its largest stored chunk or
                   block dropped, and a diagonal-only operator under verify;
@@ -59,7 +65,7 @@ the run with a nonzero exit code (nothing is caught):
 10. ssd times   — K5 at the main-path shape (B = 2, T = 128, H = 112,
                   N = P = 64; the second chunk of the first Mamba2 layer of
                   phase 8, with the state the first chunk left), bf16 and
-                  f32: error, median ms of 20 launches, bound, plain ms;
+                  f32: error, ms per call (time_ms), bound, plain ms;
 11. ssd control — K5 given xw with its last time step zeroed must fail the
                   check against the intact plain result.
 
@@ -102,6 +108,8 @@ LAYER_TOL = 1e-5                 # one Mamba2 layer, K5 against the plain SSD
 DECODE_TOL = 2e-2                # decode through the cache vs the prefill
 VERIFY_TOL = 1e-4
 ITERS = 20
+BATCH = 20                       # kernel times: calls per CUDA event pair
+BATCHES = 5                      # kernel times: event pairs, median taken
 
 KERNELS = {
     "sell_spmv": "src/repro/kernels/sell_spmv/kernel.py:50",
@@ -157,23 +165,29 @@ def check_close(name: str, got, want, dtype) -> float:
     return rel
 
 
-def time_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
-    """Median device ms of fn() over `iters` calls, one CUDA event pair
-    per call, read after one synchronize."""
+def time_ms(fn, batch: int = BATCH, batches: int = BATCHES) -> float:
+    """Device ms per call of fn(): one CUDA event pair around each batch of
+    `batch` back-to-back calls, the median over `batches` batches divided by
+    `batch`. A batch of warm-up calls is left in the queue when the first
+    event is recorded, so the events time the card's work and not the
+    host's enqueue of the first call."""
     import numpy as np
     import torch
 
-    for _ in range(warmup):
+    for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    for _ in range(batch):
+        fn()
     ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+           torch.cuda.Event(enable_timing=True)) for _ in range(batches)]
     for start, end in ev:
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
     torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in ev]))
+    return float(np.median([s.elapsed_time(e) for s, e in ev])) / batch
 
 
 def tensor_bytes(*tensors) -> int:
@@ -195,15 +209,16 @@ def bound_ms(nbytes: int, flops: int,
 
 
 # -- the kernel calls, wrapper and plain version on the same inputs --------
-def sell_calls(op, x, spmm: bool = False):
-    """K1 for one vector, K2 for a block (or when spmm is set)."""
+def sell_calls(op, x, spmm: bool | None = None):
+    """K1, or K2 when spmm is set (by default when x has more than one
+    column)."""
     from repro_torch.kernels.sell_spmm.kernel import (pick_k_tile, sell_spmm,
                                                       sell_spmm_plain)
     from repro_torch.kernels.sell_spmv.kernel import (sell_spmv,
                                                       sell_spmv_plain)
 
     args = (op.chunk_vals, op.chunk_cols, op.chunk_slice)
-    if x.shape[1] == 1 and not spmm:
+    if not (x.shape[1] > 1 if spmm is None else spmm):
         return ("sell_spmv",
                 lambda: sell_spmv(*args, op.slice_ptr, x, op.num_slices),
                 lambda: sell_spmv_plain(*args, x, op.num_slices))
@@ -266,6 +281,21 @@ def small_matrices():
             "holes": CSRMatrix.from_dense(holes)}
 
 
+def misaligned(op, attr: str):
+    """A shallow copy of `op` whose `attr` holds the same values one element
+    past an aligned base (the allocator's blocks start on 512 bytes), which
+    sends K1 and K4 to their scalar bodies."""
+    import copy
+
+    import torch
+
+    t = getattr(op, attr)
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = copy.copy(op)
+    setattr(out, attr, buf[1:].view(t.shape).copy_(t))
+    return out
+
+
 def kernels_small(dev) -> int:
     import torch
 
@@ -273,28 +303,47 @@ def kernels_small(dev) -> int:
 
     gen = torch_generator(0)
     checked = 0
+
+    def check(label, calls, op, x, **kw):
+        nonlocal checked
+        name, kern, plain = calls(op, x, **kw)
+        check_close(f"{name} {label}", kern(), plain(), x.dtype)
+        checked += 1
+
     for mname, mat in small_matrices().items():
         for dtype in (torch.float32, torch.float64):
-            for shape, sigma in (((8, 8), 64), ((8, 32), mat.m)):
+            # K1's bodies: 16-byte loads for W / kN a power of two <= 32
+            # (f32 W = 8, 32, 128; f64 W = 8, 32), scalar loads otherwise
+            for i, shape in enumerate((c, w) for c in (8, 32)
+                                      for w in (8, 32, 128)):
                 op = make_engine(mat, "sell", dtype=dtype, block_shape=shape,
-                                 sell_sigma=sigma, device=dev)
-                for k, spmm in ((1, False), (1, True), (3, True),
+                                 sell_sigma=(64, mat.m)[i % 2], device=dev)
+                for k, spmm in ((1, False), (3, False), (1, True), (3, True),
                                 (8, True), (33, True)):
                     x = torch_randn((mat.n, k), gen, dtype, dev)
-                    name, kern, plain = sell_calls(op, x, spmm)
-                    check_close(f"{name} {mname} {shape} k={k}", kern(),
-                                plain(), dtype)
-                    checked += 1
-            for eng, calls in (("bcsr", bcsr_calls), ("bell", bell_calls)):
-                for shape in ((8, 16), (8, 128), (4, 4)):
-                    op = make_engine(mat, eng, dtype=dtype,
-                                     block_shape=shape, device=dev)
-                    for nv in (1, 3):
-                        name, kern, plain = calls(
-                            op, x2d_for(op, nv, gen, dtype, dev))
-                        check_close(f"{name} {mname} {shape} nv={nv}",
-                                    kern(), plain(), dtype)
-                        checked += 1
+                    check(f"{mname} {shape} k={k}", sell_calls, op, x,
+                          spmm=spmm)
+                x = torch_randn((mat.n, 1), gen, dtype, dev)
+                check(f"{mname} {shape} misaligned", sell_calls,
+                      misaligned(op, "chunk_vals"), x)
+            for shape in ((8, 16), (8, 128), (4, 4)):
+                op = make_engine(mat, "bcsr", dtype=dtype, block_shape=shape,
+                                 device=dev)
+                for nv in (1, 3):
+                    check(f"{mname} {shape} nv={nv}", bcsr_calls, op,
+                          x2d_for(op, nv, gen, dtype, dev))
+            # K4's bodies: 16-byte loads at nv = 1 and bm <= 16, scalar
+            # loads for nv > 1 or a misaligned base
+            for shape in ((4, 4), *((bm, bn) for bm in (4, 8, 16)
+                                    for bn in (16, 100, 128))):
+                op = make_engine(mat, "bell", dtype=dtype, block_shape=shape,
+                                 device=dev)
+                for nv in (1, 3, 8):
+                    check(f"{mname} {shape} nv={nv}", bell_calls, op,
+                          x2d_for(op, nv, gen, dtype, dev))
+                check(f"{mname} {shape} misaligned", bell_calls,
+                      misaligned(op, "blocks"),
+                      x2d_for(op, 1, gen, dtype, dev))
     return checked
 
 
@@ -404,15 +453,24 @@ def kernel_inputs(forced, vmat, dev) -> list:
     return out
 
 
+def library_csr(vmat, index_dtype, dev):
+    """torch's CSR of `vmat` on the card, float32 values and `index_dtype`
+    row pointers and columns (the library yardstick; the port never
+    calls it)."""
+    import torch
+
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(vmat.rowptr).to(index_dtype),
+        torch.as_tensor(vmat.cols).to(index_dtype),
+        torch.as_tensor(vmat.vals), size=vmat.shape,
+        check_invariants=False).to(dev, torch.float32)
+
+
 def kernel_times(forced, vmat, dev, recs: dict) -> list:
     import torch
 
-    dt = torch.float32
-    csr = torch.sparse_csr_tensor(
-        torch.as_tensor(vmat.rowptr.astype("int64")),
-        torch.as_tensor(vmat.cols.astype("int64")),
-        torch.as_tensor(vmat.vals), size=vmat.shape,
-        check_invariants=False).to(dev, dt)
+    csrs = {str(d).replace("torch.", ""): library_csr(vmat, d, dev)
+            for d in (torch.int32, torch.int64)}
     rows = []
     for nv, op, calls, x, xin in kernel_inputs(forced, vmat, dev):
         if calls is sell_calls:
@@ -436,6 +494,8 @@ def kernel_times(forced, vmat, dev, recs: dict) -> list:
         nbytes = mat_bytes + tensor_bytes(xin) + y_elems * 4
         bms, by = bound_ms(nbytes, flops)
         xl = x.contiguous() if nv > 1 else x[:, 0].contiguous()
+        lib = {ix: time_ms(lambda a=a: a @ xl) for ix, a in csrs.items()}
+        lib_index = min(lib, key=lib.get)
         path = FEEDS[name]
         launches = recs[path]["launches"][name]
         row = {"name": name, "route": "cuda", "source": SOURCE,
@@ -443,12 +503,13 @@ def kernel_times(forced, vmat, dev, recs: dict) -> list:
                "launches_path": path, "max_abs_err": abs_err,
                "ms": time_ms(kern), "plain_ms": time_ms(plain),
                "bound_ms": bms, "bound_by": by,
-               "library_ms": time_ms(lambda: csr @ xl)}
+               "library_ms": lib[lib_index], "library_index": lib_index}
         rows.append(row)
         print(f"[kernel] {name} nv={nv} rel_err={rel:.2e} "
               f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-              f"library_ms={row['library_ms']:.4f} bound_ms={bms:.4f} "
-              f"({by}, {nbytes} B, {flops} flop) "
+              f"library_ms={row['library_ms']:.4f} (CSR int32 "
+              f"{lib['int32']:.4f}, int64 {lib['int64']:.4f}) "
+              f"bound_ms={bms:.4f} ({by}, {nbytes} B, {flops} flop) "
               f"launches={launches} ({path})", flush=True)
     return rows
 

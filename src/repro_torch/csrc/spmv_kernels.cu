@@ -9,9 +9,10 @@
 // Shared design points:
 //   * The TPU kernels carried the output tile from one grid step to the next
 //     and re-zeroed it when the row id changed. CUDA blocks run in no order,
-//     so each kernel instead gives every output element to exactly one
-//     thread, which loops over that row's chunks or blocks and writes once.
-//     The result is deterministic and needs no atomics and no zero-fill.
+//     so each output element belongs to exactly one thread (K2, K3) or one
+//     warp (K1, K4), which loops over that row's chunks or blocks and writes
+//     once. A warp's partial sums meet in a fixed butterfly of shuffles. The
+//     result is deterministic and needs no atomics and no zero-fill.
 //   * Every product is a scalar FMA in the accumulator type (the operand
 //     type: float for f32, double for f64, so always >= f32). No tensor
 //     core runs, so no TF32 rounding can enter.
@@ -19,9 +20,11 @@
 //     matrices.
 //   * Sparse matrix-vector products move far more bytes than they compute
 //     (2 flops per 8 stored bytes in f32), so all four are bounded by device
-//     memory bandwidth (3.35 TB/s on an H100 SXM), not by arithmetic. None of
-//     them coalesces its matrix loads yet (see each note); shared-memory
-//     staging of x, TMA and wgmma are later work.
+//     memory bandwidth (3.35 TB/s on an H100 SXM), not by arithmetic. K1 and
+//     K4 read the matrix with 16-byte loads, neighbouring lanes on
+//     neighbouring addresses (512 contiguous bytes per warp load), streamed
+//     past L1; K2 and K3 still give a row to a thread and do not coalesce
+//     their matrix loads (see each note).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,32 +40,167 @@ __device__ __forceinline__ double fma_acc(double a, double b, double c) {
 
 inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
+inline bool aligned(const void* p, int64_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// One 16-byte load: 4 floats or 2 doubles, and as many int32 column ids.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int kN = 4;
+  using V = float4;
+  using I = int4;
+};
+template <>
+struct Vec16<double> {
+  static constexpr int kN = 2;
+  using V = double2;
+  using I = int2;
+};
+
+// Sum over aligned groups of `width` lanes (a power of two <= 32), every
+// lane of the warp taking part; each lane of a group gets the group's sum.
+template <typename T>
+__device__ __forceinline__ T group_sum(T v, int width) {
+  for (int off = width / 2; off > 0; off /= 2) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+constexpr int kWarps = 8;  // warps per thread block of K1 and K4
+
 // ---------------------------------------------------------------------------
-// K1 sell_spmv and K2 sell_spmm — replace the Pallas kernels sell_spmm (body
-// _sell_kernel) in src/repro/kernels/sell_spmv/kernel.py and
-// sell_spmm_ktiled (body _sell_spmm_kernel) in
-// src/repro/kernels/sell_spmm/kernel.py. One body serves both: K1 is K2
-// with a k-tile of one column, and each keeps its own launcher and count.
+// K1 sell_spmv — replaces the Pallas kernel sell_spmm (body _sell_kernel) in
+// src/repro/kernels/sell_spmv/kernel.py.
+//
+// y[s, c, v] = sum over the chunks t of slice s and w < W of
+//              vals[t, c, w] * x[cols[t, c, w], v]
+// vals/cols [T, C, W]; slice_ptr [S + 1] (chunks of slice s are
+// slice_ptr[s] .. slice_ptr[s + 1]); x [n, nv]; y [S, C, nv].
+//
+// Bound: bytes — each stored slot is read once (value + int32 column, 8
+// bytes in f32) plus the x gathers, which stay in L2. One warp per slice:
+// a chunk is C * W contiguous values and as many contiguous columns, and
+// consecutive lanes read consecutive 16-byte vectors of values and as many
+// columns (a 512-byte warp load of values per 32-lane step). With W a multiple of the vector width
+// kN and g = W / kN a power of two <= 32, a vector lies inside one row and
+// an aligned group of g lanes covers a row, so a step covers 32 / g rows.
+// Each lane keeps one partial sum per step of its group of STEPS steps
+// (rows r0 .. r0 + STEPS * 32 / g), adds its kN products in order, walks
+// the slice's chunks, then each group of g lanes sums its row by shuffles
+// and its first lane writes y. All STEPS loads of a chunk are issued
+// before the gathers. grid.y walks the columns v of x.
+template <typename T, int STEPS>
+__global__ void __launch_bounds__(kWarps * 32)
+    sell_spmv_kernel(const T* __restrict__ vals,
+                     const int32_t* __restrict__ cols,
+                     const int64_t* __restrict__ slice_ptr,
+                     const T* __restrict__ x, T* __restrict__ y, int64_t S,
+                     int64_t C, int64_t W, int64_t nv) {
+  using V = typename Vec16<T>::V;
+  using I = typename Vec16<T>::I;
+  constexpr int kN = Vec16<T>::kN;
+  const int64_t s = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (s >= S) return;
+  const int lane = threadIdx.x % 32;
+  const int g = (int)(W / kN);  // lanes per row
+  const int rows = 32 / g;      // rows per step
+  const int r_lane = lane / g;
+  const int64_t w_lane = (int64_t)(lane % g) * kN;
+  const int64_t t0 = slice_ptr[s], t1 = slice_ptr[s + 1];
+  for (int64_t v = blockIdx.y; v < nv; v += gridDim.y) {
+    for (int64_t r0 = 0; r0 < C; r0 += STEPS * rows) {
+      T acc[STEPS];
+#pragma unroll
+      for (int i = 0; i < STEPS; ++i) acc[i] = 0;
+      for (int64_t t = t0; t < t1; ++t) {
+        V a[STEPS];
+        I c[STEPS];
+#pragma unroll
+        for (int i = 0; i < STEPS; ++i) {
+          const int64_t r = r0 + i * rows + r_lane;
+          if (r < C) {
+            const int64_t o = (t * C + r) * W + w_lane;
+            a[i] = __ldcs(reinterpret_cast<const V*>(vals + o));
+            c[i] = __ldcs(reinterpret_cast<const I*>(cols + o));
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < STEPS; ++i) {
+          if (r0 + i * rows + r_lane < C) {
+            const T* av = reinterpret_cast<const T*>(&a[i]);
+            const int* ci = reinterpret_cast<const int*>(&c[i]);
+#pragma unroll
+            for (int e = 0; e < kN; ++e) {
+              acc[i] = fma_acc(av[e], __ldg(x + (int64_t)ci[e] * nv + v),
+                               acc[i]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < STEPS; ++i) {
+        const T sum = group_sum(acc[i], g);
+        const int64_t r = r0 + i * rows + r_lane;
+        if (r < C && lane % g == 0) y[(s * C + r) * nv + v] = sum;
+      }
+    }
+  }
+}
+
+// K1 for every other shape (W not a multiple of kN, W / kN not a power of
+// two <= 32, or a base not aligned for 16-byte loads): one warp per slice,
+// a row at a time, lanes striding over W with scalar loads, then a sum over
+// the warp.
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+    sell_spmv_rows_kernel(const T* __restrict__ vals,
+                          const int32_t* __restrict__ cols,
+                          const int64_t* __restrict__ slice_ptr,
+                          const T* __restrict__ x, T* __restrict__ y,
+                          int64_t S, int64_t C, int64_t W, int64_t nv) {
+  const int64_t s = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (s >= S) return;
+  const int lane = threadIdx.x % 32;
+  const int64_t t0 = slice_ptr[s], t1 = slice_ptr[s + 1];
+  for (int64_t v = blockIdx.y; v < nv; v += gridDim.y) {
+    for (int64_t r = 0; r < C; ++r) {
+      T acc = 0;
+      for (int64_t t = t0; t < t1; ++t) {
+        const int64_t base = (t * C + r) * W;
+        for (int64_t w = lane; w < W; w += 32) {
+          acc = fma_acc(vals[base + w], x[(int64_t)cols[base + w] * nv + v],
+                        acc);
+        }
+      }
+      acc = group_sum(acc, 32);
+      if (lane == 0) y[(s * C + r) * nv + v] = acc;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2 sell_spmm — replaces the Pallas kernel sell_spmm_ktiled (body
+// _sell_spmm_kernel) in src/repro/kernels/sell_spmm/kernel.py.
 //
 // y[s, c, j] = sum over the chunks t of slice s and w < W of
 //              vals[t, c, w] * x[cols[t, c, w], j]
-// vals/cols [T, C, W]; slice_ptr [S + 1] (chunks of slice s are
-// slice_ptr[s] .. slice_ptr[s + 1]); x [n, k]; y [S, C, k].
+// as K1, with x [n, k] and y [S, C, k].
 //
 // One thread per (slice row, column j). A thread block is (kt columns) x
 // (256 / kt rows); grid.x walks row groups, grid.y walks k-tiles of width
 // kt. Bound: bytes — each stored slot is read once per k-tile (value +
 // column, 8 bytes in f32) plus the x gathers.
 //
-// K1 (kt = 1) is known to be slow: in the [T, C, W] layout neighbouring
-// threads (rows c, c + 1) read addresses W elements apart, so a warp's loads
-// are not coalesced and lean on L1 to reuse each line across the w loop.
-// Transposing the chunk to [T, W, C] (or giving a warp a chunk) is the first
-// target of a later PR. In K2 the kt threads of one row read the same value
-// and column (one broadcast load) and neighbouring x elements
-// x[col, j .. j + kt), so the x gather is coalesced across the k-tile and
-// the matrix is streamed ceil(k / kt) times instead of k times; its matrix
-// loads are as uncoalesced across rows as K1's.
+// The kt threads of one row read the same value and column (one broadcast
+// load) and neighbouring x elements x[col, j .. j + kt), so the x gather is
+// coalesced across the k-tile and the matrix is streamed ceil(k / kt) times
+// instead of k times. Its matrix loads are not coalesced across rows: in the
+// [T, C, W] layout neighbouring rows c, c + 1 read addresses W elements
+// apart and lean on L1 to reuse each line across the w loop.
 template <typename T>
 __global__ void sell_spmm_kernel(const T* __restrict__ vals,
                                  const int32_t* __restrict__ cols,
@@ -131,29 +269,90 @@ __global__ void bcsr_spmv_kernel(const T* __restrict__ blocks,
 //              blocks[r, kk, i, jj] * x2d[block_cols[r, kk], jj, v]
 // blocks [nbr, K, bm, bn] (padding blocks are zero); block_cols [nbr, K].
 //
-// One thread block per block row, looping over K, with K3's thread layout.
-// Bound: bytes (every stored block, padding included, is read once). Same
-// coalescing limits as K3.
-template <typename T>
-__global__ void bell_spmv_kernel(const T* __restrict__ blocks,
-                                 const int32_t* __restrict__ block_cols,
-                                 const T* __restrict__ x, T* __restrict__ y,
-                                 int64_t K, int64_t bm, int64_t bn,
-                                 int64_t nv) {
-  int64_t r = blockIdx.x;
-  for (int64_t e = threadIdx.x; e < bm * nv; e += blockDim.x) {
-    int64_t i = e / nv;
-    int64_t v = e - i * nv;
-    T acc = 0;
-    for (int64_t kk = 0; kk < K; ++kk) {
-      int64_t g = r * K + kk;
-      const T* a = blocks + (g * bm + i) * bn;
-      const T* xb = x + (int64_t)block_cols[g] * bn * nv + v;
-      for (int64_t jj = 0; jj < bn; ++jj) {
-        acc = fma_acc(a[jj], xb[jj * nv], acc);
+// Bound: bytes (every stored block, padding included, is read once; x2d,
+// 4 MB at the Fig. 1 shape, stays in L2). One warp per block row, kWarps
+// block rows per thread block. For each slot kk the warp reads the block
+// column once (one broadcast load) and each lane loads its 16-byte share of
+// the x segment x2d[col, :, 0] once; then, for each of the block's bm <= R
+// rows, one 16-byte load per lane of that row (a 512-byte coalesced warp
+// load in f32 at bn = 128), all R issued before their FMAs and streamed
+// past L1. Each lane keeps R partial sums; after the last slot each row is
+// summed over the warp and lane i writes y[r, i, 0]. This body takes
+// nv = 1, bm <= 16 and bn a multiple of kN with aligned bases (lanes stride
+// by 32 vectors when bn > 32 * kN and idle when bn < 32 * kN).
+template <typename T, int R>
+__global__ void __launch_bounds__(kWarps * 32)
+    bell_spmv_kernel(const T* __restrict__ blocks,
+                     const int32_t* __restrict__ block_cols,
+                     const T* __restrict__ x, T* __restrict__ y, int64_t nbr,
+                     int64_t K, int64_t bm, int64_t bn) {
+  using V = typename Vec16<T>::V;
+  constexpr int kN = Vec16<T>::kN;
+  const int64_t r = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (r >= nbr) return;
+  const int lane = threadIdx.x % 32;
+  T acc[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0;
+  for (int64_t kk = 0; kk < K; ++kk) {
+    const int64_t g = r * K + kk;
+    const T* blk = blocks + g * bm * bn;
+    const T* xs = x + (int64_t)block_cols[g] * bn;
+    for (int64_t j = (int64_t)lane * kN; j < bn; j += 32 * kN) {
+      const V xv = __ldg(reinterpret_cast<const V*>(xs + j));
+      V a[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (i < bm) a[i] = __ldcs(reinterpret_cast<const V*>(blk + i * bn + j));
+      }
+      const T* xe = reinterpret_cast<const T*>(&xv);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (i < bm) {
+          const T* ae = reinterpret_cast<const T*>(&a[i]);
+#pragma unroll
+          for (int e = 0; e < kN; ++e) acc[i] = fma_acc(ae[e], xe[e], acc[i]);
+        }
       }
     }
-    y[(r * bm + i) * nv + v] = acc;
+  }
+  T out = 0;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const T sum = group_sum(acc[i], 32);
+    if (lane == i) out = sum;
+  }
+  if (lane < bm) y[r * bm + lane] = out;
+}
+
+// K4 for every other shape (nv > 1, bm > 16, bn not a multiple of kN, or a
+// base not aligned for 16-byte loads): one warp per block row, one row at a
+// time, lanes striding over bn with scalar loads, then a sum over the warp;
+// grid.y walks the columns v.
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+    bell_spmv_rows_kernel(const T* __restrict__ blocks,
+                          const int32_t* __restrict__ block_cols,
+                          const T* __restrict__ x, T* __restrict__ y,
+                          int64_t nbr, int64_t K, int64_t bm, int64_t bn,
+                          int64_t nv) {
+  const int64_t r = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (r >= nbr) return;
+  const int lane = threadIdx.x % 32;
+  for (int64_t v = blockIdx.y; v < nv; v += gridDim.y) {
+    for (int64_t i = 0; i < bm; ++i) {
+      T acc = 0;
+      for (int64_t kk = 0; kk < K; ++kk) {
+        const int64_t g = r * K + kk;
+        const T* a = blocks + (g * bm + i) * bn;
+        const T* xb = x + (int64_t)block_cols[g] * bn * nv + v;
+        for (int64_t jj = lane; jj < bn; jj += 32) {
+          acc = fma_acc(a[jj], xb[jj * nv], acc);
+        }
+      }
+      acc = group_sum(acc, 32);
+      if (lane == 0) y[(r * bm + i) * nv + v] = acc;
+    }
   }
 }
 
@@ -183,12 +382,37 @@ int launch_sell_spmm(const void* vals, const void* cols, const void* ptr,
   return (int)cudaGetLastError();
 }
 
-// K1: one vector per k-tile column, so K1 and K2 share one body
+// thread blocks of kWarps warps, one warp per item; grid.y walks nv
+inline dim3 warp_grid(int64_t items, int64_t nv) {
+  return dim3((unsigned)ceil_div(items, kWarps),
+              (unsigned)(nv < 65535 ? nv : 65535));
+}
+
 template <typename T>
 int launch_sell_spmv(const void* vals, const void* cols, const void* ptr,
                      const void* x, void* y, int64_t S, int64_t C, int64_t W,
                      int64_t nv, void* stream) {
-  return launch_sell_spmm<T>(vals, cols, ptr, x, y, S, C, W, nv, 1, stream);
+  if (S * C * nv == 0) return 0;
+  constexpr int kN = Vec16<T>::kN;
+  const int64_t g = W / kN;
+  const dim3 grid = warp_grid(S, nv);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (W % kN != 0 || g > 32 || (g & (g - 1)) != 0 || !aligned(vals, 16) ||
+      !aligned(cols, 4 * kN)) {
+    sell_spmv_rows_kernel<T><<<grid, kWarps * 32, 0, st>>>(
+        (const T*)vals, (const int32_t*)cols, (const int64_t*)ptr,
+        (const T*)x, (T*)y, S, C, W, nv);
+    return (int)cudaGetLastError();
+  }
+  const int64_t steps = ceil_div(C, 32 / g);
+  auto kernel = steps <= 1   ? sell_spmv_kernel<T, 1>
+                : steps <= 2 ? sell_spmv_kernel<T, 2>
+                : steps <= 4 ? sell_spmv_kernel<T, 4>
+                             : sell_spmv_kernel<T, 8>;
+  kernel<<<grid, kWarps * 32, 0, st>>>((const T*)vals, (const int32_t*)cols,
+                                       (const int64_t*)ptr, (const T*)x,
+                                       (T*)y, S, C, W, nv);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -208,27 +432,52 @@ int launch_bell_spmv(const void* blocks, const void* cols, const void* x,
                      void* y, int64_t nbr, int64_t K, int64_t bm, int64_t bn,
                      int64_t nv, void* stream) {
   if (nbr * bm * nv == 0) return 0;
-  bell_spmv_kernel<T><<<(unsigned)nbr, block_threads(bm, nv), 0,
-                        (cudaStream_t)stream>>>(
-      (const T*)blocks, (const int32_t*)cols, (const T*)x, (T*)y, K, bm, bn,
-      nv);
+  constexpr int kN = Vec16<T>::kN;
+  const dim3 grid = warp_grid(nbr, nv);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (nv != 1 || bm > 16 || bn % kN != 0 || !aligned(blocks, 16) ||
+      !aligned(x, 16)) {
+    bell_spmv_rows_kernel<T><<<grid, kWarps * 32, 0, st>>>(
+        (const T*)blocks, (const int32_t*)cols, (const T*)x, (T*)y, nbr, K,
+        bm, bn, nv);
+    return (int)cudaGetLastError();
+  }
+  auto kernel = bm <= 4   ? bell_spmv_kernel<T, 4>
+                : bm <= 8 ? bell_spmv_kernel<T, 8>
+                          : bell_spmv_kernel<T, 16>;
+  kernel<<<grid, kWarps * 32, 0, st>>>((const T*)blocks, (const int32_t*)cols,
+                                       (const T*)x, (T*)y, nbr, K, bm, bn);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define SPMV_EXPORT(NAME, SUFFIX, TYPE)                                       \
-  extern "C" int NAME##_##SUFFIX(                                             \
-      const void* a, const void* b, const void* c, const void* d, void* e,    \
-      long long p0, long long p1, long long p2, long long p3, void* stream) { \
-    return launch_##NAME<TYPE>(a, b, c, d, e, p0, p1, p2, p3, stream);        \
-  }
-
-SPMV_EXPORT(sell_spmv, f32, float)
-SPMV_EXPORT(sell_spmv, f64, double)
-SPMV_EXPORT(bcsr_spmv, f32, float)
-SPMV_EXPORT(bcsr_spmv, f64, double)
-
+extern "C" int sell_spmv_f32(const void* vals, const void* cols,
+                             const void* ptr, const void* x, void* y,
+                             long long S, long long C, long long W,
+                             long long nv, void* stream) {
+  return launch_sell_spmv<float>(vals, cols, ptr, x, y, S, C, W, nv, stream);
+}
+extern "C" int sell_spmv_f64(const void* vals, const void* cols,
+                             const void* ptr, const void* x, void* y,
+                             long long S, long long C, long long W,
+                             long long nv, void* stream) {
+  return launch_sell_spmv<double>(vals, cols, ptr, x, y, S, C, W, nv, stream);
+}
+extern "C" int bcsr_spmv_f32(const void* blocks, const void* cols,
+                             const void* rowptr, const void* x, void* y,
+                             long long nbr, long long bm, long long bn,
+                             long long nv, void* stream) {
+  return launch_bcsr_spmv<float>(blocks, cols, rowptr, x, y, nbr, bm, bn, nv,
+                                 stream);
+}
+extern "C" int bcsr_spmv_f64(const void* blocks, const void* cols,
+                             const void* rowptr, const void* x, void* y,
+                             long long nbr, long long bm, long long bn,
+                             long long nv, void* stream) {
+  return launch_bcsr_spmv<double>(blocks, cols, rowptr, x, y, nbr, bm, bn, nv,
+                                  stream);
+}
 extern "C" int sell_spmm_f32(const void* vals, const void* cols,
                              const void* ptr, const void* x, void* y,
                              long long S, long long C, long long W,

@@ -2,7 +2,9 @@
 
 Replaces the Pallas kernel `bell_spmm` (body `_bell_kernel`) of
 src/repro/kernels/bell_spmv/kernel.py. The kernel and its note are in
-repro_torch/csrc/spmv_kernels.cu (`bell_spmv_kernel`).
+repro_torch/csrc/spmv_kernels.cu (`bell_spmv_kernel`, one warp per block
+row with 16-byte loads, or `bell_spmv_rows_kernel` for nv > 1 and the
+other shapes it does not take).
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@
 Replaces the Pallas kernel `sell_spmm` (body `_sell_kernel`) of
 src/repro/kernels/sell_spmv/kernel.py. The kernel itself, and the note on
 what bounds it and what its design does about that, are in
-repro_torch/csrc/spmv_kernels.cu (`sell_spmm_kernel` launched with a
-k-tile of one column, by `sell_spmv_f32` / `sell_spmv_f64`).
+repro_torch/csrc/spmv_kernels.cu (`sell_spmv_kernel`, one warp per slice
+with 16-byte loads, or `sell_spmv_rows_kernel` for the shapes it does not
+take; launched by `sell_spmv_f32` / `sell_spmv_f64`).
 """
 from __future__ import annotations
 

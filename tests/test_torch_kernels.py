@@ -1,9 +1,14 @@
 """K1-K4: the port's operators and kernel wrappers on CPU tensors (which take
 the plain torch version) against the JAX package's Pallas kernels run in
-interpret mode, on the same host formats: σ-sorted SELL with empty slices,
-BCSR with empty block rows, Block-ELL with padding blocks, and SpMM widths
-1, 3, 8 and 33 for K2. Float32, rel 1e-5 (same terms, another summation
-order). The CUDA kernels themselves run only on the card (chip_smoke.py)."""
+interpret mode, on the same host formats: σ-sorted SELL with empty slices
+(C = 8, 32; W = 8, 32, 128), BCSR with empty block rows, Block-ELL with
+padding blocks (bm up to 16, bn = 4, 16, 100, 128), and widths 1, 3, 8 and
+33 for K1 and K2. Float32, rel 1e-5 (same terms, another summation order).
+The CUDA kernels themselves run only on the card (chip_smoke.py); a source
+test checks that each launcher the bindings name is defined.
+"""
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +29,7 @@ from repro.kernels.sell_spmv.kernel import sell_spmm as pallas_sell
 from repro.kernels.sell_spmv.ops import SellOperator as RefSell
 from repro.matrices import generators as RG
 from repro_torch import kernels
+from repro_torch.kernels import _build
 from repro_torch.core.sparse.bell import BCSR, BlockELL
 from repro_torch.core.sparse.sell import SellCS
 from repro_torch.kernels.bcsr_spmv.kernel import bcsr_spmv
@@ -60,9 +66,9 @@ def _port(host, cls, **kw):
     return cls(**fields, **kw)
 
 
-def _sell_pair(kind, sigma, w):
+def _sell_pair(kind, sigma, w, c=8):
     rm = _mat(kind)
-    h = ref_to_sell(rm, c=8, sigma=sigma, w=w)
+    h = ref_to_sell(rm, c=c, sigma=sigma, w=w)
     ph = object.__new__(SellCS)
     ph.__dict__.update(h.__dict__)
     return rm, h, ph
@@ -70,9 +76,12 @@ def _sell_pair(kind, sigma, w):
 
 @pytest.mark.parametrize("kind", ["power_law", "holes"])
 @pytest.mark.parametrize("sigma", [1, 16, 10_000])
-@pytest.mark.parametrize("w", [8, 32])
-def test_sell_operator_matches_pallas(kind, sigma, w):
-    rm, h, ph = _sell_pair(kind, sigma, w)
+@pytest.mark.parametrize("c,w", [
+    pytest.param(8, 8, id="8"), pytest.param(8, 32, id="32"),
+    pytest.param(8, 128, id="128"), pytest.param(32, 8, id="c32-8"),
+    pytest.param(32, 32, id="c32-32"), pytest.param(32, 128, id="c32-128")])
+def test_sell_operator_matches_pallas(kind, sigma, c, w):
+    rm, h, ph = _sell_pair(kind, sigma, w, c)
     assert (np.bincount(h.chunk_slice, minlength=h.num_slices) >= 1).all()
     x = np.random.default_rng(0).standard_normal(rm.n)
     want = RefSell(h, use_kernel="interpret")(jnp.asarray(x, jnp.float32))
@@ -115,14 +124,13 @@ def test_sell_kernel_wrappers_match_pallas(k):
     xt = torch.as_tensor(x, dtype=torch.float32)
     got = sell_spmm(vals, cols, cs, ptr, xt, h.num_slices, pick_k_tile(k))
     assert _rel(got, want) < 1e-5
-    if k == 1:
-        want1 = pallas_sell(jnp.asarray(h.chunk_vals, jnp.float32),
-                            jnp.asarray(h.chunk_cols),
-                            jnp.asarray(h.chunk_slice),
-                            jnp.asarray(xp[:, :1], jnp.float32),
-                            h.num_slices, interpret=True)
-        assert _rel(sell_spmv(vals, cols, cs, ptr, xt, h.num_slices),
-                    want1) < 1e-5
+    # K1 takes any number of columns too (its kernel walks them on grid.y)
+    want1 = pallas_sell(jnp.asarray(h.chunk_vals, jnp.float32),
+                        jnp.asarray(h.chunk_cols), jnp.asarray(h.chunk_slice),
+                        jnp.asarray(xp[:, :k], jnp.float32), h.num_slices,
+                        interpret=True)
+    assert _rel(sell_spmv(vals, cols, cs, ptr, xt, h.num_slices),
+                want1) < 1e-5
 
 
 def test_slice_chunk_ptr_covers_chunks():
@@ -171,8 +179,9 @@ def test_bcsr_kernel_wrapper_matches_pallas_with_empty_rows():
 
 
 @pytest.mark.parametrize("kind", ["power_law", "holes"])
-@pytest.mark.parametrize("bm,bn", [(8, 16), (8, 128), (4, 4)])
-@pytest.mark.parametrize("nv", [1, 3])
+@pytest.mark.parametrize("bm,bn", [(8, 16), (8, 128), (4, 4), (16, 100),
+                                   (4, 128), (16, 128)])
+@pytest.mark.parametrize("nv", [1, 3, 8])
 def test_bell_operator_matches_pallas(kind, bm, bn, nv):
     rm = _mat(kind)
     h = ref_to_block_ell(rm, bm, bn)
@@ -233,3 +242,37 @@ def test_wrappers_reject_bad_inputs_before_launch():
     assert _rel(op(torch.as_tensor(x)), rm.spmv(x)) < 1e-12
     assert pick_k_tile(1) == 8 and pick_k_tile(20) == 32
     assert pick_k_tile(1000) == 32
+
+
+_DEF = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
+
+
+def _launchers() -> dict:
+    """name -> parameters of every extern "C" int function in the sources,
+    with the launcher macros (`#define M(SUFFIX, TYPE)` around
+    `name_##SUFFIX(...)`) expanded at each of their uses."""
+    out = {}
+    for src in _build.SOURCES:
+        text = src.read_text().replace("\\\n", " ")
+        out.update(_DEF.findall(text))
+        for macro, body in re.findall(r"#define (\w+)\(SUFFIX, TYPE\)(.*)",
+                                      text):
+            for suffix in re.findall(rf"^{macro}\((\w+), ", text, re.M):
+                out.update(_DEF.findall(body.replace("##SUFFIX", suffix)))
+    return out
+
+
+@pytest.mark.parametrize("name,dtype", [
+    pytest.param(n, d, id=f"{n}_{_build._SUFFIX[d]}")
+    for n, (_, _, dtypes) in _build.KERNELS.items() for d in dtypes])
+def test_every_bound_launcher_is_defined_in_the_sources(name, dtype):
+    """Each launcher `_build.library()` binds has an extern "C" definition
+    with the pointer and integer arguments KERNELS gives it, then the
+    stream (K1 and K2 have launchers of their own with 4 and 5 ints)."""
+    nptr, nint, _ = _build.KERNELS[name]
+    params = [p.strip() for p in
+              _launchers()[f"{name}_{_build._SUFFIX[dtype]}"].split(",")]
+    assert params[-1] == "void* stream"
+    assert sum("*" in p for p in params[:-1]) == nptr
+    assert sum(p.startswith("long long ") for p in params) == nint
+    assert len(params) == nptr + nint + 1
