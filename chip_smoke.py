@@ -14,15 +14,18 @@ the run with a nonzero exit code (nothing is caught):
                   build/repro_torch/;
  3. kernels     — each SpMV kernel against its plain torch version on the
                   card at small random shapes, float32 and float64, through
-                  every body of K1 and K4: σ-sorted SELL with empty slices
-                  at C = 8, 32 and W = 8, 32, 128 (K1 at nv = 1, 3; K2 at
-                  widths 1, 3, 8, 33), BCSR with empty block rows,
-                  Block-ELL with padding blocks at bm = 4, 8, 16 and
-                  bn = 16, 100, 128 (and 4 × 4) at nv = 1, 3, 8, and K1 and
-                  K4 once more with their values off a 16-byte boundary;
-                  then K5 at small random shapes (T = 8, 16, 128, several
-                  B·H, a nonzero incoming state, f32 and bf16) and through
-                  ssd_scan over chunk views of a longer sequence;
+                  every body of K1, K3 and K4: σ-sorted SELL with empty
+                  slices at C = 8, 32 and W = 8, 32, 128 (K1 at nv = 1, 3;
+                  K2 at widths 1, 3, 8, 33), BCSR with empty block rows and
+                  Block-ELL with padding blocks, each at bm = 4, 8, 16 and
+                  bn = 16, 100, 128 (and 4 × 4) at nv = 1, 3, 8, and K1, K3
+                  and K4 once more with their values off a 16-byte
+                  boundary; then K5 through both of its bodies: single
+                  chunks (T = 8 .. 128, several B·H, a nonzero incoming
+                  state, f32 and bf16), scans of 3 and 4 chunks against
+                  ssd_scan(use_kernel="ref"), a scan over batch-strided
+                  views of a longer sequence, and the bf16 tensor-core
+                  shape with its operands off a 16-byte boundary;
  4. main path   — the paper's SpMV cell through repro_torch.launch
                   .spmv_bench.run_cell (plan → build → verify → IOS/YAX →
                   instrumented CG): fig1_shuffled with baseline and rcm,
@@ -46,34 +49,41 @@ the run with a nonzero exit code (nothing is caught):
                   each group of 6), random f32 parameters from a seeded
                   generator on the card (embedding scaled, see EMBED_SCALE),
                   B = 2 prompts of S = 4096 tokens through
-                  repro_torch.serving.decode.prefill: with K5 (2592
-                  launches) and with the plain SSD chunk, and as a witness
+                  repro_torch.serving.decode.prefill: with K5 (81
+                  launches, one per layer) and with the plain SSD chunk, and as a witness
                   the plain SSD with chunks of 64 against that of 128 (the
                   same function, another rounding); every Mamba2 layer
                   of it held, on the input the K5 path gave it, against the
                   plain SSD within 1e-5; the same prefill cut to 15 layers
                   (2 groups and the tail), K5 against plain, logits within
-                  1e-3 of the largest, with the witness beside it; then the 81-layer bf16 prefill timed (CUDA
-                  events, median of 5) in tokens/s, and profiled once
-                  (device busy share, device time by kernel group);
+                  1e-3 of the largest, with the witness beside it; then
+                  the 81-layer bf16 prefill: each Mamba2 layer with K5
+                  against the plain SSD on the same input within 1e-2,
+                  then timed (CUDA events, median of 5) in tokens/s, and
+                  profiled once (device busy share, device time by kernel
+                  group);
  9. lm decode   — generate (greedy, f32, 81 layers) at B = 4, prompt 16,
                   32 new tokens, in tokens/s; one decode step profiled as
                   the prefill is; then 17 tokens decoded one by
                   one through the cache against a K5 prefill over the same
                   17 tokens (padded to one chunk), within rtol = atol =
                   2e-2, at 15 layers (and reported at 81);
-10. ssd times   — K5 at the main-path shape (B = 2, T = 128, H = 112,
-                  N = P = 64; the second chunk of the first Mamba2 layer of
-                  phase 8, with the state the first chunk left), bf16 and
-                  f32: error, ms per call (time_ms), bound, plain ms;
-11. ssd control — K5 given xw with its last time step zeroed must fail the
-                  check against the intact plain result.
+10. ssd times   — K5 at the main-path shape, one layer's whole scan (the
+                  first Mamba2 layer of phase 8: B = 2, S = 4096 in 32
+                  chunks of T = 128, H = 112, N = P = 64, from the zero
+                  state), bf16 and f32: error against
+                  ssd_scan(use_kernel="ref"), ms per call (time_ms), the
+                  per-layer bound, plain ms; beside it one chunk alone
+                  (the second, with the state the first left);
+11. ssd controls — K5 given xw with its last time step zeroed, and K5's
+                  chain with the carried state zeroed between chunks, must
+                  each fail the check against the intact plain result.
 
 Every kernel launch counter is set to 0 just before each cell of phase 4,
 each forced path of phase 5 and the f32 prefill of phase 8, and read just
 after it; a forced path that did not launch its kernel, a cell whose plan
 picked a kernel engine that launched nothing, or a prefill whose K5 count
-is not 81 x 32, fails the run. The kernels line reports, for each kernel,
+is not its number of Mamba2 layers (81), fails the run. The kernels line reports, for each kernel,
 the launches of the path that feeds its row.
 
 Verification is against the numpy float64 oracle at rel err <= 1e-4 (the
@@ -284,16 +294,21 @@ def small_matrices():
 def misaligned(op, attr: str):
     """A shallow copy of `op` whose `attr` holds the same values one element
     past an aligned base (the allocator's blocks start on 512 bytes), which
-    sends K1 and K4 to their scalar bodies."""
+    sends K1, K3 and K4 to their scalar bodies (and K5 in bf16 to its
+    CUDA-core body)."""
     import copy
 
+    out = copy.copy(op)
+    setattr(out, attr, misaligned_tensor(getattr(op, attr)))
+    return out
+
+
+def misaligned_tensor(t):
+    """The values of `t` in a buffer one element past an aligned base."""
     import torch
 
-    t = getattr(op, attr)
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    out = copy.copy(op)
-    setattr(out, attr, buf[1:].view(t.shape).copy_(t))
-    return out
+    return buf[1:].view(t.shape).copy_(t)
 
 
 def kernels_small(dev) -> int:
@@ -326,22 +341,20 @@ def kernels_small(dev) -> int:
                 x = torch_randn((mat.n, 1), gen, dtype, dev)
                 check(f"{mname} {shape} misaligned", sell_calls,
                       misaligned(op, "chunk_vals"), x)
-            for shape in ((8, 16), (8, 128), (4, 4)):
-                op = make_engine(mat, "bcsr", dtype=dtype, block_shape=shape,
-                                 device=dev)
-                for nv in (1, 3):
-                    check(f"{mname} {shape} nv={nv}", bcsr_calls, op,
-                          x2d_for(op, nv, gen, dtype, dev))
-            # K4's bodies: 16-byte loads at nv = 1 and bm <= 16, scalar
-            # loads for nv > 1 or a misaligned base
-            for shape in ((4, 4), *((bm, bn) for bm in (4, 8, 16)
-                                    for bn in (16, 100, 128))):
-                op = make_engine(mat, "bell", dtype=dtype, block_shape=shape,
+            # K3's and K4's bodies: 16-byte loads at nv = 1 and bm <= 16
+            # (R = 4, 8, 16), scalar loads for nv > 1, an odd bn or a
+            # misaligned base
+            for (eng, calls), shape in (
+                    (ec, sh) for ec in (("bcsr", bcsr_calls),
+                                        ("bell", bell_calls))
+                    for sh in ((4, 4), *((bm, bn) for bm in (4, 8, 16)
+                                         for bn in (16, 100, 128)))):
+                op = make_engine(mat, eng, dtype=dtype, block_shape=shape,
                                  device=dev)
                 for nv in (1, 3, 8):
-                    check(f"{mname} {shape} nv={nv}", bell_calls, op,
+                    check(f"{mname} {shape} nv={nv}", calls, op,
                           x2d_for(op, nv, gen, dtype, dev))
-                check(f"{mname} {shape} misaligned", bell_calls,
+                check(f"{mname} {shape} misaligned", calls,
                       misaligned(op, "blocks"),
                       x2d_for(op, 1, gen, dtype, dev))
     return checked
@@ -592,6 +605,10 @@ def ssd_errors(got, want) -> tuple[float, float]:
 
 
 def ssd_small(dev) -> int:
+    """K5 at small shapes through both bodies, against its plain version:
+    single chunks (the S = T case), scans of 3 and 4 chunks from a nonzero
+    state (one launch each, against ssd_scan(use_kernel="ref")), a scan over
+    batch-strided views, and operands off a 16-byte boundary."""
     import torch
 
     from repro_torch.kernels.ssd_chunk.kernel import (ssd_chunk,
@@ -600,24 +617,40 @@ def ssd_small(dev) -> int:
 
     gen = torch_generator(2)
     checked = 0
+
+    def check(label, got, want, dtype):
+        nonlocal checked
+        for part, g, w in zip(("y", "state"), got, want):
+            check_close(f"{label} {part} {dtype}", g, w, dtype)
+        checked += 1
+
+    def scan(args, t):
+        return (ssd_scan(*args, chunk=t),
+                ssd_scan(*args, chunk=t, use_kernel="ref"))
+
     for dtype in (torch.float32, torch.bfloat16):
         for b, t, h, n, p in ((2, 8, 4, 4, 16), (2, 16, 3, 8, 8),
-                              (1, 16, 1, 64, 64), (3, 128, 5, 16, 32),
-                              (2, 128, 112, 64, 64)):
+                              (1, 16, 1, 64, 64), (2, 64, 3, 64, 64),
+                              (3, 128, 5, 16, 32), (2, 128, 112, 64, 64)):
             args = ssd_inputs(b, t, h, n, p, gen, dtype, dev)
-            for part, got, want in zip(("y", "state"), ssd_chunk(*args),
-                                       ssd_chunk_plain(*args)):
-                check_close(f"ssd_chunk {part} B={b} T={t} H={h} N={n} "
-                            f"P={p}", got, want, dtype)
-            checked += 1
-        # chunks as batch-strided views of a longer sequence, y written
-        # through out=, the state carried from chunk to chunk
+            check(f"ssd_chunk B={b} T={t} H={h} N={n} P={p}",
+                  ssd_chunk(*args), ssd_chunk_plain(*args), dtype)
+        for b, t, nc, h, n, p in ((2, 16, 3, 3, 8, 8), (1, 16, 3, 2, 64, 64),
+                                  (2, 32, 4, 3, 64, 64),
+                                  (2, 128, 4, 6, 64, 64),
+                                  (1, 128, 3, 4, 16, 32)):
+            args = ssd_inputs(b, t * nc, h, n, p, gen, dtype, dev)
+            check(f"ssd_scan B={b} S={t * nc} T={t} H={h} N={n} P={p}",
+                  *scan(args, t), dtype)
+        # chunks 1-2 of a 3-chunk sequence, as views with its batch stride
         args = ssd_inputs(2, 384, 6, 64, 64, gen, dtype, dev)
-        for part, got, want in zip(
-                ("y", "state"), ssd_scan(*args, chunk=128),
-                ssd_scan(*args, chunk=128, use_kernel="ref")):
-            check_close(f"ssd_scan {part} S=384", got, want, dtype)
-        checked += 1
+        check("ssd_scan views S=256 of 384",
+              *scan([a[:, 128:] for a in args[:4]] + [args[4]], 128), dtype)
+        # every operand one element off a 16-byte boundary
+        args = ssd_inputs(2, 256, 4, 64, 64, gen, dtype, dev)
+        check("ssd_scan misaligned S=256",
+              ssd_scan(*map(misaligned_tensor, args), chunk=128),
+              ssd_scan(*args, chunk=128, use_kernel="ref"), dtype)
     return checked
 
 
@@ -672,9 +705,9 @@ def chunk_witness(cfg, params, batch, want, shape) -> tuple[float, float]:
 
 def layerwise_ssd(cfg, params, tokens) -> tuple[float, int]:
     """Every Mamba2 layer of the full-depth prefill, on the input that the
-    K5 path gave it, with K5 and with the plain SSD chunk; the walk is
-    _zamba_forward's. Returns (largest rel err of a layer's output,
-    layers checked)."""
+    K5 path gave it, with K5 and with the plain SSD chunk, in the
+    parameters' type; the walk is _zamba_forward's. Returns (largest rel err
+    of a layer's output, layers checked)."""
     from repro_torch.models import model as MDL
     from repro_torch.models.layers import mamba2 as M
     from repro_torch.models.layers.common import embed
@@ -725,7 +758,7 @@ def lm_prefill(dev) -> dict:
                            device=dev)
     batch = {"tokens": tokens}
     shape = (bsz, seq, cfg.padded_vocab)
-    want_launches = cfg.n_layers * (seq // cfg.ssm.chunk)
+    want_launches = cfg.n_layers      # one K5 launch per Mamba2 layer
     t0 = time.perf_counter()
     kernels.reset_launches()
     next_k, logits_k = prefill(params, batch, cfg, use_kernel="auto")
@@ -769,7 +802,7 @@ def lm_prefill(dev) -> dict:
     k5 = kernels.LAUNCHES["ssd_chunk"]
     next_r, logits_r = prefill(params15, batch, cfg15, use_kernel="ref")
     torch.cuda.synchronize()
-    if k5 != cfg15.n_layers * (seq // cfg.ssm.chunk) \
+    if k5 != cfg15.n_layers \
             or kernels.LAUNCHES["ssd_chunk"] != k5:
         raise AssertionError(f"the 15-layer prefills launched ssd_chunk "
                              f"{kernels.LAUNCHES['ssd_chunk']} times")
@@ -786,6 +819,15 @@ def lm_prefill(dev) -> dict:
 
     t0 = time.perf_counter()
     params_bf = cast_params(params, torch.bfloat16)
+    worst, checked = layerwise_ssd(cfg, params_bf, tokens)
+    if not worst <= KERNEL_TOL["bfloat16"]:
+        raise AssertionError(f"a bf16 Mamba2 layer with K5 against the plain "
+                             f"SSD: rel err {worst:.3e} > "
+                             f"{KERNEL_TOL['bfloat16']:.0e}")
+    phase("lm prefill bf16 per layer", t0, layers=checked,
+          worst_rel_err=f"{worst:.3e}")
+
+    t0 = time.perf_counter()
     kernels.reset_launches()
     prefill(params_bf, batch, cfg)                 # warm-up
     ev = [(torch.cuda.Event(enable_timing=True),
@@ -813,7 +855,7 @@ def lm_prefill(dev) -> dict:
 
 
 def kernel_group(name: str) -> str:
-    for group, keys in (("ssd_chunk (K5)", ("ssd_chunk_kernel",)),
+    for group, keys in (("ssd_chunk (K5)", ("ssd_scan_",)),
                         ("matmul", ("gemm", "nvjet", "xmma", "gemv")),
                         ("copy", ("copy",)),
                         ("elementwise", ("elementwise",)),
@@ -943,8 +985,9 @@ def lm_decode(dev, lm: dict) -> None:
 
 
 def ssd_main_inputs(cfg, params, tokens):
-    """la, xw, B, C of the second chunk of the first Mamba2 layer of the
-    prefill, and the state the kernel left after the first chunk."""
+    """The first Mamba2 layer's SSD operands for the whole prefill (la, xw,
+    B, C over S = 4096 and the zero state it starts from), and its second
+    chunk alone with the state the kernel left after the first."""
     from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk
     from repro_torch.models.layers import mamba2 as M
     from repro_torch.models.layers.common import embed
@@ -956,56 +999,72 @@ def ssd_main_inputs(cfg, params, tokens):
     la, xw = M._discretize(xh, dt, lp["a_log"])
     t = cfg.ssm.chunk
     bsz, _, h, p = xh.shape
-    first = [a[:, :t].contiguous() for a in (la, xw, b_mat, c_mat)]
-    _, state = ssd_chunk(*first, xh.new_zeros((bsz, h, cfg.ssm.d_state, p)))
-    return [a[:, t:2 * t].contiguous() for a in (la, xw, b_mat, c_mat)] \
-        + [state]
+    zero = xh.new_zeros((bsz, h, cfg.ssm.d_state, p))
+    layer = [la, xw, b_mat.contiguous(), c_mat.contiguous(), zero]
+    first = [a[:, :t].contiguous() for a in layer[:4]]
+    _, state = ssd_chunk(*first, zero)
+    chunk = [a[:, t:2 * t].contiguous() for a in layer[:4]] + [state]
+    return layer, chunk
+
+
+def ssd_flops(bsz: int, s: int, t: int, h: int, n: int, p: int) -> int:
+    """The least work of the SSD over S steps in chunks of T: per chunk C·Bᵀ
+    once per batch row (B and C do not depend on the head) and, like the
+    decayed product with xw, on and below the diagonal only; C·state and
+    the state update in full."""
+    return s // t * (bsz * t * (t + 1) * n
+                     + bsz * h * (t * (t + 1) * p + 4 * t * n * p))
 
 
 def ssd_times(lm: dict) -> tuple[dict, list]:
-    """Phase 10: K5 at the main-path shape, bf16 (the row) and f32."""
+    """Phase 10: K5 at the main-path shape, bf16 (the row) and f32: one
+    layer's whole scan (one launch), and one chunk beside it."""
     import torch
 
     from repro_torch.kernels.ssd_chunk.kernel import (ssd_chunk,
                                                       ssd_chunk_plain)
+    from repro_torch.kernels.ssd_chunk.ops import ssd_scan
 
     cfg = lm["cfg"]
+    t = cfg.ssm.chunk
     out, f32_args = {}, None
     for name, params in (("bfloat16", lm["params_bf"]),
                          ("float32", lm["params"])):
-        args = ssd_main_inputs(cfg, params, lm["tokens"])
+        layer, chunk = ssd_main_inputs(cfg, params, lm["tokens"])
         if name == "float32":
-            f32_args = args
-        bsz, t, h, p = args[1].shape
-        n = args[2].shape[-1]
-        kern = lambda: ssd_chunk(*args)                      # noqa: E731
-        plain = lambda: ssd_chunk_plain(*args)               # noqa: E731
-        got = kern()
-        abs_err, rel = ssd_errors(got, plain())
-        tol = KERNEL_TOL[name]
-        if not rel <= tol:
-            raise AssertionError(f"ssd_chunk {name}: kernel vs plain rel err "
-                                 f"{rel:.3e} > {tol:.0e} at the main-path "
-                                 f"shape")
-        nbytes = tensor_bytes(*args, *got)
-        # the least work: C·Bᵀ once per batch row (B and C do not depend on
-        # the head) and, like the decayed product with xw, on and below the
-        # diagonal only; C·state and the state update in full
-        flops = bsz * t * (t + 1) * n \
-            + bsz * h * (t * (t + 1) * p + 4 * t * n * p)
+            f32_args = (layer, chunk)
         rate = BF16_FLOPS_PER_S if name == "bfloat16" else FP32_FLOPS_PER_S
-        bms, by = bound_ms(nbytes, flops, rate)
-        row = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
-               "bound_ms": bms, "bound_by": by, "max_abs_err": abs_err,
-               "rel_err": rel, "bytes": nbytes, "flops": flops}
-        out[name] = row
-        print(f"[kernel] ssd_chunk {name} B={bsz} T={t} H={h} N={n} P={p} "
-              f"rel_err={rel:.2e} ms={row['ms']:.4f} "
-              f"plain_ms={row['plain_ms']:.4f} library_ms=none "
-              f"bound_ms={bms:.4f} ({by}, {nbytes} B, {flops} flop) "
-              f"launches={lm['launches']} (lm prefill f32, B=2, S=4096)",
-              flush=True)
-        del got
+        tol = KERNEL_TOL[name]
+        rows = {}
+        for part, args, kern, plain, batch in (
+                ("layer", layer,
+                 lambda a=layer: ssd_scan(*a, chunk=t),
+                 lambda a=layer: ssd_scan(*a, chunk=t, use_kernel="ref"), 5),
+                ("chunk", chunk, lambda a=chunk: ssd_chunk(*a),
+                 lambda a=chunk: ssd_chunk_plain(*a), BATCH)):
+            got = kern()
+            abs_err, rel = ssd_errors(got, plain())
+            if not rel <= tol:
+                raise AssertionError(f"ssd {part} {name}: kernel vs plain rel "
+                                     f"err {rel:.3e} > {tol:.0e} at the "
+                                     f"main-path shape")
+            bsz, s, h, p = args[1].shape
+            n = args[2].shape[-1]
+            nbytes = tensor_bytes(*args, *got)
+            flops = ssd_flops(bsz, s, t, h, n, p)
+            bms, by = bound_ms(nbytes, flops, rate)
+            row = {"ms": time_ms(kern), "plain_ms": time_ms(plain, batch),
+                   "bound_ms": bms, "bound_by": by, "max_abs_err": abs_err,
+                   "rel_err": rel, "bytes": nbytes, "flops": flops}
+            rows[part] = row
+            print(f"[kernel] ssd_chunk {name} {part} B={bsz} S={s} T={t} "
+                  f"H={h} N={n} P={p} rel_err={rel:.2e} ms={row['ms']:.4f} "
+                  f"plain_ms={row['plain_ms']:.4f} library_ms=none "
+                  f"bound_ms={bms:.4f} ({by}, {nbytes} B, {flops} flop) "
+                  f"launches={lm['launches']} (lm prefill f32, B=2, "
+                  f"S=4096)", flush=True)
+            del got
+        out[name] = dict(rows["layer"], chunk=rows["chunk"])
     bf = out["bfloat16"]
     row = {"name": "ssd_chunk", "route": "cuda", "source": SSD_SOURCE,
            "replaces": KERNELS["ssd_chunk"], "launches": lm["launches"],
@@ -1013,26 +1072,47 @@ def ssd_times(lm: dict) -> tuple[dict, list]:
            "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
            "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
            "bound_by": bf["bound_by"], "library_ms": None,
-           "dtype": "bfloat16", "float32": out["float32"]}
+           "dtype": "bfloat16", "per": "layer (S=4096, 32 chunks)",
+           "chunk": bf["chunk"], "float32": out["float32"]}
     return row, f32_args
 
 
 def ssd_control(args) -> None:
-    """Phase 11: K5 with the last time step of xw zeroed must fail."""
+    """Phase 11: K5 with the last time step of xw zeroed, and K5's chain
+    with the carried state zeroed between chunks, must each fail the check
+    against the intact plain result."""
+    import torch
+
     from repro_torch.kernels.ssd_chunk.kernel import (ssd_chunk,
                                                       ssd_chunk_plain)
+    from repro_torch.kernels.ssd_chunk.ops import ssd_scan
 
-    la, xw, b_mat, c_mat, state = args
+    layer, chunk = args
+    tol = KERNEL_TOL["float32"]
+    la, xw, b_mat, c_mat, state = chunk
     bad = xw.clone()
     bad[:, -1] = 0
     _, rel = ssd_errors(ssd_chunk(la, bad, b_mat, c_mat, state),
-                        ssd_chunk_plain(*args))
-    tol = KERNEL_TOL["float32"]
+                        ssd_chunk_plain(*chunk))
     if not rel > tol:
         raise AssertionError(f"ssd_chunk with xw's last step zeroed gave rel "
                              f"err {rel:.3e}, which passes {tol:.0e}")
     print(f"[control] ssd_chunk float32 with xw's last time step zeroed: "
           f"rel err {rel:.3e} > {tol:.0e}, caught", flush=True)
+
+    t = chunk[0].shape[1]
+    la, xw, b_mat, c_mat, zero = layer
+    parts = [ssd_chunk(la[:, i:i + t], xw[:, i:i + t], b_mat[:, i:i + t],
+                       c_mat[:, i:i + t], zero)
+             for i in range(0, la.shape[1], t)]
+    reset = (torch.cat([y for y, _ in parts], dim=1), parts[-1][1])
+    _, rel = ssd_errors(reset, ssd_scan(*layer, chunk=t, use_kernel="ref"))
+    if not rel > tol:
+        raise AssertionError(f"the scan with its state zeroed between chunks "
+                             f"gave rel err {rel:.3e}, which passes "
+                             f"{tol:.0e}")
+    print(f"[control] ssd_scan float32 with the carried state zeroed between "
+          f"chunks: rel err {rel:.3e} > {tol:.0e}, caught", flush=True)
 
 
 def main(argv=None) -> int:

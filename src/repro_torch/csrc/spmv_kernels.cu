@@ -9,8 +9,8 @@
 // Shared design points:
 //   * The TPU kernels carried the output tile from one grid step to the next
 //     and re-zeroed it when the row id changed. CUDA blocks run in no order,
-//     so each output element belongs to exactly one thread (K2, K3) or one
-//     warp (K1, K4), which loops over that row's chunks or blocks and writes
+//     so each output element belongs to exactly one thread (K2) or one
+//     warp (K1, K3, K4), which loops over that row's chunks or blocks and writes
 //     once. A warp's partial sums meet in a fixed butterfly of shuffles. The
 //     result is deterministic and needs no atomics and no zero-fill.
 //   * Every product is a scalar FMA in the accumulator type (the operand
@@ -20,11 +20,11 @@
 //     matrices.
 //   * Sparse matrix-vector products move far more bytes than they compute
 //     (2 flops per 8 stored bytes in f32), so all four are bounded by device
-//     memory bandwidth (3.35 TB/s on an H100 SXM), not by arithmetic. K1 and
-//     K4 read the matrix with 16-byte loads, neighbouring lanes on
+//     memory bandwidth (3.35 TB/s on an H100 SXM), not by arithmetic. K1,
+//     K3 and K4 read the matrix with 16-byte loads, neighbouring lanes on
 //     neighbouring addresses (512 contiguous bytes per warp load), streamed
-//     past L1; K2 and K3 still give a row to a thread and do not coalesce
-//     their matrix loads (see each note).
+//     past L1; K3 and K4 share one body. K2 still gives a row to a thread
+//     and does not coalesce its matrix loads (see its note).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,7 +70,7 @@ __device__ __forceinline__ T group_sum(T v, int width) {
   return v;
 }
 
-constexpr int kWarps = 8;  // warps per thread block of K1 and K4
+constexpr int kWarps = 8;  // warps per thread block of K1, K3 and K4
 
 // ---------------------------------------------------------------------------
 // K1 sell_spmv — replaces the Pallas kernel sell_spmm (body _sell_kernel) in
@@ -224,78 +224,39 @@ __global__ void sell_spmm_kernel(const T* __restrict__ vals,
 }
 
 // ---------------------------------------------------------------------------
-// K3 bcsr_spmv — replaces the Pallas kernel bcsr_spmm (body _bcsr_kernel) in
-// src/repro/kernels/bcsr_spmv/kernel.py.
+// K3 bcsr_spmv and K4 bell_spmv share their bodies: both walk the stored
+// blocks g0 .. g1 of one block row r, each a dense [bm, bn] block at
+// blocks + g * bm * bn whose block column is block_cols[g], and write
+// y[r, :, :]. K4 (Block-ELL) gives every block row K slots, g = r * K + kk;
+// K3 (BCSR) reads g0 and g1 from its row pointer.
 //
-// y[r, i, v] = sum over blocks g of block row r (block_rowptr[r] ..
-// block_rowptr[r + 1]) and jj < bn of blocks[g, i, jj] * x2d[cols[g], jj, v]
-// blocks [Tb, bm, bn]; x2d [ncb, bn, nv]; y [nbr, bm, nv].
-//
-// One thread block per block row; its threads run over (bm x nv) and each
-// loops over the row's blocks and over bn with scalar FMAs. Bound: bytes
-// (each dense block read once: bm * bn values per block). With bm = 8 and
-// nv = 1 only 8 threads of a warp work, and a block's rows are bn values
-// apart, so loads are not coalesced; a warp per block, or wgmma on bm = 64
-// tiles, is later work.
-template <typename T>
-__global__ void bcsr_spmv_kernel(const T* __restrict__ blocks,
-                                 const int32_t* __restrict__ block_cols,
-                                 const int64_t* __restrict__ block_rowptr,
-                                 const T* __restrict__ x, T* __restrict__ y,
-                                 int64_t bm, int64_t bn, int64_t nv) {
-  int64_t r = blockIdx.x;
-  int64_t g0 = block_rowptr[r];
-  int64_t g1 = block_rowptr[r + 1];
-  for (int64_t e = threadIdx.x; e < bm * nv; e += blockDim.x) {
-    int64_t i = e / nv;
-    int64_t v = e - i * nv;
-    T acc = 0;
-    for (int64_t g = g0; g < g1; ++g) {
-      const T* a = blocks + (g * bm + i) * bn;
-      const T* xb = x + (int64_t)block_cols[g] * bn * nv + v;
-      for (int64_t jj = 0; jj < bn; ++jj) {
-        acc = fma_acc(a[jj], xb[jj * nv], acc);
-      }
-    }
-    y[(r * bm + i) * nv + v] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K4 bell_spmv — replaces the Pallas kernel bell_spmm (body _bell_kernel) in
-// src/repro/kernels/bell_spmv/kernel.py.
-//
-// y[r, i, v] = sum over kk < K and jj < bn of
-//              blocks[r, kk, i, jj] * x2d[block_cols[r, kk], jj, v]
-// blocks [nbr, K, bm, bn] (padding blocks are zero); block_cols [nbr, K].
-//
-// Bound: bytes (every stored block, padding included, is read once; x2d,
-// 4 MB at the Fig. 1 shape, stays in L2). One warp per block row, kWarps
-// block rows per thread block. For each slot kk the warp reads the block
-// column once (one broadcast load) and each lane loads its 16-byte share of
-// the x segment x2d[col, :, 0] once; then, for each of the block's bm <= R
-// rows, one 16-byte load per lane of that row (a 512-byte coalesced warp
-// load in f32 at bn = 128), all R issued before their FMAs and streamed
-// past L1. Each lane keeps R partial sums; after the last slot each row is
-// summed over the warp and lane i writes y[r, i, 0]. This body takes
-// nv = 1, bm <= 16 and bn a multiple of kN with aligned bases (lanes stride
-// by 32 vectors when bn > 32 * kN and idle when bn < 32 * kN).
+// Bound: bytes (every stored block is read once; x2d, 4 MB at the Fig. 1
+// shape, stays in L2). One warp per block row, kWarps block rows per
+// thread block. For each block the warp reads the block column once (one
+// broadcast load) and each lane loads its 16-byte share of the x segment
+// x2d[col, :, 0] once; then, for each of the block's bm <= R rows, one
+// 16-byte load per lane of that row (a 512-byte coalesced warp load in f32
+// at bn = 128), all R issued before their FMAs and streamed past L1. Each
+// lane keeps R partial sums; after the last block each row is summed over
+// the warp and lane i writes y[r, i, 0]. This body takes nv = 1, bm <= 16
+// and bn a multiple of kN with aligned bases (lanes stride by 32 vectors
+// when bn > 32 * kN and idle when bn < 32 * kN). A block row with no block
+// (g0 == g1) writes zeros. On power-law matrices a warp per block row is
+// load-imbalanced: a long block row holds its warp while the others idle.
 template <typename T, int R>
-__global__ void __launch_bounds__(kWarps * 32)
-    bell_spmv_kernel(const T* __restrict__ blocks,
-                     const int32_t* __restrict__ block_cols,
-                     const T* __restrict__ x, T* __restrict__ y, int64_t nbr,
-                     int64_t K, int64_t bm, int64_t bn) {
+__device__ __forceinline__ void block_row_vec(const T* __restrict__ blocks,
+                                              const int32_t* __restrict__ block_cols,
+                                              const T* __restrict__ x,
+                                              T* __restrict__ y, int64_t r,
+                                              int64_t g0, int64_t g1,
+                                              int64_t bm, int64_t bn) {
   using V = typename Vec16<T>::V;
   constexpr int kN = Vec16<T>::kN;
-  const int64_t r = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
-  if (r >= nbr) return;
   const int lane = threadIdx.x % 32;
   T acc[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = 0;
-  for (int64_t kk = 0; kk < K; ++kk) {
-    const int64_t g = r * K + kk;
+  for (int64_t g = g0; g < g1; ++g) {
     const T* blk = blocks + g * bm * bn;
     const T* xs = x + (int64_t)block_cols[g] * bn;
     for (int64_t j = (int64_t)lane * kN; j < bn; j += 32 * kN) {
@@ -325,25 +286,23 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (lane < bm) y[r * bm + lane] = out;
 }
 
-// K4 for every other shape (nv > 1, bm > 16, bn not a multiple of kN, or a
-// base not aligned for 16-byte loads): one warp per block row, one row at a
-// time, lanes striding over bn with scalar loads, then a sum over the warp;
-// grid.y walks the columns v.
+// The body for every other shape (nv > 1, bm > 16, bn not a multiple of
+// kN, or a base not aligned for 16-byte loads): one warp per block row, one
+// row at a time, lanes striding over bn with scalar loads, then a sum over
+// the warp; grid.y walks the columns v.
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-    bell_spmv_rows_kernel(const T* __restrict__ blocks,
-                          const int32_t* __restrict__ block_cols,
-                          const T* __restrict__ x, T* __restrict__ y,
-                          int64_t nbr, int64_t K, int64_t bm, int64_t bn,
-                          int64_t nv) {
-  const int64_t r = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
-  if (r >= nbr) return;
+__device__ __forceinline__ void block_row_scalar(const T* __restrict__ blocks,
+                                                 const int32_t* __restrict__ block_cols,
+                                                 const T* __restrict__ x,
+                                                 T* __restrict__ y, int64_t r,
+                                                 int64_t g0, int64_t g1,
+                                                 int64_t bm, int64_t bn,
+                                                 int64_t nv) {
   const int lane = threadIdx.x % 32;
   for (int64_t v = blockIdx.y; v < nv; v += gridDim.y) {
     for (int64_t i = 0; i < bm; ++i) {
       T acc = 0;
-      for (int64_t kk = 0; kk < K; ++kk) {
-        const int64_t g = r * K + kk;
+      for (int64_t g = g0; g < g1; ++g) {
         const T* a = blocks + (g * bm + i) * bn;
         const T* xb = x + (int64_t)block_cols[g] * bn * nv + v;
         for (int64_t jj = lane; jj < bn; jj += 32) {
@@ -356,13 +315,74 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-constexpr int kThreads = 256;
-
-// threads for the block-format kernels: bm * nv rounded up to a warp
-inline int block_threads(int64_t bm, int64_t nv) {
-  int64_t t = ceil_div(bm * nv, 32) * 32;
-  return (int)(t < kThreads ? t : kThreads);
+// K3 bcsr_spmv — replaces the Pallas kernel bcsr_spmm (body _bcsr_kernel) in
+// src/repro/kernels/bcsr_spmv/kernel.py.
+//
+// y[r, i, v] = sum over blocks g of block row r (block_rowptr[r] ..
+// block_rowptr[r + 1], int64) and jj < bn of
+//              blocks[g, i, jj] * x2d[block_cols[g], jj, v]
+// blocks [Tb, bm, bn]; block_cols [Tb] int32; x2d [ncb, bn, nv];
+// y [nbr, bm, nv]. The bodies are block_row_vec and block_row_scalar.
+template <typename T, int R>
+__global__ void __launch_bounds__(kWarps * 32)
+    bcsr_spmv_kernel(const T* __restrict__ blocks,
+                     const int32_t* __restrict__ block_cols,
+                     const int64_t* __restrict__ block_rowptr,
+                     const T* __restrict__ x, T* __restrict__ y, int64_t nbr,
+                     int64_t bm, int64_t bn) {
+  const int64_t r = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (r >= nbr) return;
+  block_row_vec<T, R>(blocks, block_cols, x, y, r, block_rowptr[r],
+                      block_rowptr[r + 1], bm, bn);
 }
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+    bcsr_spmv_rows_kernel(const T* __restrict__ blocks,
+                          const int32_t* __restrict__ block_cols,
+                          const int64_t* __restrict__ block_rowptr,
+                          const T* __restrict__ x, T* __restrict__ y,
+                          int64_t nbr, int64_t bm, int64_t bn, int64_t nv) {
+  const int64_t r = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (r >= nbr) return;
+  block_row_scalar<T>(blocks, block_cols, x, y, r, block_rowptr[r],
+                      block_rowptr[r + 1], bm, bn, nv);
+}
+
+// ---------------------------------------------------------------------------
+// K4 bell_spmv — replaces the Pallas kernel bell_spmm (body _bell_kernel) in
+// src/repro/kernels/bell_spmv/kernel.py.
+//
+// y[r, i, v] = sum over kk < K and jj < bn of
+//              blocks[r, kk, i, jj] * x2d[block_cols[r, kk], jj, v]
+// blocks [nbr, K, bm, bn] (padding blocks are zero, and read like the
+// rest); block_cols [nbr, K]. The bodies are block_row_vec and
+// block_row_scalar over g = r * K .. r * K + K.
+template <typename T, int R>
+__global__ void __launch_bounds__(kWarps * 32)
+    bell_spmv_kernel(const T* __restrict__ blocks,
+                     const int32_t* __restrict__ block_cols,
+                     const T* __restrict__ x, T* __restrict__ y, int64_t nbr,
+                     int64_t K, int64_t bm, int64_t bn) {
+  const int64_t r = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (r >= nbr) return;
+  block_row_vec<T, R>(blocks, block_cols, x, y, r, r * K, r * K + K, bm, bn);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+    bell_spmv_rows_kernel(const T* __restrict__ blocks,
+                          const int32_t* __restrict__ block_cols,
+                          const T* __restrict__ x, T* __restrict__ y,
+                          int64_t nbr, int64_t K, int64_t bm, int64_t bn,
+                          int64_t nv) {
+  const int64_t r = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (r >= nbr) return;
+  block_row_scalar<T>(blocks, block_cols, x, y, r, r * K, r * K + K, bm, bn,
+                      nv);
+}
+
+constexpr int kThreads = 256;
 
 template <typename T>
 int launch_sell_spmm(const void* vals, const void* cols, const void* ptr,
@@ -415,15 +435,33 @@ int launch_sell_spmv(const void* vals, const void* cols, const void* ptr,
   return (int)cudaGetLastError();
 }
 
+// true when the block-format bodies must take the scalar path
+template <typename T>
+bool block_rows_scalar(const void* blocks, const void* x, int64_t bm,
+                       int64_t bn, int64_t nv) {
+  return nv != 1 || bm > 16 || bn % Vec16<T>::kN != 0 ||
+         !aligned(blocks, 16) || !aligned(x, 16);
+}
+
 template <typename T>
 int launch_bcsr_spmv(const void* blocks, const void* cols, const void* rowptr,
                      const void* x, void* y, int64_t nbr, int64_t bm,
                      int64_t bn, int64_t nv, void* stream) {
   if (nbr * bm * nv == 0) return 0;
-  bcsr_spmv_kernel<T><<<(unsigned)nbr, block_threads(bm, nv), 0,
-                        (cudaStream_t)stream>>>(
-      (const T*)blocks, (const int32_t*)cols, (const int64_t*)rowptr,
-      (const T*)x, (T*)y, bm, bn, nv);
+  const dim3 grid = warp_grid(nbr, nv);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (block_rows_scalar<T>(blocks, x, bm, bn, nv)) {
+    bcsr_spmv_rows_kernel<T><<<grid, kWarps * 32, 0, st>>>(
+        (const T*)blocks, (const int32_t*)cols, (const int64_t*)rowptr,
+        (const T*)x, (T*)y, nbr, bm, bn, nv);
+    return (int)cudaGetLastError();
+  }
+  auto kernel = bm <= 4   ? bcsr_spmv_kernel<T, 4>
+                : bm <= 8 ? bcsr_spmv_kernel<T, 8>
+                          : bcsr_spmv_kernel<T, 16>;
+  kernel<<<grid, kWarps * 32, 0, st>>>((const T*)blocks, (const int32_t*)cols,
+                                       (const int64_t*)rowptr, (const T*)x,
+                                       (T*)y, nbr, bm, bn);
   return (int)cudaGetLastError();
 }
 
@@ -432,11 +470,9 @@ int launch_bell_spmv(const void* blocks, const void* cols, const void* x,
                      void* y, int64_t nbr, int64_t K, int64_t bm, int64_t bn,
                      int64_t nv, void* stream) {
   if (nbr * bm * nv == 0) return 0;
-  constexpr int kN = Vec16<T>::kN;
   const dim3 grid = warp_grid(nbr, nv);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (nv != 1 || bm > 16 || bn % kN != 0 || !aligned(blocks, 16) ||
-      !aligned(x, 16)) {
+  if (block_rows_scalar<T>(blocks, x, bm, bn, nv)) {
     bell_spmv_rows_kernel<T><<<grid, kWarps * 32, 0, st>>>(
         (const T*)blocks, (const int32_t*)cols, (const T*)x, (T*)y, nbr, K,
         bm, bn, nv);

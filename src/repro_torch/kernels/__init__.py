@@ -4,7 +4,8 @@
   sell_spmm  — K2, k-tiled SELL-C-σ SpMM    (SellOperator.matmul)
   bcsr_spmv  — K3, BCSR SpMV/SpMM           (BcsrOperator)
   bell_spmv  — K4, Block-ELL SpMV/SpMM      (BellOperator)
-  ssd_chunk  — K5, one fused Mamba2 SSD chunk (ssd_scan, the Zamba2 prefill)
+  ssd_chunk  — K5, the fused Mamba2 SSD over a sequence, one launch per
+               layer (ssd_scan, the Zamba2 prefill)
 
 The sources are `repro_torch/csrc/*.cu`, compiled with nvcc at first use
 (_build.py). Each kernel module holds the wrapper that launches the kernel

@@ -42,7 +42,7 @@ KERNELS = {
     "sell_spmm": (5, 5, (_F32, _F64)),
     "bcsr_spmv": (5, 4, (_F32, _F64)),
     "bell_spmv": (4, 5, (_F32, _F64)),
-    "ssd_chunk": (7, 10, (_F32, _BF16)),
+    "ssd_scan": (7, 10, (_F32, _BF16)),
 }
 _SUFFIX = {_F32: "f32", _F64: "f64", _BF16: "bf16"}
 _INDEX = {"_i32": torch.int32, "_i64": torch.int64, "_f32": torch.float32}

@@ -2,7 +2,10 @@
 
 Replaces the Pallas kernel `bcsr_spmm` (body `_bcsr_kernel`) of
 src/repro/kernels/bcsr_spmv/kernel.py. The kernel and its note are in
-repro_torch/csrc/spmv_kernels.cu (`bcsr_spmv_kernel`).
+repro_torch/csrc/spmv_kernels.cu: `bcsr_spmv_kernel`, one warp per block
+row with 16-byte loads (the body K4 uses, over the row pointer's blocks),
+or `bcsr_spmv_rows_kernel` for nv > 1 and the other shapes it does not
+take.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Mamba2 (SSD) block — chunked state-space dual form [Dao & Gu 2024].
 
-Prefill: the sequence is padded to a multiple of `chunk` and scanned chunk
-by chunk by `ssd_scan`, one launch of the fused K5 kernel per chunk on the
-card. Decode: the O(1) recurrent state update, in torch ops.
+Prefill: the sequence is padded to a multiple of `chunk` and scanned by
+`ssd_scan`, one launch of the fused K5 kernel per layer on the card (81 for
+the Zamba2-7B prefill), which walks the chunks itself. Decode: the O(1) recurrent state update, in torch ops.
 
 As in the reference: a single B/C group, a scalar A per head, a causal conv
 of width 4. State cache = (conv_state [B, W-1, d_conv_ch], ssm_state
@@ -83,7 +83,7 @@ def _ssd_chunked(xh, dt, a_log, b_mat, c_mat, chunk, init_state=None,
     Returns (y [B,S,H,P], final_state [B,H,N,P]).
 
     The log decay is f32 and the discretized input is in xh's type, as the
-    reference prepares them; ssd_scan then runs K5 chunk by chunk."""
+    reference prepares them; ssd_scan then runs K5 once over all chunks."""
     b, s, h, p = xh.shape
     n = b_mat.shape[-1]
     la, xw = _discretize(xh, dt, a_log)

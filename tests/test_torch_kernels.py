@@ -143,8 +143,9 @@ def test_slice_chunk_ptr_covers_chunks():
 
 
 @pytest.mark.parametrize("kind", ["power_law", "holes"])
-@pytest.mark.parametrize("bm,bn", [(8, 16), (8, 128), (4, 4)])
-@pytest.mark.parametrize("nv", [1, 3])
+@pytest.mark.parametrize("bm,bn", [(8, 16), (8, 128), (4, 4), (16, 100),
+                                   (4, 128), (16, 128)])
+@pytest.mark.parametrize("nv", [1, 3, 8])
 def test_bcsr_operator_matches_pallas(kind, bm, bn, nv):
     rm = _mat(kind)
     h = ref_to_bcsr(rm, bm, bn)
@@ -276,3 +277,22 @@ def test_every_bound_launcher_is_defined_in_the_sources(name, dtype):
     assert sum("*" in p for p in params[:-1]) == nptr
     assert sum(p.startswith("long long ") for p in params) == nint
     assert len(params) == nptr + nint + 1
+
+
+def test_bcsr_and_bell_share_their_block_row_bodies():
+    """K3 and K4 run one warp-per-block-row body each for the 16-byte path
+    and the scalar path; only the block range differs (K3's row pointer,
+    K4's K slots), and both launchers send the same shapes to the scalar
+    body."""
+    text = _build.SOURCES[0].read_text()
+    for kernel, body in (("bcsr_spmv_kernel", "block_row_vec<T, R>"),
+                         ("bell_spmv_kernel", "block_row_vec<T, R>"),
+                         ("bcsr_spmv_rows_kernel", "block_row_scalar<T>"),
+                         ("bell_spmv_rows_kernel", "block_row_scalar<T>")):
+        start = text.index(f"    {kernel}(")
+        assert body in text[start:text.index("\n}\n", start)], kernel
+    assert "block_rowptr[r],\n" in text and "block_rowptr[r + 1]" in text
+    for launcher in ("launch_bcsr_spmv", "launch_bell_spmv"):
+        start = text.index(f"int {launcher}(")
+        assert "block_rows_scalar<T>(blocks, x, bm, bn, nv)" in \
+            text[start:text.index("\n}\n", start)]
