@@ -14,13 +14,16 @@ the run with a nonzero exit code (nothing is caught):
                   build/repro_torch/;
  3. kernels     — each SpMV kernel against its plain torch version on the
                   card at small random shapes, float32 and float64, through
-                  every body of K1, K3 and K4: σ-sorted SELL with empty
-                  slices at C = 8, 32 and W = 8, 32, 128 (K1 at nv = 1, 3;
-                  K2 at widths 1, 3, 8, 33), BCSR with empty block rows and
-                  Block-ELL with padding blocks, each at bm = 4, 8, 16 and
-                  bn = 16, 100, 128 (and 4 × 4) at nv = 1, 3, 8, and K1, K3
-                  and K4 once more with their values off a 16-byte
-                  boundary; then K5 through both of its bodies: single
+                  every body of K1-K4: σ-sorted SELL with empty slices at
+                  C = 8, 32 and W = 8, 32, 128 (K1 at nv = 1, 3; K2 at
+                  widths 1, 3, 4, 8, 16, 32, 33, 36, 64: its vector body at
+                  k-tiles of 8, 16 and 32 with ragged and second tiles, its
+                  scalar body at odd k), BCSR with
+                  empty block rows and Block-ELL with padding blocks, each
+                  at bm = 4, 8, 16 and bn = 16, 100, 128 (and 4 × 4) at
+                  nv = 1, 3, 8, and every kernel once more with its values
+                  off a 16-byte boundary (K2 also with x off one); then K5
+                  through both of its bodies: single
                   chunks (T = 8 .. 128, several B·H, a nonzero incoming
                   state, f32 and bf16), scans of 3 and 4 chunks against
                   ssd_scan(use_kernel="ref"), a scan over batch-strided
@@ -40,7 +43,8 @@ the run with a nonzero exit code (nothing is caught):
                   its plain version (error; ms per call, see time_ms), its
                   byte bound and torch's CSR SpMV/SpMM on the same matrix
                   with int32 and with int64 indices (the faster is the
-                  row's library_ms);
+                  row's library_ms); then K2 once more at k = 32 (error,
+                  ms, bound, library; kept in K2's row as "k32");
  7. controls    — planted faults at the main-path shape must fail the
                   checks: each kernel with its largest stored chunk or
                   block dropped, and a diagonal-only operator under verify;
@@ -120,6 +124,8 @@ VERIFY_TOL = 1e-4
 ITERS = 20
 BATCH = 20                       # kernel times: calls per CUDA event pair
 BATCHES = 5                      # kernel times: event pairs, median taken
+K2_WIDTHS = (1, 3, 4, 8, 16, 32, 33, 36, 64)   # K2 at small shapes
+K2_WIDE = 32                     # K2's second width at the main-path shape
 
 KERNELS = {
     "sell_spmv": "src/repro/kernels/sell_spmv/kernel.py:50",
@@ -294,8 +300,8 @@ def small_matrices():
 def misaligned(op, attr: str):
     """A shallow copy of `op` whose `attr` holds the same values one element
     past an aligned base (the allocator's blocks start on 512 bytes), which
-    sends K1, K3 and K4 to their scalar bodies (and K5 in bf16 to its
-    CUDA-core body)."""
+    sends K1-K4 to their scalar bodies (and K5 in bf16 to its CUDA-core
+    body)."""
     import copy
 
     out = copy.copy(op)
@@ -328,19 +334,30 @@ def kernels_small(dev) -> int:
     for mname, mat in small_matrices().items():
         for dtype in (torch.float32, torch.float64):
             # K1's bodies: 16-byte loads for W / kN a power of two <= 32
-            # (f32 W = 8, 32, 128; f64 W = 8, 32), scalar loads otherwise
+            # (f32 W = 8, 32, 128; f64 W = 8, 32), scalar loads otherwise.
+            # K2's: the staged vector body for k a multiple of kN (k-tiles
+            # of 8, 16 and 32 columns, 1 to 16 rows a lane; k = 4 and 36
+            # leave a tile part empty, k = 64 takes two tiles; W = 128
+            # takes 4 or 16 sub-chunks), the scalar body for k = 1, 3, 33
+            # (f32) and a base off 16 bytes
             for i, shape in enumerate((c, w) for c in (8, 32)
                                       for w in (8, 32, 128)):
                 op = make_engine(mat, "sell", dtype=dtype, block_shape=shape,
                                  sell_sigma=(64, mat.m)[i % 2], device=dev)
-                for k, spmm in ((1, False), (3, False), (1, True), (3, True),
-                                (8, True), (33, True)):
+                for k, spmm in ((1, False), (3, False),
+                                *((k, True) for k in K2_WIDTHS)):
                     x = torch_randn((mat.n, k), gen, dtype, dev)
                     check(f"{mname} {shape} k={k}", sell_calls, op, x,
                           spmm=spmm)
-                x = torch_randn((mat.n, 1), gen, dtype, dev)
-                check(f"{mname} {shape} misaligned", sell_calls,
-                      misaligned(op, "chunk_vals"), x)
+                bad_vals = misaligned(op, "chunk_vals")
+                for k, spmm in ((1, False), (8, True)):
+                    x = torch_randn((mat.n, k), gen, dtype, dev)
+                    check(f"{mname} {shape} k={k} values misaligned",
+                          sell_calls, bad_vals, x, spmm=spmm)
+                x = misaligned_tensor(torch_randn((mat.n, 8), gen, dtype,
+                                                  dev))
+                check(f"{mname} {shape} k=8 x misaligned", sell_calls, op, x,
+                      spmm=True)
             # K3's and K4's bodies: 16-byte loads at nv = 1 and bm <= 16
             # (R = 4, 8, 16), scalar loads for nv > 1, an odd bn or a
             # misaligned base
@@ -479,51 +496,88 @@ def library_csr(vmat, index_dtype, dev):
         check_invariants=False).to(dev, torch.float32)
 
 
+def kernel_work(op, calls, nv: int, xin) -> tuple[int, int]:
+    """(bytes, flops) the kernel's function needs on these inputs: the
+    stored matrix read once, x read once, y written once."""
+    if calls is sell_calls:
+        t, c, w = op.chunk_vals.shape
+        mat_bytes = tensor_bytes(op.chunk_vals, op.chunk_cols, op.slice_ptr)
+        flops = 2 * t * c * w * nv
+        y_elems = op.num_slices * c * nv
+    else:
+        mat_bytes = tensor_bytes(op.blocks, op.block_cols)
+        if calls is bcsr_calls:
+            mat_bytes += tensor_bytes(op.block_rowptr)
+        flops = 2 * op.blocks.numel() * nv
+        nbr = op.nbr if calls is bcsr_calls else op.blocks.shape[0]
+        y_elems = nbr * op.block_shape[0] * nv
+    return mat_bytes + tensor_bytes(xin) + y_elems * xin.element_size(), flops
+
+
+def kernel_time(op, calls, nv: int, x, xin, csrs, plain_ms: bool = True):
+    """One kernel at one shape: its error against its plain version (which
+    must be within the f32 tolerance), its ms, the plain version's ms (when
+    asked), its bound and torch's CSR product on the same matrix with int32
+    and int64 indices."""
+    name, kern, plain = calls(op, xin)
+    abs_err, rel = rel_err(kern(), plain())
+    if not rel <= KERNEL_TOL["float32"]:
+        raise AssertionError(f"{name} nv={nv}: kernel vs plain rel err "
+                             f"{rel:.3e} at the main-path shape")
+    nbytes, flops = kernel_work(op, calls, nv, xin)
+    bms, by = bound_ms(nbytes, flops)
+    xl = x.contiguous() if nv > 1 else x[:, 0].contiguous()
+    lib = {ix: time_ms(lambda a=a: a @ xl) for ix, a in csrs.items()}
+    lib_index = min(lib, key=lib.get)
+    out = {"name": name, "max_abs_err": abs_err, "rel_err": rel,
+           "ms": time_ms(kern),
+           "plain_ms": time_ms(plain) if plain_ms else None,
+           "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops,
+           "library_ms": lib[lib_index], "library_index": lib_index,
+           "library_int32_ms": lib["int32"], "library_int64_ms": lib["int64"]}
+    plain_s = f"{out['plain_ms']:.4f}" if plain_ms else "not timed"
+    print(f"[kernel] {name} nv={nv} rel_err={rel:.2e} ms={out['ms']:.4f} "
+          f"plain_ms={plain_s} library_ms={out['library_ms']:.4f} (CSR "
+          f"int32 {lib['int32']:.4f}, int64 {lib['int64']:.4f}) "
+          f"bound_ms={bms:.4f} ({by}, {nbytes} B, {flops} flop)",
+          flush=True)
+    return out
+
+
 def kernel_times(forced, vmat, dev, recs: dict) -> list:
+    """Phase 6: each SpMV kernel at the shape phase 5 gave it, and K2 once
+    more at k = K2_WIDE (its numbers kept inside K2's row)."""
     import torch
 
     csrs = {str(d).replace("torch.", ""): library_csr(vmat, d, dev)
             for d in (torch.int32, torch.int64)}
     rows = []
     for nv, op, calls, x, xin in kernel_inputs(forced, vmat, dev):
-        if calls is sell_calls:
-            t, c, w = op.chunk_vals.shape
-            mat_bytes = tensor_bytes(op.chunk_vals, op.chunk_cols,
-                                     op.slice_ptr)
-            flops = 2 * t * c * w * nv
-            y_elems = op.num_slices * c * nv
-        else:
-            mat_bytes = tensor_bytes(op.blocks, op.block_cols)
-            if calls is bcsr_calls:
-                mat_bytes += tensor_bytes(op.block_rowptr)
-            flops = 2 * op.blocks.numel() * nv
-            nbr = op.nbr if calls is bcsr_calls else op.blocks.shape[0]
-            y_elems = nbr * op.block_shape[0] * nv
-        name, kern, plain = calls(op, xin)
-        abs_err, rel = rel_err(kern(), plain())
-        if not rel <= KERNEL_TOL["float32"]:
-            raise AssertionError(f"{name}: kernel vs plain rel err {rel:.3e}"
-                                 f" at the main-path shape")
-        nbytes = mat_bytes + tensor_bytes(xin) + y_elems * 4
-        bms, by = bound_ms(nbytes, flops)
-        xl = x.contiguous() if nv > 1 else x[:, 0].contiguous()
-        lib = {ix: time_ms(lambda a=a: a @ xl) for ix, a in csrs.items()}
-        lib_index = min(lib, key=lib.get)
+        m = kernel_time(op, calls, nv, x, xin, csrs)
+        name = m["name"]
         path = FEEDS[name]
         launches = recs[path]["launches"][name]
         row = {"name": name, "route": "cuda", "source": SOURCE,
                "replaces": KERNELS[name], "launches": launches,
-               "launches_path": path, "max_abs_err": abs_err,
-               "ms": time_ms(kern), "plain_ms": time_ms(plain),
-               "bound_ms": bms, "bound_by": by,
-               "library_ms": lib[lib_index], "library_index": lib_index}
+               "launches_path": path, "max_abs_err": m["max_abs_err"],
+               "ms": m["ms"], "plain_ms": m["plain_ms"],
+               "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+               "library_ms": m["library_ms"],
+               "library_index": m["library_index"]}
+        print(f"[kernel] {name} nv={nv} launches={launches} ({path})",
+              flush=True)
+        if name == "sell_spmm":
+            # the plain version at k = 32 gathers 4.3 GB and takes ~0.1 s a
+            # call: it is held against the kernel once, not timed
+            xw = torch_randn((vmat.n, K2_WIDE), torch_generator(3),
+                             op.chunk_vals.dtype, dev)
+            wide = kernel_time(op, calls, K2_WIDE, xw, xw, csrs,
+                               plain_ms=False)
+            row[f"k{K2_WIDE}"] = {key: wide[key] for key in (
+                "max_abs_err", "rel_err", "ms", "bound_ms", "bound_by",
+                "library_int32_ms", "library_int64_ms")}
+            del xw
         rows.append(row)
-        print(f"[kernel] {name} nv={nv} rel_err={rel:.2e} "
-              f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-              f"library_ms={row['library_ms']:.4f} (CSR int32 "
-              f"{lib['int32']:.4f}, int64 {lib['int64']:.4f}) "
-              f"bound_ms={bms:.4f} ({by}, {nbytes} B, {flops} flop) "
-              f"launches={launches} ({path})", flush=True)
     return rows
 
 

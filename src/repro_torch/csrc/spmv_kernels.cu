@@ -9,10 +9,11 @@
 // Shared design points:
 //   * The TPU kernels carried the output tile from one grid step to the next
 //     and re-zeroed it when the row id changed. CUDA blocks run in no order,
-//     so each output element belongs to exactly one thread (K2) or one
-//     warp (K1, K3, K4), which loops over that row's chunks or blocks and writes
-//     once. A warp's partial sums meet in a fixed butterfly of shuffles. The
-//     result is deterministic and needs no atomics and no zero-fill.
+//     so each slice or block row belongs to exactly one warp (per k-tile in
+//     K2), which loops over that row's chunks or blocks and writes its
+//     outputs once. A warp's partial sums meet in a fixed butterfly of
+//     shuffles. The result is deterministic and needs no atomics and no
+//     zero-fill.
 //   * Every product is a scalar FMA in the accumulator type (the operand
 //     type: float for f32, double for f64, so always >= f32). No tensor
 //     core runs, so no TF32 rounding can enter.
@@ -20,11 +21,14 @@
 //     matrices.
 //   * Sparse matrix-vector products move far more bytes than they compute
 //     (2 flops per 8 stored bytes in f32), so all four are bounded by device
-//     memory bandwidth (3.35 TB/s on an H100 SXM), not by arithmetic. K1,
-//     K3 and K4 read the matrix with 16-byte loads, neighbouring lanes on
+//     memory bandwidth (3.35 TB/s on an H100 SXM), not by arithmetic. All
+//     four read the matrix with 16-byte loads, neighbouring lanes on
 //     neighbouring addresses (512 contiguous bytes per warp load), streamed
-//     past L1; K3 and K4 share one body. K2 still gives a row to a thread
-//     and does not coalesce its matrix loads (see its note).
+//     past L1 (K2 copies them into shared memory with cp.async); K3 and K4
+//     share one body; K2 also gathers each x row's k-tile as 16-byte
+//     vectors kept in L1 (see its note). Each kernel has a scalar body for
+//     the shapes and alignments its vector body does not take, chosen by
+//     its launcher.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -190,37 +194,209 @@ __global__ void __launch_bounds__(kWarps * 32)
 //              vals[t, c, w] * x[cols[t, c, w], j]
 // as K1, with x [n, k] and y [S, C, k].
 //
-// One thread per (slice row, column j). A thread block is (kt columns) x
-// (256 / kt rows); grid.x walks row groups, grid.y walks k-tiles of width
-// kt. Bound: bytes — each stored slot is read once per k-tile (value +
-// column, 8 bytes in f32) plus the x gathers.
+// Bound: bytes — each stored slot is read once per k-tile of KT columns
+// (value + int32 column, 8 bytes in f32), x and y once. Each slot also
+// gathers its x row's k-tile, at k = 8 in f32 a 32-byte sector, so a slot
+// costs 8 bytes of matrix and 32 bytes of x: 1.07 GB of L2-to-SM traffic
+// per call at the Fig. 1 shape, 4x the matrix. x (33.5 MB there) stays in
+// L2, and on a banded order neighbouring rows gather the same x rows, so
+// the gathers are laid out to touch few lines per warp load.
 //
-// The kt threads of one row read the same value and column (one broadcast
-// load) and neighbouring x elements x[col, j .. j + kt), so the x gather is
-// coalesced across the k-tile and the matrix is streamed ceil(k / kt) times
-// instead of k times. Its matrix loads are not coalesced across rows: in the
-// [T, C, W] layout neighbouring rows c, c + 1 read addresses W elements
-// apart and lean on L1 to reuse each line across the w loop.
+// Vector body (sell_spmm_kernel<T, KT, RPL>): one warp per slice and per
+// k-tile (grid.y walks the k-tiles). The warp copies each sub-chunk of the
+// slice (C rows x Wb slots, C * Wb <= 256) into shared memory with 16-byte
+// cp.async loads that bypass L1 (consecutive lanes on consecutive
+// addresses: 512 contiguous bytes per warp load at C = 8, W = 32), rows
+// padded by 16 bytes. It then walks the slots column by column, z = w * C +
+// r: lane group i = lane / NV (NV = KT / kN lanes, one 16-byte x vector
+// each) takes slots z = i + NS * n (NS = 32 / NV), so one warp load gathers
+// NS slots of C neighbouring rows at neighbouring w. On a banded order
+// their x rows lie close together, so the load touches few lines (a lane
+// that gathered one row's slots spread its warp load over the band). B = 4
+// slots per lane are in flight at a time. A lane adds kN products per slot
+// into acc[RPL][kN]: the rows i + NS * m (m < RPL = C / NS) when C > NS;
+// the row i % C when C <= NS, whose NS / C lanes then sum by shuffles after
+// the slice's last chunk. Each row's k-tile is stored as 16-byte vectors.
+// What bounds a warp that walks one slice is its instruction count, not its
+// loads, so every index is a shift or a mask of a power of two and none a
+// division (PERF.md has the measurements; pipelining the next slice's
+// chunk, or staging a window of x rows in shared memory, gained nothing).
+//
+// The body takes C a power of two <= 32, W a power of two >= 4, k a
+// multiple of kN, and 16-byte-aligned values, columns, x and y; a k-tile
+// past k loads and stores nothing.
+//
+// Scalar body (sell_spmm_rows_kernel) for every other shape: one warp per
+// slice and k-tile, a row at a time; lane = wl * kt + jc takes column
+// j0 + jc and the slots w = wl, wl + 32 / kt, ... of the row, with scalar
+// loads (the value and column broadcast to the kt lanes of a w group, x
+// coalesced over the columns), then a sum over the 32 / kt w groups by
+// shuffles. The launcher chooses between the bodies, as launch_sell_spmv
+// does for K1.
+
+constexpr int kStage = 256;  // slots of one staged sub-chunk (C x Wb)
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n"
+               "cp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Slots per row of a staged sub-chunk, and the bytes one warp stages (the
+// values' rows padded by one 16-byte vector, the columns' rows by four
+// ints); the launcher sizes the dynamic shared memory with the same sums.
+__host__ __device__ inline int64_t spmm_stage_width(int64_t C, int64_t W) {
+  return W < kStage / C ? W : kStage / C;
+}
 template <typename T>
-__global__ void sell_spmm_kernel(const T* __restrict__ vals,
-                                 const int32_t* __restrict__ cols,
-                                 const int64_t* __restrict__ slice_ptr,
-                                 const T* __restrict__ x, T* __restrict__ y,
-                                 int64_t rows, int64_t C, int64_t W,
-                                 int64_t k) {
-  int64_t j = (int64_t)blockIdx.y * blockDim.x + threadIdx.x;
-  int64_t row = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
-  if (row >= rows || j >= k) return;
-  int64_t s = row / C;
-  int64_t c = row - s * C;
-  T acc = 0;
-  for (int64_t t = slice_ptr[s]; t < slice_ptr[s + 1]; ++t) {
-    int64_t base = (t * C + c) * W;
-    for (int64_t w = 0; w < W; ++w) {
-      acc = fma_acc(vals[base + w], x[(int64_t)cols[base + w] * k + j], acc);
+__host__ __device__ inline int64_t spmm_stage_bytes(int64_t C, int64_t W) {
+  const int64_t wb = spmm_stage_width(C, W);
+  return C * ((wb + 16 / (int64_t)sizeof(T)) * (int64_t)sizeof(T) +
+              (wb + 4) * 4);
+}
+
+template <typename T, int KT, int RPL, int B = (RPL > 4 ? RPL : 4)>
+__global__ void __launch_bounds__(kWarps * 32)
+    sell_spmm_kernel(const T* __restrict__ vals,
+                     const int32_t* __restrict__ cols,
+                     const int64_t* __restrict__ slice_ptr,
+                     const T* __restrict__ x, T* __restrict__ y, int64_t S,
+                     int64_t C, int64_t W, int64_t k) {
+  using V = typename Vec16<T>::V;
+  constexpr int kN = Vec16<T>::kN;
+  constexpr int NV = KT / kN;  // lanes per slot, one x vector each
+  constexpr int NS = 32 / NV;  // slots per warp load
+  constexpr int kVP = 16 / (int)sizeof(T);
+  static_assert(B % RPL == 0, "a batch covers whole rounds of rows");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t s = (int64_t)blockIdx.x * kWarps + warp;
+  if (s >= S) return;
+  const int Ci = (int)C, lc = __ffs(Ci) - 1;
+  const int Wb = (int)spmm_stage_width(C, W), lw = __ffs(Wb) - 1;
+  const int pv = Wb + kVP, pc = Wb + 4;  // row pitches in shared memory
+  T* sv = reinterpret_cast<T*>(smem + warp * spmm_stage_bytes<T>(C, W));
+  int* sc = reinterpret_cast<int*>(sv + Ci * pv);
+  // staging: the values as C * Wb / kN vectors, the columns as C * Wb / 4
+  const int lvv = lw - __ffs(kN) + 1, nvv = Ci << lvv;
+  const int lvc = lw - 2, nvc = Ci << lvc;
+  // gathering: lane group i, vector v of each slot's x tile; slot n of the
+  // lane is row r0 + NS * (n % RPL) at w = wl + wstep * (n / RPL)
+  const int i = lane / NV, v = lane % NV;
+  const int r0 = RPL > 1 ? i : (i & (Ci - 1));
+  const int wl = RPL > 1 ? 0 : i >> lc;
+  const int wstep = RPL > 1 ? 1 : NS >> lc;
+  for (int64_t j0 = (int64_t)blockIdx.y * KT; j0 < k;
+       j0 += (int64_t)gridDim.y * KT) {
+    const bool on = j0 + v * kN < k;
+    const T* xv = x + j0 + v * kN;
+    T acc[RPL][kN];
+#pragma unroll
+    for (int m = 0; m < RPL; ++m) {
+#pragma unroll
+      for (int e = 0; e < kN; ++e) acc[m][e] = 0;
+    }
+    const int64_t t1 = slice_ptr[s + 1];
+    for (int64_t t = slice_ptr[s]; t < t1; ++t) {
+      for (int64_t wb = 0; wb < W; wb += Wb) {
+        const int64_t base = t * C * W + wb;
+        __syncwarp();  // the previous sub-chunk's reads are done
+        for (int u = lane; u < nvv; u += 32) {
+          const int r = u >> lvv, w = (u & ((1 << lvv) - 1)) * kN;
+          cp_async16(sv + r * pv + w, vals + base + (int64_t)r * W + w);
+        }
+        for (int u = lane; u < nvc; u += 32) {
+          const int r = u >> lvc, w = (u & ((1 << lvc) - 1)) * 4;
+          cp_async16(sc + r * pc + w, cols + base + (int64_t)r * W + w);
+        }
+        cp_async_wait_all();
+        __syncwarp();
+        for (int n0 = 0; wstep * (n0 / RPL) < Wb; n0 += B) {
+          T a[B];
+          V xt[B];
+#pragma unroll
+          for (int b = 0; b < B; ++b) {
+            const int w = wl + wstep * ((n0 + b) / RPL);
+            const int r = r0 + NS * (b % RPL);
+            if (w < Wb && on) {
+              a[b] = sv[r * pv + w];
+              xt[b] = __ldg(reinterpret_cast<const V*>(
+                  xv + (int64_t)sc[r * pc + w] * k));
+            }
+          }
+#pragma unroll
+          for (int b = 0; b < B; ++b) {
+            if (wl + wstep * ((n0 + b) / RPL) < Wb && on) {
+              const T* xe = reinterpret_cast<const T*>(&xt[b]);
+#pragma unroll
+              for (int e = 0; e < kN; ++e) {
+                acc[b % RPL][e] = fma_acc(a[b], xe[e], acc[b % RPL][e]);
+              }
+            }
+          }
+        }
+      }
+    }
+    // when C < NS the lane groups i, i + C, ... share row i % C
+    for (int off = Ci * NV; off < 32; off *= 2) {
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        acc[0][e] += __shfl_xor_sync(0xffffffffu, acc[0][e], off);
+      }
+    }
+    if (on && (RPL > 1 || i < Ci)) {
+#pragma unroll
+      for (int m = 0; m < RPL; ++m) {
+        V out;
+        T* oe = reinterpret_cast<T*>(&out);
+#pragma unroll
+        for (int e = 0; e < kN; ++e) oe[e] = acc[m][e];
+        *reinterpret_cast<V*>(y + (s * C + r0 + NS * m) * k + j0 + v * kN) =
+            out;
+      }
     }
   }
-  y[row * k + j] = acc;  // flat index of y[s, c, j]
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+    sell_spmm_rows_kernel(const T* __restrict__ vals,
+                          const int32_t* __restrict__ cols,
+                          const int64_t* __restrict__ slice_ptr,
+                          const T* __restrict__ x, T* __restrict__ y,
+                          int64_t S, int64_t C, int64_t W, int64_t k,
+                          int kt) {
+  const int64_t s = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (s >= S) return;
+  const int lane = threadIdx.x % 32;
+  const int jc = lane % kt, wl = lane / kt, nw = 32 / kt;
+  const int64_t t0 = slice_ptr[s], t1 = slice_ptr[s + 1];
+  for (int64_t j0 = (int64_t)blockIdx.y * kt; j0 < k;
+       j0 += (int64_t)gridDim.y * kt) {
+    const int64_t j = j0 + jc;
+    for (int64_t r = 0; r < C; ++r) {
+      T acc = 0;
+      if (j < k) {
+        for (int64_t t = t0; t < t1; ++t) {
+          const int64_t base = (t * C + r) * W;
+          for (int64_t w = wl; w < W; w += nw) {
+            acc = fma_acc(vals[base + w],
+                          x[(int64_t)cols[base + w] * k + j], acc);
+          }
+        }
+      }
+      for (int off = kt; off < 32; off *= 2) {
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      }
+      if (wl == 0 && j < k) y[(s * C + r) * k + j] = acc;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -382,26 +558,6 @@ __global__ void __launch_bounds__(kWarps * 32)
                       nv);
 }
 
-constexpr int kThreads = 256;
-
-template <typename T>
-int launch_sell_spmm(const void* vals, const void* cols, const void* ptr,
-                     const void* x, void* y, int64_t S, int64_t C, int64_t W,
-                     int64_t k, int64_t kt, void* stream) {
-  int64_t rows = S * C;
-  if (rows * k == 0) return 0;
-  if (kt <= 0 || kt > kThreads || kThreads % kt != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  dim3 block((unsigned)kt, (unsigned)(kThreads / kt));
-  dim3 grid((unsigned)ceil_div(rows, kThreads / kt),
-            (unsigned)ceil_div(k, kt));
-  sell_spmm_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const T*)vals, (const int32_t*)cols, (const int64_t*)ptr,
-      (const T*)x, (T*)y, rows, C, W, k);
-  return (int)cudaGetLastError();
-}
-
 // thread blocks of kWarps warps, one warp per item; grid.y walks nv
 inline dim3 warp_grid(int64_t items, int64_t nv) {
   return dim3((unsigned)ceil_div(items, kWarps),
@@ -432,6 +588,52 @@ int launch_sell_spmv(const void* vals, const void* cols, const void* ptr,
   kernel<<<grid, kWarps * 32, 0, st>>>((const T*)vals, (const int32_t*)cols,
                                        (const int64_t*)ptr, (const T*)x,
                                        (T*)y, S, C, W, nv);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+using SpmmBody = void (*)(const T*, const int32_t*, const int64_t*, const T*,
+                          T*, int64_t, int64_t, int64_t, int64_t);
+
+// K2's vector body for KT columns and RPL = rpl rows per lane (a power of
+// two <= KT / kN)
+template <typename T, int KT, int RPL = 1>
+SpmmBody<T> sell_spmm_body(int64_t rpl) {
+  if constexpr (2 * RPL <= KT / Vec16<T>::kN) {
+    if (rpl > RPL) return sell_spmm_body<T, KT, 2 * RPL>(rpl);
+  }
+  return sell_spmm_kernel<T, KT, RPL>;
+}
+
+inline bool pow2(int64_t v) { return v > 0 && (v & (v - 1)) == 0; }
+
+template <typename T>
+int launch_sell_spmm(const void* vals, const void* cols, const void* ptr,
+                     const void* x, void* y, int64_t S, int64_t C, int64_t W,
+                     int64_t k, int64_t kt, void* stream) {
+  if (S * C * k == 0) return 0;
+  if (kt != 8 && kt != 16 && kt != 32) return (int)cudaErrorInvalidValue;
+  constexpr int kN = Vec16<T>::kN;
+  const dim3 grid = warp_grid(S, ceil_div(k, kt));
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (!pow2(C) || C > 32 || !pow2(W) || W < 4 || k % kN != 0 ||
+      !aligned(vals, 16) || !aligned(cols, 16) || !aligned(x, 16) ||
+      !aligned(y, 16)) {
+    sell_spmm_rows_kernel<T><<<grid, kWarps * 32, 0, st>>>(
+        (const T*)vals, (const int32_t*)cols, (const int64_t*)ptr,
+        (const T*)x, (T*)y, S, C, W, k, (int)kt);
+    return (int)cudaGetLastError();
+  }
+  const int64_t ns = 32 / (kt / kN);  // slots per warp load
+  const int64_t rpl = C > ns ? C / ns : 1;
+  auto kernel = kt == 8    ? sell_spmm_body<T, 8>(rpl)
+                : kt == 16 ? sell_spmm_body<T, 16>(rpl)
+                           : sell_spmm_body<T, 32>(rpl);
+  // at most 32 rows of 256 / C slots: 4 KB a warp, 32 KB a block
+  const size_t smem = (size_t)(kWarps * spmm_stage_bytes<T>(C, W));
+  kernel<<<grid, kWarps * 32, smem, st>>>(
+      (const T*)vals, (const int32_t*)cols, (const int64_t*)ptr, (const T*)x,
+      (T*)y, S, C, W, k);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,9 @@
 the plain torch version) against the JAX package's Pallas kernels run in
 interpret mode, on the same host formats: σ-sorted SELL with empty slices
 (C = 8, 32; W = 8, 32, 128), BCSR with empty block rows, Block-ELL with
-padding blocks (bm up to 16, bn = 4, 16, 100, 128), and widths 1, 3, 8 and
-33 for K1 and K2. Float32, rel 1e-5 (same terms, another summation order).
+padding blocks (bm up to 16, bn = 4, 16, 100, 128), and widths 1, 3, 8, 16,
+32, 33 and 64 for K1 and K2 (every k-tile of K2, and two k-tiles at 33 and
+64). Float32, rel 1e-5 (same terms, another summation order).
 The CUDA kernels themselves run only on the card (chip_smoke.py); a source
 test checks that each launcher the bindings name is defined.
 """
@@ -92,7 +93,7 @@ def test_sell_operator_matches_pallas(kind, sigma, c, w):
 
 
 @pytest.mark.parametrize("kind", ["power_law", "holes"])
-@pytest.mark.parametrize("k", [1, 3, 8, 33])
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 32, 33, 64])
 def test_sell_matmul_matches_pallas_ktiled(kind, k):
     rm, h, ph = _sell_pair(kind, 16, 8)
     x = np.random.default_rng(k).standard_normal((rm.n, k))
@@ -104,7 +105,7 @@ def test_sell_matmul_matches_pallas_ktiled(kind, k):
     assert _rel(got, want) < 1e-5
 
 
-@pytest.mark.parametrize("k", [1, 3, 8, 33])
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 32, 33, 64])
 def test_sell_kernel_wrappers_match_pallas(k):
     """The wrappers at the kernel level: y in slice order, [S, C, nv]."""
     rm, h, ph = _sell_pair("holes", 16, 8)
@@ -131,6 +132,36 @@ def test_sell_kernel_wrappers_match_pallas(k):
                         interpret=True)
     assert _rel(sell_spmv(vals, cols, cs, ptr, xt, h.num_slices),
                 want1) < 1e-5
+
+
+@pytest.mark.parametrize("k,kt", [(1, 8), (4, 8), (8, 8), (9, 16),
+                                  (16, 16), (17, 32), (32, 32), (33, 32),
+                                  (64, 32), (1000, 32)])
+def test_pick_k_tile_values(k, kt):
+    """K2's k-tile: the smallest of 8, 16 and 32 covering k (the launcher
+    compiles its vector body for those three and no other)."""
+    assert pick_k_tile(k) == kt
+
+
+@pytest.mark.parametrize("bad", ["kt", "x1d", "ptr"])
+def test_sell_spmm_wrapper_rejects_bad_arguments(bad):
+    """A kt the kernel was not compiled for, a 1-D x or a slice pointer of
+    the wrong length raises before the device is looked at (so on the CPU
+    too, where the plain version would otherwise run)."""
+    _, h, _ = _sell_pair("holes", 16, 8)
+    ptr = torch.as_tensor(slice_chunk_ptr(h.chunk_slice, h.num_slices))
+    x = torch.zeros((h.shape[1], 8))
+    kt = pick_k_tile(8)
+    if bad == "kt":
+        kt = 64
+    elif bad == "x1d":
+        x = x[:, 0]
+    else:
+        ptr = ptr[:-1]
+    with pytest.raises(ValueError, match="kt must be|x must be"):
+        sell_spmm(torch.as_tensor(h.chunk_vals, dtype=torch.float32),
+                  torch.as_tensor(h.chunk_cols),
+                  torch.as_tensor(h.chunk_slice), ptr, x, h.num_slices, kt)
 
 
 def test_slice_chunk_ptr_covers_chunks():
