@@ -13,7 +13,8 @@ the run with a nonzero exit code (nothing is caught):
                   at once, and links them into one library in
                   build/repro_torch/;
  3. kernels     — each SpMV kernel against its plain torch version on the
-                  card at small random shapes, float32 and float64, through
+                  card at small random shapes, float32, float64 and bf16,
+                  through
                   every body of K1-K4: σ-sorted SELL with empty slices at
                   C = 8, 32 and W = 8, 32, 128 (K1 at nv = 1, 3; K2 at
                   widths 1, 3, 4, 8, 16, 32, 33, 36, 64: its vector body at
@@ -29,25 +30,43 @@ the run with a nonzero exit code (nothing is caught):
                   ssd_scan(use_kernel="ref"), a scan over batch-strided
                   views of a longer sequence, and the bf16 tensor-core
                   shape with its operands off a 16-byte boundary;
- 4. main path   — the paper's SpMV cell through repro_torch.launch
-                  .spmv_bench.run_cell (plan → build → verify → IOS/YAX →
-                  instrumented CG): fig1_shuffled with baseline and rcm,
-                  fig1_banded with baseline, all engine="auto", then
-                  fig1_shuffled + rcm at k = 8;
+ 4. main path   — the paper's four Fig. 1 cells as one spmv ExperimentSpec
+                  through repro_torch.experiments.Runner (plan → build →
+                  verify on the matrix and its structure twin → IOS/YAX →
+                  instrumented CG → modelled-parallel time and structural
+                  metrics at p = 8): fig1_shuffled with baseline and rcm,
+                  fig1_banded with baseline, all engine="auto", and
+                  fig1_shuffled + rcm at k = 8; then the same spec on a
+                  fresh result store with the same plan store (every cell
+                  a plan-store hit, tune_ms = 0), and on the first result
+                  store (every cell served from it), each with its
+                  seconds against the first run's; then the Fig. 4
+                  schedule spec on banded_m65536_bw24 and its shuffled
+                  twin (static_default, static_c16, nnz_balanced, p = 8).
+                  Plans, reorderings, operators and records live in a
+                  temporary directory for the run (no earlier run's entry
+                  is read);
  5. forced      — the kernel engines through make_engine on the structure
                   twin of the RCM-reordered fig1_shuffled (its sparsity
-                  pattern, values U(-1, 1) from a seed): sell (K1, and K2
-                  at k = 8), bcsr (K3) and bell (K4), each verified, then
-                  IOS-timed;
+                  pattern, values U(-1, 1) from a seed; the order comes
+                  from the plan store): sell (K1, and K2 at k = 8), bcsr
+                  (K3) and bell (K4), each verified, then IOS-timed; then
+                  the same engines in bf16, each operator called once and
+                  held against the f64 product of the bf16-rounded
+                  operands within 1e-2, and the bf16 csr engine within
+                  2e-2;
  6. kernel times — each SpMV kernel at the shape phase 5 gave it, against
                   its plain version (error; ms per call, see time_ms), its
                   byte bound and torch's CSR SpMV/SpMM on the same matrix
                   with int32 and with int64 indices (the faster is the
                   row's library_ms); then K2 once more at k = 32 (error,
-                  ms, bound, library; kept in K2's row as "k32");
+                  ms, bound, library; kept in K2's row as "k32"); then the
+                  bf16 kernels the same way (rows named <kernel>_bf16,
+                  torch's bf16 CSR as the library, or none with its error);
  7. controls    — planted faults at the main-path shape must fail the
-                  checks: each kernel with its largest stored chunk or
-                  block dropped, and a diagonal-only operator under verify;
+                  checks: each kernel, f32 and bf16, with its largest
+                  stored chunk or block dropped, and a diagonal-only
+                  operator under verify;
  8. lm prefill  — the SpMV tensors are freed; Zamba2-7B at full width and
                   depth (81 Mamba2 layers, the shared attention block after
                   each group of 6), random f32 parameters from a seeded
@@ -83,17 +102,18 @@ the run with a nonzero exit code (nothing is caught):
                   chain with the carried state zeroed between chunks, must
                   each fail the check against the intact plain result.
 
-Every kernel launch counter is set to 0 just before each cell of phase 4,
-each forced path of phase 5 and the f32 prefill of phase 8, and read just
-after it; a forced path that did not launch its kernel, a cell whose plan
-picked a kernel engine that launched nothing, or a prefill whose K5 count
-is not its number of Mamba2 layers (81), fails the run. The kernels line reports, for each kernel,
-the launches of the path that feeds its row.
+Every kernel launch counter is set to 0 just before the first campaign of
+phase 4, each forced path of phase 5 (f32 and bf16) and the f32 prefill of
+phase 8, and read just after it; a forced path that did not launch its
+kernel, a cell whose plan picked a kernel engine that launched nothing,
+or a prefill whose K5 count is not its number of Mamba2 layers (81),
+fails the run. The kernels line reports, for each kernel, the launches of
+the path that feeds its row.
 
 Verification is against the numpy float64 oracle at rel err <= 1e-4 (the
 error over the oracle's largest entry); a kernel against its plain version
 at rel err <= 1e-5 in float32 (same terms, different summation order),
-1e-12 in float64 and 1e-2 in bf16. The generators give every row a diagonal
+1e-12 in float64 and 1e-2 in bf16 (f32 sums in both, y rounded once). The generators give every row a diagonal
 of m = 1,048,576 at this size, about 1e5 times the rest of the row, and an
 error divided by that scale hides wrong off-diagonal terms; so every check
 at the main-path shape also runs on the structure twin, where each term
@@ -106,8 +126,10 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -126,6 +148,7 @@ BATCH = 20                       # kernel times: calls per CUDA event pair
 BATCHES = 5                      # kernel times: event pairs, median taken
 K2_WIDTHS = (1, 3, 4, 8, 16, 32, 33, 36, 64)   # K2 at small shapes
 K2_WIDE = 32                     # K2's second width at the main-path shape
+PARALLEL_P = 8                   # modelled-parallel cores of the campaigns
 
 KERNELS = {
     "sell_spmv": "src/repro/kernels/sell_spmv/kernel.py:50",
@@ -332,7 +355,7 @@ def kernels_small(dev) -> int:
         checked += 1
 
     for mname, mat in small_matrices().items():
-        for dtype in (torch.float32, torch.float64):
+        for dtype in (torch.float32, torch.float64, torch.bfloat16):
             # K1's bodies: 16-byte loads for W / kN a power of two <= 32
             # (f32 W = 8, 32, 128; f64 W = 8, 32), scalar loads otherwise.
             # K2's: the staged vector body for k a multiple of kN (k-tiles
@@ -381,60 +404,177 @@ def kernels_small(dev) -> int:
 # the forced path that feeds each kernel's row of the kernels line
 FEEDS = {"sell_spmv": "forced/sell/k1", "sell_spmm": "forced/sell/k8",
          "bcsr_spmv": "forced/bcsr/k1", "bell_spmv": "forced/bell/k1"}
+KERNEL_OF = {"sell": ("sell_spmv", "sell_spmm"), "bcsr": ("bcsr_spmv",),
+             "bell": ("bell_spmv",)}
 
 
-def main_path(dev, shuffled: str, banded: str, iters: int) -> tuple:
-    """The paper cells and forced kernel engines, each run with the launch
-    counts set to 0 just before it and read just after. Returns the forced
-    operators (for phases 6-7), the RCM-reordered matrix, its structure
-    twin (the forced operators' matrix) and the records."""
+def fig1_spec(shuffled: str, banded: str, iters: int):
+    """The paper's four Fig. 1 cells as one spmv ExperimentSpec: the
+    product grid (both matrices x {baseline, rcm} x k in {1, 8}) cut to
+    fig1_shuffled x {baseline, rcm}, fig1_banded x baseline (k = 1) and
+    fig1_shuffled x rcm at k = 8; verified (matrix and structure twin),
+    IOS, YAX, CG, the modelled-parallel time and the structural metrics at
+    p = 8."""
+    from repro_torch.experiments import ExperimentSpec, MeasurePolicy
+
+    keep = {(shuffled, "baseline", 1), (shuffled, "rcm", 1),
+            (banded, "baseline", 1), (shuffled, "rcm", 8)}
+
+    class Fig1Spec(ExperimentSpec):
+        def cells(self, matrices=None, device="cpu"):
+            return [c for c in super().cells(matrices, device)
+                    if (c.matrix, c.scheme, c.k) in keep]
+
+    return Fig1Spec(
+        name="fig1", matrices=(shuffled, banded), schemes=("baseline", "rcm"),
+        ks=(1, 8), ps=(PARALLEL_P,),
+        policy=MeasurePolicy(iters=iters, warmup=3, cg_profiles=("*",),
+                             verify=True, verify_tol=VERIFY_TOL))
+
+
+def cell_tag(rec) -> str:
+    return f"{rec['matrix']}/{rec['scheme']}/k{rec['k']}"
+
+
+def check_cell_launches(rec) -> None:
+    """The engine a cell's plan picked launched its kernel in that cell's
+    own timed calls (the record's `launches`, counted by the cell)."""
+    kns = KERNEL_OF.get(rec["engine"], ())
+    if kns and not any(rec["launches"][kn] > 0 for kn in kns):
+        raise AssertionError(f"{cell_tag(rec)}: the plan picked "
+                             f"{rec['engine']} but no kernel of it launched "
+                             f"in the cell's timed calls: {rec['launches']}")
+
+
+def campaign(dev, mats: dict, iters: int) -> tuple:
+    """Phase 4: the Fig. 1 spec through the Runner on a fresh result store
+    (every cell measured, plans from scratch), then twice more: on a fresh
+    result store with the same plan store (every plan and operator from
+    the plan store: plan_store_hit, tune_ms = 0), and on the first result
+    store (every cell served from it). Launch counts are set to 0 before
+    the first run and read after it; each record's own `launches` counts
+    the launches of its timed IOS/YAX/CG calls alone, and the engine each
+    plan picked must have launched its kernel there, in both measured
+    runs. Returns the first report and the launches."""
+    from repro_torch import kernels
+    from repro_torch.experiments import ResultStore, Runner
+
+    shuffled, banded = mats
+    spec = fig1_spec(shuffled, banded, iters)
+    ncells = len(spec.cells())
+    results = os.environ["REPRO_TORCH_RESULT_STORE"]
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    rep = Runner(spec, ResultStore(os.path.join(results, "first")),
+                 get_matrix=mats.__getitem__, device=dev).run()
+    launches = dict(kernels.LAUNCHES)
+    first_s = time.perf_counter() - t0
+    if rep.measured != ncells:
+        raise AssertionError(f"fresh store: measured {rep.measured} of "
+                             f"{ncells} cells")
+    for rec in rep.records:
+        tag = cell_tag(rec)
+        check_cell_launches(rec)
+        ios_ms = rec.get("seq_ios_ms", rec["spmm_ms"])
+        phase(f"cell {tag}", time.perf_counter() - rec["runner_wall_s"],
+              engine=rec["engine"], label=rec["plan_label"],
+              plan_ms=f"{rec['plan_ms']:.1f}",
+              reorder_ms=f"{rec['reorder_ms']:.1f}",
+              tune_ms=f"{rec['tune_ms']:.1f}",
+              build_ms=f"{rec['format_build_ms']:.1f}",
+              verify=f"{rec['verify_rel_err']:.2e}",
+              verify_twin=f"{rec['verify_twin_rel_err']:.2e}",
+              ios_ms=ios_ms,
+              gflops=f"{rec.get('seq_ios_gflops', rec.get('spmm_gflops')):.2f}",
+              yax_ms=rec.get("seq_yax_ms"), cg_ms=rec.get("cg_ms"),
+              li_static=f"{rec['li_static']:.4f}",
+              li_nnz_balanced=f"{rec['li_nnz_balanced']:.4f}",
+              par_static_ms=rec["par_static_ms"],
+              par_nnz_balanced_ms=rec["par_nnz_balanced_ms"],
+              bandwidth=rec["bandwidth"], cut_volume=rec["cut_volume"],
+              block_fill_8x128=f"{rec['block_fill_8x128']:.4f}",
+              launches=json.dumps(rec["launches"]))
+    phase("campaign fig1", t0, cells=ncells, measured=rep.measured,
+          launches=json.dumps(launches))
+    base = rep.value("seq_ios_ms", shuffled, "baseline", k=1)
+    rcm = rep.value("seq_ios_ms", shuffled, "rcm", k=1)
+    print(f"[result] rcm speedup over baseline on {shuffled} (IOS, auto "
+          f"engine): {base / rcm:.3f}x", flush=True)
+
+    t1 = time.perf_counter()
+    again = Runner(spec, ResultStore(os.path.join(results, "again")),
+                   get_matrix=mats.__getitem__, device=dev).run()
+    again_s = time.perf_counter() - t1
+    for rec in again.records:
+        if not (rec["plan_store_hit"] and rec["op_cache_hit"]
+                and rec["tune_ms"] == 0.0 and rec["reorder_ms"] == 0.0):
+            raise AssertionError(f"{cell_tag(rec)}: not served by the plan "
+                                 f"store: plan_store_hit="
+                                 f"{rec['plan_store_hit']} op_cache_hit="
+                                 f"{rec['op_cache_hit']} tune_ms="
+                                 f"{rec['tune_ms']}")
+        check_cell_launches(rec)
+        phase(f"cell {cell_tag(rec)} from the plan store",
+              time.perf_counter() - rec["runner_wall_s"],
+              plan_ms=f"{rec['plan_ms']:.1f}",
+              load_ms=f"{rec['op_load_ms']:.1f}",
+              verify_twin=f"{rec['verify_twin_rel_err']:.2e}",
+              ios_ms=rec.get("seq_ios_ms", rec["spmm_ms"]),
+              launches=json.dumps(rec["launches"]))
+    phase("campaign fig1 from the plan store", t1,
+          plan_store_hits=f"{sum(r['plan_store_hit'] for r in again.records)}"
+                          f"/{ncells}", seconds=f"{again_s:.2f}",
+          first_run_seconds=f"{first_s:.2f}")
+
+    t1 = time.perf_counter()
+    resumed = Runner(spec, ResultStore(os.path.join(results, "first")),
+                     get_matrix=mats.__getitem__, device=dev).run()
+    if resumed.measured != 0 or resumed.reused != ncells:
+        raise AssertionError(f"resume: measured {resumed.measured}, reused "
+                             f"{resumed.reused} of {ncells}")
+    phase("campaign fig1 resumed", t1,
+          result_store_hits=f"{resumed.reused}/{ncells}",
+          seconds=f"{time.perf_counter() - t1:.2f}",
+          first_run_seconds=f"{first_s:.2f}")
+    return rep, launches
+
+
+def schedule_campaign(dev) -> None:
+    """The Fig. 4 scheduling sweep on a bench-tier pair: banded_m65536_bw24
+    and its shuffled twin x {static_default, static_c16, nnz_balanced} at
+    p = 8, csr panels (the bench tier's size: 65,536 rows)."""
+    from repro_torch.experiments import (ExperimentSpec, MeasurePolicy,
+                                         ResultStore, Runner)
+
+    t0 = time.perf_counter()
+    spec = ExperimentSpec(
+        name="fig4_schedule", kind="schedule",
+        matrices=("banded_m65536_bw24", "banded_shuf_m65536_bw24"),
+        engines=("csr",), ps=(PARALLEL_P,),
+        variants=("static_default", "static_c16", "nnz_balanced"),
+        policy=MeasurePolicy(iters=10, with_yax=False, with_parallel=False,
+                             with_metrics=False))
+    rep = Runner(spec, ResultStore(os.path.join(
+        os.environ["REPRO_TORCH_RESULT_STORE"], "schedule")),
+        device=dev).run()
+    for rec in rep.records:
+        print(f"[schedule] {rec['matrix']} {rec['variant']} p={rec['p']} "
+              f"modelled_par_ms={rec['modelled_par_ms']:.4f} "
+              f"gflops={rec['gflops']:.2f}", flush=True)
+    phase("campaign fig4 schedule", t0, cells=len(rep.records))
+
+
+def forced_paths(dev, rmat, iters: int) -> tuple:
+    """Phase 5: the kernel engines on the structure twin of the RCM-ordered
+    fig1_shuffled, each path run with the launch counts set to 0 just
+    before it and read just after. Returns the forced operators, the twin
+    and the records."""
     from repro_torch import kernels
     from repro_torch.core.sparse.sell import pick_chunk_width
     from repro_torch.core.spmv.ops import make_engine
     from repro_torch.launch import spmv_bench
-    from repro_torch.matrices import suite
 
-    t0 = time.perf_counter()
-    mats = {shuffled: suite.get(shuffled), banded: suite.get(banded)}
-    phase("matrices", t0, **{n: f"{m.m}x{m.n}/nnz={m.nnz}"
-                             for n, m in mats.items()})
-    kernel_of = {"sell": ("sell_spmv", "sell_spmm"), "bcsr": ("bcsr_spmv",),
-                 "bell": ("bell_spmv",)}
-    recs, rmat = {}, None
-    for name, scheme, k in ((shuffled, "baseline", 1), (shuffled, "rcm", 1),
-                            (banded, "baseline", 1), (shuffled, "rcm", 8)):
-        t0 = time.perf_counter()
-        kernels.reset_launches()
-        rec, op, rm = spmv_bench.run_cell(mats[name], scheme, "auto", k=k,
-                                          iters=iters, device=dev)
-        rec["launches"] = dict(kernels.LAUNCHES)
-        del op
-        if scheme == "rcm" and k == 1:
-            rmat = rm
-        tag = f"{name}/{scheme}/k{k}"
-        recs[tag] = rec
-        picked = [kn for kn in kernel_of.get(rec["engine"], ())
-                  if rec["launches"][kn] > 0]
-        if rec["engine"] in kernel_of and not picked:
-            raise AssertionError(f"{tag}: the plan picked {rec['engine']} "
-                                 f"but no kernel of it launched")
-        phase(f"cell {tag}", t0, engine=rec["engine"],
-              label=rec["plan_label"], plan_ms=f"{rec['plan_ms']:.1f}",
-              reorder_ms=f"{rec['reorder_ms']:.1f}",
-              tune_ms=f"{rec['tune_ms']:.1f}",
-              build_ms=f"{rec['build_ms']:.1f}",
-              verify=f"{rec['verify_rel_err']:.2e}",
-              verify_twin=f"{rec['verify_twin_rel_err']:.2e}",
-              ios_ms=rec["ios_ms"], gflops=f"{rec['ios_gflops']:.2f}",
-              yax_ms=rec.get("yax_ms"), cg_ms=rec.get("cg_ms"),
-              launches=json.dumps(rec["launches"]))
-    base = recs[f"{shuffled}/baseline/k1"]["ios_ms"]
-    rcm = recs[f"{shuffled}/rcm/k1"]["ios_ms"]
-    print(f"[result] rcm speedup over baseline on {shuffled} (IOS, auto "
-          f"engine): {base / rcm:.3f}x", flush=True)
-
-    # forced kernel engines on the RCM order's structure twin, in its space
-    forced = {}
+    forced, recs = {}, {}
     vmat = spmv_bench.structure_twin(rmat, seed=1)
     w_fit = pick_chunk_width(vmat)
     for eng, shape, sigma, ks in (("sell", (8, w_fit), 64, (1, 8)),
@@ -462,7 +602,20 @@ def main_path(dev, shuffled: str, banded: str, iters: int) -> tuple:
     for name, tag in FEEDS.items():
         if recs[tag]["launches"][name] == 0:
             raise AssertionError(f"{tag} never launched {name}")
-    return forced, rmat, vmat, recs
+    return forced, vmat, recs
+
+
+def rcm_order(dev, mat):
+    """The RCM-reordered fig1_shuffled, from the plan store the campaign
+    filled (a hit: no reordering, no tuning)."""
+    from repro_torch.core.spmv.plan import SpmvProblem, plan
+
+    pl = plan(SpmvProblem(mat, hints={"seed": 0}), reorder="rcm",
+              device=dev)
+    if not pl.cache_hit:
+        raise AssertionError("the rcm plan of the campaign is not in the "
+                             "plan store")
+    return pl.reordered_matrix()
 
 
 # -- phase 6: kernel times at the main-path shapes -------------------------
@@ -483,17 +636,17 @@ def kernel_inputs(forced, vmat, dev) -> list:
     return out
 
 
-def library_csr(vmat, index_dtype, dev):
-    """torch's CSR of `vmat` on the card, float32 values and `index_dtype`
-    row pointers and columns (the library yardstick; the port never
-    calls it)."""
+def library_csr(vmat, index_dtype, dev, dtype=None):
+    """torch's CSR of `vmat` on the card, `dtype` values (float32 by
+    default) and `index_dtype` row pointers and columns (the library
+    yardstick; the port never calls it)."""
     import torch
 
     return torch.sparse_csr_tensor(
         torch.as_tensor(vmat.rowptr).to(index_dtype),
         torch.as_tensor(vmat.cols).to(index_dtype),
         torch.as_tensor(vmat.vals), size=vmat.shape,
-        check_invariants=False).to(dev, torch.float32)
+        check_invariants=False).to(dev, dtype or torch.float32)
 
 
 def kernel_work(op, calls, nv: int, xin) -> tuple[int, int]:
@@ -521,52 +674,87 @@ def kernel_time(op, calls, nv: int, x, xin, csrs, plain_ms: bool = True):
     and int64 indices."""
     name, kern, plain = calls(op, xin)
     abs_err, rel = rel_err(kern(), plain())
-    if not rel <= KERNEL_TOL["float32"]:
-        raise AssertionError(f"{name} nv={nv}: kernel vs plain rel err "
-                             f"{rel:.3e} at the main-path shape")
+    dname = str(xin.dtype).replace("torch.", "")
+    if not rel <= KERNEL_TOL[dname]:
+        raise AssertionError(f"{name} {dname} nv={nv}: kernel vs plain rel "
+                             f"err {rel:.3e} at the main-path shape")
     nbytes, flops = kernel_work(op, calls, nv, xin)
     bms, by = bound_ms(nbytes, flops)
     xl = x.contiguous() if nv > 1 else x[:, 0].contiguous()
-    lib = {ix: time_ms(lambda a=a: a @ xl) for ix, a in csrs.items()}
-    lib_index = min(lib, key=lib.get)
+    lib = library_times(csrs, xl)
+    lib_index = min(lib, key=lib.get) if lib else None
     out = {"name": name, "max_abs_err": abs_err, "rel_err": rel,
            "ms": time_ms(kern),
            "plain_ms": time_ms(plain) if plain_ms else None,
            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops,
-           "library_ms": lib[lib_index], "library_index": lib_index,
-           "library_int32_ms": lib["int32"], "library_int64_ms": lib["int64"]}
+           "library_ms": lib[lib_index] if lib else None,
+           "library_index": lib_index,
+           "library_int32_ms": lib.get("int32"),
+           "library_int64_ms": lib.get("int64")}
+    if not lib:
+        out["library_error"] = csrs["error"]
     plain_s = f"{out['plain_ms']:.4f}" if plain_ms else "not timed"
-    print(f"[kernel] {name} nv={nv} rel_err={rel:.2e} ms={out['ms']:.4f} "
-          f"plain_ms={plain_s} library_ms={out['library_ms']:.4f} (CSR "
-          f"int32 {lib['int32']:.4f}, int64 {lib['int64']:.4f}) "
+    lib_s = (f"{out['library_ms']:.4f} (CSR int32 {lib['int32']:.4f}, "
+             f"int64 {lib['int64']:.4f})" if lib
+             else f"none ({csrs['error']})")
+    print(f"[kernel] {name} {dname} nv={nv} rel_err={rel:.2e} "
+          f"ms={out['ms']:.4f} plain_ms={plain_s} library_ms={lib_s} "
           f"bound_ms={bms:.4f} ({by}, {nbytes} B, {flops} flop)",
           flush=True)
     return out
 
 
-def kernel_times(forced, vmat, dev, recs: dict) -> list:
-    """Phase 6: each SpMV kernel at the shape phase 5 gave it, and K2 once
-    more at k = K2_WIDE (its numbers kept inside K2's row)."""
+def library_csrs(vmat, dev, dtype=None) -> dict:
+    """torch's CSR of `vmat` with int32 and with int64 indices, or
+    {"error": why} when torch cannot multiply it in `dtype` on the card."""
     import torch
 
-    csrs = {str(d).replace("torch.", ""): library_csr(vmat, d, dev)
+    csrs = {str(d).replace("torch.", ""): library_csr(vmat, d, dev, dtype)
             for d in (torch.int32, torch.int64)}
+    x = torch.ones(vmat.n, dtype=dtype or torch.float32, device=dev)
+    try:
+        for a in csrs.values():
+            a @ x
+        torch.cuda.synchronize()
+    except RuntimeError as e:        # the yardstick only, never the port
+        return {"error": str(e).splitlines()[0][:200]}
+    return csrs
+
+
+def library_times(csrs: dict, x) -> dict:
+    if "error" in csrs:
+        return {}
+    return {ix: time_ms(lambda a=a: a @ x) for ix, a in csrs.items()}
+
+
+def kernel_times(forced, vmat, dev, recs: dict, feeds: dict = FEEDS,
+                 suffix: str = "") -> list:
+    """Phase 6: each SpMV kernel at the shape phase 5 gave it, and in f32
+    K2 once more at k = K2_WIDE (its numbers kept inside K2's row). A bf16
+    row's name carries `suffix`."""
+    import torch
+
+    dtype = forced["sell"].chunk_vals.dtype
+    csrs = library_csrs(vmat, dev, dtype)
     rows = []
     for nv, op, calls, x, xin in kernel_inputs(forced, vmat, dev):
         m = kernel_time(op, calls, nv, x, xin, csrs)
         name = m["name"]
-        path = FEEDS[name]
+        path = feeds[name]
         launches = recs[path]["launches"][name]
-        row = {"name": name, "route": "cuda", "source": SOURCE,
+        row = {"name": name + suffix, "route": "cuda", "source": SOURCE,
                "replaces": KERNELS[name], "launches": launches,
                "launches_path": path, "max_abs_err": m["max_abs_err"],
                "ms": m["ms"], "plain_ms": m["plain_ms"],
                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                "library_ms": m["library_ms"],
-               "library_index": m["library_index"]}
-        print(f"[kernel] {name} nv={nv} launches={launches} ({path})",
-              flush=True)
-        if name == "sell_spmm":
+               "library_index": m["library_index"],
+               "dtype": str(dtype).replace("torch.", "")}
+        if "library_error" in m:
+            row["library_error"] = m["library_error"]
+        print(f"[kernel] {name}{suffix} nv={nv} launches={launches} "
+              f"({path})", flush=True)
+        if name == "sell_spmm" and dtype == torch.float32:
             # the plain version at k = 32 gathers 4.3 GB and takes ~0.1 s a
             # call: it is held against the kernel once, not timed
             xw = torch_randn((vmat.n, K2_WIDE), torch_generator(3),
@@ -579,6 +767,92 @@ def kernel_times(forced, vmat, dev, recs: dict) -> list:
             del xw
         rows.append(row)
     return rows
+
+
+# -- phase 5b: the bf16 kernels on the main path ---------------------------
+BF16_FEEDS = {name: path.replace("forced/", "forced_bf16/")
+              for name, path in FEEDS.items()}
+BF16_ORACLE_TOL = 1e-2           # bf16 kernel operators vs the f64 product
+BF16_CSR_TOL = 2e-2              # the bf16 csr engine (atomic bf16 sums)
+BF16_CSR_REPEATS = 8             # calls of the csr engine on one x
+BF16_CSR_XS = 8                  # distinct x for it (the first repeated)
+
+
+def bf16_oracle(vmat, dev):
+    """x -> A·x in float64, A's values rounded to bf16 first (the f64
+    product of the bf16-rounded operands), on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.spmv import ref
+
+    rows = torch.as_tensor(np.repeat(np.arange(vmat.m), vmat.row_nnz()),
+                           device=dev)
+    cols = torch.as_tensor(vmat.cols, device=dev)
+    vals = torch.as_tensor(vmat.vals).to(torch.bfloat16).to(dev,
+                                                            torch.float64)
+    return lambda x: ref.spmv_csr(rows, cols, vals, x.double(), vmat.m)
+
+
+def bf16_paths(dev, vmat) -> tuple:
+    """The forced kernel engines of phase 5 in bf16 (values and x bf16,
+    f32 sums, y rounded once): each operator called once with the launch
+    counts set to 0 just before and read just after, held against the f64
+    product of the bf16-rounded operands; then the csr engine in bf16.
+    Returns the bf16 operators and records."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.sparse.sell import pick_chunk_width
+    from repro_torch.core.spmv.ops import make_engine
+
+    bf16 = torch.bfloat16
+    oracle = bf16_oracle(vmat, dev)
+    gen = torch_generator(5)
+    forced, recs = {}, {}
+    w_fit = pick_chunk_width(vmat)
+    for eng, shape, sigma, ks in (("sell", (8, w_fit), 64, (1, 8)),
+                                  ("bcsr", (8, 128), None, (1,)),
+                                  ("bell", (8, 128), None, (1,))):
+        t0 = time.perf_counter()
+        op = make_engine(vmat, eng, dtype=bf16, block_shape=shape,
+                         sell_sigma=sigma, device=dev)
+        forced[eng] = op
+        for k in ks:
+            tag = f"forced_bf16/{eng}/k{k}"
+            x = torch_randn((vmat.n, k), gen, bf16, dev)
+            kernels.reset_launches()
+            y = op(x[:, 0]) if k == 1 else op.matmul(x)
+            launches = dict(kernels.LAUNCHES)
+            _, rel = rel_err(y, oracle(x[:, 0] if k == 1 else x))
+            if not rel <= BF16_ORACLE_TOL:
+                raise AssertionError(f"{tag}: rel err {rel:.3e} against the "
+                                     f"f64 product > {BF16_ORACLE_TOL:.0e}")
+            recs[tag] = {"launches": launches, "oracle_rel_err": rel}
+            phase(tag, t0, block_shape=shape, oracle_rel_err=f"{rel:.3e}",
+                  launches=json.dumps(launches))
+            del y, x
+    for name, tag in BF16_FEEDS.items():
+        if recs[tag]["launches"][name] == 0:
+            raise AssertionError(f"{tag} never launched {name}")
+    t0 = time.perf_counter()
+    op = make_engine(vmat, "csr", dtype=bf16, device=dev)
+    xs = [torch_randn((vmat.n,), gen, bf16, dev)
+          for _ in range(BF16_CSR_XS)]
+    _, rel = rel_err(op(xs[0]), oracle(xs[0]))
+    if not rel <= BF16_CSR_TOL:
+        raise AssertionError(f"csr bf16: rel err {rel:.3e} against the f64 "
+                             f"product > {BF16_CSR_TOL:.0e}")
+    # the spread of that reading: the atomic bf16 sums add in another
+    # order on every call (the same x again) and round other values
+    # (other x); printed, not gated, as the margin of the gate above
+    rels = [rel] + [rel_err(op(x), oracle(x))[1]
+                    for x in [xs[0]] * (BF16_CSR_REPEATS - 1) + xs[1:]]
+    phase("bf16 csr engine", t0, oracle_rel_err=f"{rel:.3e}",
+          same_x=" ".join(f"{r:.3e}" for r in rels[:BF16_CSR_REPEATS]),
+          other_x=" ".join(f"{r:.3e}" for r in rels[BF16_CSR_REPEATS:]),
+          max=f"{max(rels):.3e}", tol=f"{BF16_CSR_TOL:.0e}")
+    return forced, recs
 
 
 # -- phase 7: planted faults must fail the checks --------------------------
@@ -610,21 +884,25 @@ def diagonal_only(mat, dev):
     return lambda x: dt * x
 
 
-def planted_faults(forced, rmat, vmat, dev) -> None:
+def planted_faults(forced_sets, rmat, vmat, dev) -> None:
     from repro_torch.launch import spmv_bench
 
-    tol = KERNEL_TOL["float32"]
-    for nv, op, calls, _, xin in kernel_inputs(forced, vmat, dev):
-        attr = "chunk_vals" if calls is sell_calls else "blocks"
-        bad, g = dropped_block(op, attr)
-        name, kern, plain = calls(bad, xin)
-        _, rel = rel_err(kern(), calls(op, xin)[2]())
-        if not rel > tol:
-            raise AssertionError(f"{name}: dropping stored block {g} gave "
-                                 f"rel err {rel:.3e}, which passes {tol:.0e}")
-        print(f"[control] {name} nv={nv} with block {g} dropped: rel err "
-              f"{rel:.3e} > {tol:.0e}, caught", flush=True)
-        del bad
+    for forced in forced_sets:
+        for nv, op, calls, _, xin in kernel_inputs(forced, vmat, dev):
+            dname = str(xin.dtype).replace("torch.", "")
+            tol = KERNEL_TOL[dname]
+            attr = "chunk_vals" if calls is sell_calls else "blocks"
+            bad, g = dropped_block(op, attr)
+            name, kern, plain = calls(bad, xin)
+            _, rel = rel_err(kern(), calls(op, xin)[2]())
+            if not rel > tol:
+                raise AssertionError(f"{name} {dname}: dropping stored block "
+                                     f"{g} gave rel err {rel:.3e}, which "
+                                     f"passes {tol:.0e}")
+            print(f"[control] {name} {dname} nv={nv} with block {g} "
+                  f"dropped: rel err {rel:.3e} > {tol:.0e}, caught",
+                  flush=True)
+            del bad
     inf = float("inf")
     hidden = spmv_bench.verify(diagonal_only(rmat, dev), rmat, tol=inf,
                                device=dev)
@@ -1191,6 +1469,22 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
+    # hermetic stores: every plan, reordering, operator and campaign record
+    # of this run lives in a temporary directory, removed at the end, so
+    # every timed number of the first campaign includes its tune
+    stores = tempfile.mkdtemp(prefix="chip_smoke_stores_")
+    for var, sub in (("REPRO_TORCH_PLAN_CACHE", "plans"),
+                     ("REPRO_TORCH_OPERATOR_CACHE", "opcache"),
+                     ("REPRO_TORCH_REORDER_CACHE", "reorder"),
+                     ("REPRO_TORCH_RESULT_STORE", "results")):
+        os.environ[var] = os.path.join(stores, sub)
+    try:
+        return run(args, torch)
+    finally:
+        shutil.rmtree(stores, ignore_errors=True)
+
+
+def run(args, torch) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1218,22 +1512,38 @@ def main(argv=None) -> int:
     checked = ssd_small(dev)
     phase("kernels small shapes ssd_chunk", t0, comparisons=checked)
 
-    forced, rmat, vmat, recs = main_path(dev, args.shuffled, args.banded,
-                                         args.iters)
+    from repro_torch.matrices import suite
+
+    t0 = time.perf_counter()
+    mats = {args.shuffled: suite.get(args.shuffled),
+            args.banded: suite.get(args.banded)}
+    phase("matrices", t0, **{n: f"{m.m}x{m.n}/nnz={m.nnz}"
+                             for n, m in mats.items()})
+    campaign(dev, mats, args.iters)
+    t0 = time.perf_counter()
+    rmat = rcm_order(dev, mats[args.shuffled])
+    del mats
+    phase("rcm order from the plan store", t0)
+    schedule_campaign(dev)
+
+    forced, vmat, recs = forced_paths(dev, rmat, args.iters)
+    forced16, recs16 = bf16_paths(dev, vmat)
+    recs.update(recs16)
     print(f"[launches] per path: "
           f"{json.dumps({t: r['launches'] for t, r in recs.items()})}",
           flush=True)
 
     t0 = time.perf_counter()
     rows = kernel_times(forced, vmat, dev, recs)
+    rows += kernel_times(forced16, vmat, dev, recs, BF16_FEEDS, "_bf16")
     phase("kernel times", t0)
 
     t0 = time.perf_counter()
-    planted_faults(forced, rmat, vmat, dev)
+    planted_faults((forced, forced16), rmat, vmat, dev)
     phase("controls", t0)
 
     t0 = time.perf_counter()
-    del forced, rmat, vmat
+    del forced, forced16, rmat, vmat
     gc.collect()
     torch.cuda.empty_cache()
     phase("free spmv", t0,

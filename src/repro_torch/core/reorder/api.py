@@ -45,7 +45,7 @@ def _random(mat: CSRMatrix, seed: int = 0) -> np.ndarray:
     return np.random.default_rng(seed).permutation(mat.m).astype(np.int64)
 
 
-register_scheme("rcm", auto_candidate=True,
+register_scheme("rcm", paper=True, auto_candidate=True,
                 description="reverse Cuthill-McKee")(rcm_order)
 
 

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ... import obs
-from ...device import resolve_device, to_device, torch_dtype
+from ...device import host_array, resolve_device, to_device, torch_dtype
 from ..registry import get_engine, register_engine
 from ..sparse.bell import to_bcsr, to_block_ell
 from ..sparse.csr import CSRMatrix
@@ -58,9 +58,9 @@ class DeviceCSR:
 
     def state(self):
         meta = {"m": self.m, "n": self.n, "nnz": self.nnz}
-        arrays = {"row_ids": self.row_ids.cpu().numpy(),
-                  "cols": self.cols.cpu().numpy(),
-                  "vals": self.vals.cpu().numpy()}
+        arrays = {"row_ids": host_array(self.row_ids),
+                  "cols": host_array(self.cols),
+                  "vals": host_array(self.vals)}
         return meta, arrays
 
     @classmethod
@@ -107,8 +107,8 @@ class DeviceELL:
 
     def state(self):
         meta = {"m": self.m, "n": self.n, "padded_nnz": self.padded_nnz}
-        return meta, {"ell_cols": self.ell_cols.cpu().numpy(),
-                      "ell_vals": self.ell_vals.cpu().numpy()}
+        return meta, {"ell_cols": host_array(self.ell_cols),
+                      "ell_vals": host_array(self.ell_vals)}
 
     @classmethod
     def from_state(cls, meta, arrays, dtype=None, device=None):
@@ -136,7 +136,7 @@ class DeviceDense:
             return self.a @ x
 
     def state(self):
-        return {}, {"a": self.a.cpu().numpy()}
+        return {}, {"a": host_array(self.a)}
 
     @classmethod
     def from_state(cls, meta, arrays, dtype=None, device=None):

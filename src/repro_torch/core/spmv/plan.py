@@ -13,18 +13,32 @@ engine's candidate grid with the k-aware cost model (core/spmv/tune.py).
 Given the same matrix and request, both packages decide the same scheme,
 engine, shape and permutation.
 
+Plans are content-addressed in ONE persistent store, the port's own
+(REPRO_TORCH_PLAN_CACHE, default `repro_torch_plans` under the system temp
+directory; "off" disables it): an entry holds the plan record, the
+permutation and the built operator's host arrays, so `Plan.save` /
+`Plan.load` round-trip a tuned operator across processes with zero re-tune
+and zero re-conversion. Entries are device-independent: a restored
+operator is built on the device its caller asks for. Writes are tmp+rename
+with the .json last (opcache.py's convention); a corrupt or truncated
+entry reads as a miss and is rebuilt. The port's keys carry a "torch"
+token and its records a "torch" backend tag, so the JAX package's store
+and this one never read each other's entries.
+
 The built operator CARRIES its permutation: `op(x)` / `op.matmul(X)` take
 vectors in the ORIGINAL index space and return results in the original
 index space. `permuted=True` (or `op.unwrap()`) runs in the reordered
 space — what the measurement harness times.
 
-Not ported yet: the persistent plan store (so `plan(cache=True)` raises),
-`Plan.rebuild`, `Plan.apply_delta` and topology-aware (sharded) plans.
+Not ported yet: `Plan.apply_delta` and topology-aware (sharded) plans.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
+import os
+import tempfile
 import time
 from typing import Any, Optional
 
@@ -35,8 +49,28 @@ from ... import obs
 from ...device import resolve_device, torch_dtype
 from .. import registry
 from ..sparse.csr import CSRMatrix
+from . import opcache
 from . import tune as tune_mod
 from .tune import TunePlan
+
+
+def _store_dir() -> str:
+    """Plan-store directory. Falls back to a `plans/` sibling under
+    REPRO_TORCH_OPERATOR_CACHE when only that is set (a run that repoints
+    the operator cache gets a hermetic plan store with it); "off" in either
+    variable disables the store."""
+    d = os.environ.get("REPRO_TORCH_PLAN_CACHE")
+    if d is not None:
+        return d
+    opd = os.environ.get("REPRO_TORCH_OPERATOR_CACHE")
+    if opd is not None:
+        return opd if opd.lower() in opcache.OFF \
+            else os.path.join(opd, "plans")
+    return os.path.join(tempfile.gettempdir(), "repro_torch_plans")
+
+
+def store_enabled() -> bool:
+    return _store_dir().lower() not in opcache.OFF
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +104,27 @@ def _mat_key(mat: CSRMatrix) -> str:
     h.update(np.ascontiguousarray(mat.cols).tobytes())
     h.update(np.ascontiguousarray(mat.vals).tobytes())
     h.update(f"{tuple(mat.shape)}".encode())
+    return h.hexdigest()[:20]
+
+
+def structure_key(mat: CSRMatrix) -> str:
+    """sha1 over the STRUCTURE only (rowptr + cols + shape, never vals).
+
+    Everything a plan decides is a function of the sparsity pattern, so
+    two matrices with equal structure_key share one Plan: new values are a
+    rebuild (`Plan.rebuild`), never a replan. The same bytes as the JAX
+    package's, so the same hex string."""
+    h = hashlib.sha1()
+    h.update(np.ascontiguousarray(mat.rowptr).tobytes())
+    h.update(np.ascontiguousarray(mat.cols).tobytes())
+    h.update(f"{tuple(mat.shape)}".encode())
+    return h.hexdigest()[:20]
+
+
+def values_key(mat: CSRMatrix) -> str:
+    """sha1 over the VALUES only — structure_key's complement."""
+    h = hashlib.sha1()
+    h.update(np.ascontiguousarray(mat.vals).tobytes())
     return h.hexdigest()[:20]
 
 
@@ -160,8 +215,8 @@ class Operator:
 class Plan:
     """A serializable pipeline decision: which scheme, which engine/shape,
     for which problem — plus the permutation that realizes the scheme.
-    `build()` materializes the operator by permute + format conversion,
-    never by re-tuning."""
+    `build()` materializes the operator (from the plan store when possible,
+    otherwise by permute + format conversion), never by re-tuning."""
 
     scheme: str
     seed: int
@@ -173,15 +228,19 @@ class Plan:
     use_kernel: str
     mat_shape: tuple
     mat_nnz: int
-    key: str
+    key: str                          # plan-store content key
     scheme_costs: dict = dataclasses.field(default_factory=dict)
     reorder_ms: float = 0.0
     tune_ms: float = 0.0
     plan_ms: float = 0.0
+    cache_hit: bool = False           # this plan was loaded, not computed
+    advisor_confidence: float = 0.0   # the learned probe is not ported: 0
     perm: Optional[np.ndarray] = None  # None = identity
     _mat: Optional[CSRMatrix] = dataclasses.field(
         default=None, repr=False, compare=False)
     _rmat: Optional[CSRMatrix] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _op_state: Optional[tuple] = dataclasses.field(
         default=None, repr=False, compare=False)
 
     def label(self) -> str:
@@ -199,6 +258,7 @@ class Plan:
             "key": self.key, "scheme_costs": self.scheme_costs,
             "reorder_ms": self.reorder_ms, "tune_ms": self.tune_ms,
             "plan_ms": self.plan_ms,
+            "advisor_confidence": self.advisor_confidence,
         }
 
     @staticmethod
@@ -217,7 +277,73 @@ class Plan:
                     reorder_ms=d.get("reorder_ms", 0.0),
                     tune_ms=d.get("tune_ms", 0.0),
                     plan_ms=d.get("plan_ms", 0.0),
+                    advisor_confidence=d.get("advisor_confidence", 0.0),
                     perm=perm, _mat=mat)
+
+    def save(self, op=None, path: Optional[str] = None) -> str:
+        """Persist this plan (and, if given, a built operator's arrays) to
+        the plan store, or to `path` (`<name>.json`). Returns the entry's
+        json path."""
+        d = (os.path.dirname(path) or ".") if path else _store_dir()
+        os.makedirs(d, exist_ok=True)
+        base = (path[:-5] if path and path.endswith(".json")
+                else os.path.join(d, self.key))
+        arrays: dict = {}
+        if self.perm is not None:
+            arrays["perm"] = np.asarray(self.perm, np.int64)
+        rec = {"backend": opcache.BACKEND, "plan": self.to_json(), "op": None}
+        if op is None and self._op_state is not None:
+            # re-prefix the loaded arrays so the entry round-trips
+            op_rec, op_arrays = self._op_state
+            rec["op"] = op_rec
+            arrays.update({f"op__{k}": v for k, v in op_arrays.items()})
+        elif op is not None:
+            meta, op_arrays = op.state()
+            rec["op"] = {"cls": type(op).__name__, "meta": meta,
+                         "dtypes": opcache.array_dtypes(op_arrays,
+                                                        self.dtype_name)}
+            arrays.update({f"op__{k}": v for k, v in op_arrays.items()})
+        opcache.write_entry(base, rec, arrays)
+        obs.counter("plan_store.writes").inc()
+        return base + ".json"
+
+    @staticmethod
+    def load(key_or_path: str, mat: Optional[CSRMatrix] = None
+             ) -> Optional["Plan"]:
+        """Load a plan (and any stored operator arrays) by store key or
+        explicit `<path>.json`. None on a miss, a corrupt entry or an entry
+        that is not the port's: the store persists across code versions, so
+        an unreadable entry is absent, never fatal."""
+        if key_or_path.endswith(".json"):
+            base = key_or_path[:-5]
+        else:
+            base = os.path.join(_store_dir(), key_or_path)
+        jpath, zpath = base + ".json", base + ".npz"
+        if not (os.path.exists(jpath) and os.path.exists(zpath)):
+            obs.counter("plan_store.misses").inc()
+            return None
+        try:
+            with open(jpath) as f:
+                rec = json.load(f)
+            if rec.get("backend") != opcache.BACKEND:
+                raise ValueError("not an entry of the port's plan store")
+            z = np.load(zpath)
+            perm = z["perm"] if "perm" in z.files else None
+            pl = Plan.from_json(rec["plan"], perm=perm, mat=mat)
+            if rec.get("op"):
+                op_arrays = {k[len("op__"):]: z[k] for k in z.files
+                             if k.startswith("op__")}
+                opcache.check_dtypes(op_arrays, rec["op"]["dtypes"])
+                pl._op_state = (rec["op"], op_arrays)
+            pl.cache_hit = True
+            # this invocation paid none of the plan-time costs; the
+            # originals stay in the record on disk
+            pl.tune_ms = pl.reorder_ms = pl.plan_ms = 0.0
+            obs.counter("plan_store.hits").inc()
+            return pl
+        except Exception:
+            obs.counter("plan_store.misses").inc()
+            return None
 
     # -- materialization ---------------------------------------------------
     def reordered_matrix(self) -> CSRMatrix:
@@ -225,39 +351,111 @@ class Plan:
         if self._rmat is None:
             if self._mat is None:
                 raise ValueError("plan has no attached matrix; pass mat= "
-                                 "or use plan(problem, ...)")
+                                 "to Plan.load or use plan(problem, ...)")
             self._rmat = (self._mat if self.perm is None
                           else self._mat.permute(self.perm))
         return self._rmat
 
-    def build(self, device=None,
-              values: Optional[np.ndarray] = None) -> Operator:
-        """The permutation-carrying Operator on `device` (None = the card):
-        permute + format conversion under this plan's decision.
+    def _restore_operator(self, dtype, device):
+        """Operator from stored host arrays on `device` (no conversion, no
+        matrix); None when the payload cannot be restored."""
+        if self._op_state is None:
+            return None
+        op_rec, arrays = self._op_state
+        cls = opcache.operator_registry().get(op_rec["cls"])
+        if cls is None:
+            return None
+        try:
+            op = cls.from_state(op_rec["meta"], arrays, dtype=dtype,
+                                device=device)
+        except Exception:
+            return None
+        if getattr(op, "use_kernel", None) is not None:
+            op.use_kernel = self.use_kernel
+        op.plan = self.tune
+        return op
+
+    def build(self, device=None, values: Optional[np.ndarray] = None,
+              cache: bool = True) -> Operator:
+        """The permutation-carrying Operator on `device` (None = the card).
+        Store hit: the operator's arrays reload (load_ms); miss: permute +
+        format conversion (build_ms), and with the store on the complete
+        entry (plan + perm + operator arrays) is written. Never re-tunes.
 
         `values` (float[nnz], in the original matrix's CSR order) replaces
-        the matrix's values for this build: the decision and the
-        permutation depend only on the sparsity structure, so they hold."""
-        dev = resolve_device(device)
-        rmat = self.reordered_matrix()
+        the matrix's values for this build, as `rebuild` does: the decision
+        and the permutation depend only on the sparsity structure, so they
+        hold; such a build neither reads nor writes the store."""
         if values is not None:
             mat = self._mat
+            if mat is None:
+                raise ValueError("plan has no attached matrix")
             if np.shape(values) != (mat.nnz,):
                 raise ValueError(f"values must be float[{mat.nnz}], got "
                                  f"shape {np.shape(values)}")
-            mat = dataclasses.replace(mat, vals=np.asarray(values))
-            rmat = mat if self.perm is None else mat.permute(self.perm)
+            return self.rebuild(dataclasses.replace(
+                mat, vals=np.asarray(values)), device=device)
+        dev = resolve_device(device)
+        dt = torch_dtype(self.dtype_name)
         with obs.span("plan.build", key=self.key, scheme=self.scheme,
+                      engine=self.tune.engine, backend="torch") as sp:
+            info = {"cache_hit": False, "key": self.key,
+                    "tune_ms": self.tune_ms, "build_ms": 0.0,
+                    "load_ms": 0.0, "engine": self.tune.engine,
+                    "plan": self.tune.to_json()}
+            use_store = cache and store_enabled()
+            inner = None
+            if use_store:
+                t0 = time.perf_counter()
+                if self._op_state is None and self.cache_hit:
+                    # only a loaded plan can find operator arrays in the
+                    # store (plan() writes a plan-only entry)
+                    stored = Plan.load(self.key, mat=self._mat)
+                    if stored is not None and stored._op_state is not None:
+                        self._op_state = stored._op_state
+                inner = self._restore_operator(dt, dev)
+                if inner is not None:
+                    info["load_ms"] = (time.perf_counter() - t0) * 1e3
+                    info["cache_hit"] = True
+            if inner is None:
+                t0 = time.perf_counter()
+                inner = tune_mod.build_from_plan(
+                    self.reordered_matrix(), self.tune, dtype=dt,
+                    use_kernel=self.use_kernel, device=dev)
+                info["build_ms"] = (time.perf_counter() - t0) * 1e3
+                if use_store:
+                    self.save(op=inner)
+            sp.set(cache_hit=info["cache_hit"])
+            return Operator(inner, self.perm, self, dev, build_info=info)
+
+    def rebuild(self, mat: CSRMatrix, use_kernel: Optional[str] = None,
+                device=None) -> Operator:
+        """Operator for a matrix with the SAME sparsity structure and
+        (possibly) other values, under this plan's frozen decision: permute
+        through the carried perm, convert with the chosen (engine, shape)
+        — no re-tune, no re-plan and no store write (the store is
+        content-addressed over values). Raises ValueError on a structure
+        mismatch."""
+        if tuple(mat.shape) != tuple(self.mat_shape) \
+                or mat.nnz != self.mat_nnz:
+            raise ValueError(
+                f"rebuild() needs the plan's structure "
+                f"({self.mat_shape}, nnz={self.mat_nnz}); got "
+                f"({tuple(mat.shape)}, nnz={mat.nnz}) — replan instead")
+        dev = resolve_device(device)
+        with obs.span("plan.rebuild", key=self.key,
                       engine=self.tune.engine, backend="torch"):
+            rmat = mat if self.perm is None else mat.permute(self.perm)
             t0 = time.perf_counter()
             inner = tune_mod.build_from_plan(
-                rmat, self.tune,
-                dtype=torch_dtype(self.dtype_name),
-                use_kernel=self.use_kernel, device=dev)
-            info = {"key": self.key, "tune_ms": self.tune_ms,
+                rmat, self.tune, dtype=torch_dtype(self.dtype_name),
+                use_kernel=(self.use_kernel if use_kernel is None
+                            else use_kernel), device=dev)
+            info = {"cache_hit": False, "key": self.key, "tune_ms": 0.0,
                     "build_ms": (time.perf_counter() - t0) * 1e3,
-                    "engine": self.tune.engine, "plan": self.tune.to_json()}
-            return Operator(inner, self.perm, self, dev, build_info=info)
+                    "load_ms": 0.0, "engine": self.tune.engine,
+                    "plan": self.tune.to_json(), "value_swap": True}
+        return Operator(inner, self.perm, self, dev, build_info=info)
 
 
 def _auto_schemes(hints: dict) -> list:
@@ -269,28 +467,25 @@ def _auto_schemes(hints: dict) -> list:
 
 
 def plan(problem: SpmvProblem, reorder: str = "auto", engine: str = "auto",
-         probe=False, cache: bool = False, device=None) -> Plan:
+         probe=False, cache: bool = True, device=None) -> Plan:
     """Decide (scheme, engine, shape) for the problem; see _plan_decide.
 
-    cache=True (the persistent plan store) is not ported yet and raises.
-    `device` matters only to probe=True / "exhaustive", which build and
-    time candidates there (None = the card)."""
-    if cache:
-        raise NotImplementedError(
-            "repro_torch has no plan store yet (it comes with the slice "
-            "that ports core/spmv/opcache.py and the plan store); call "
-            "plan(..., cache=False)")
+    cache — consult and populate the plan store (and the reorder cache);
+    a hit returns the stored plan with cache_hit=True and zero plan-time
+    costs. `device` matters only to probe=True / "exhaustive", which build
+    and time candidates there (None = the card)."""
     with obs.span("plan", shape=str(tuple(problem.mat.shape)),
                   nnz=int(problem.mat.nnz), reorder=reorder,
                   engine=engine, probe=str(probe), k=int(problem.k),
                   backend="torch") as sp:
-        pl = _plan_decide(problem, reorder, engine, probe, device)
-        sp.set(scheme=pl.scheme, engine_chosen=pl.tune.engine, key=pl.key)
+        pl = _plan_decide(problem, reorder, engine, probe, cache, device)
+        sp.set(scheme=pl.scheme, engine_chosen=pl.tune.engine,
+               cache_hit=bool(pl.cache_hit), key=pl.key)
         return pl
 
 
 def _plan_decide(problem: SpmvProblem, reorder: str, engine: str, probe,
-                 device) -> Plan:
+                 cache: bool, device) -> Plan:
     """reorder — a registered scheme name, or "auto" to jointly search the
     auto-candidate schemes (hints["schemes"] overrides the set): each
     candidate is permuted, its features recomputed and every engine
@@ -324,6 +519,13 @@ def _plan_decide(problem: SpmvProblem, reorder: str, engine: str, probe,
         registry.get_scheme(s)
     key = plan_key(problem, reorder, engine, probe, seed,
                    schemes=schemes if reorder == "auto" else None)
+    if cache and store_enabled():
+        hit = Plan.load(key, mat=mat)
+        if hit is not None:
+            # use_kernel is a run-time choice, not plan identity: the
+            # requesting caller's preference wins
+            hit.use_kernel = use_kernel
+            return hit
 
     reorder_ms = tune_ms = 0.0
     best = None                       # (cost, scheme, perm, rmat, tuneplan)
@@ -331,7 +533,7 @@ def _plan_decide(problem: SpmvProblem, reorder: str, engine: str, probe,
     for s in schemes:
         t0 = time.perf_counter()
         perm = (None if s == "baseline"
-                else reorder_api.reorder(mat, s, seed, cache=False))
+                else reorder_api.reorder(mat, s, seed, cache=cache))
         rmat = mat if perm is None else mat.permute(perm)
         reorder_ms += (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
@@ -368,11 +570,14 @@ def _plan_decide(problem: SpmvProblem, reorder: str, engine: str, probe,
                            use_kernel=use_kernel, k=k, device=device)
         tune_ms += (time.perf_counter() - t0) * 1e3
 
-    return Plan(scheme=scheme, seed=seed, engine_request=engine, tune=tp,
-                k=k, dtype_name=problem.dtype_name(), probe=probe,
-                use_kernel=use_kernel, mat_shape=tuple(mat.shape), mat_nnz=mat.nnz, key=key,
-                scheme_costs=scheme_costs, reorder_ms=reorder_ms,
-                tune_ms=tune_ms,
-                plan_ms=(time.perf_counter() - t_start) * 1e3,
-                perm=None if perm is None else np.asarray(perm, np.int64),
-                _mat=mat, _rmat=rmat)
+    pl = Plan(scheme=scheme, seed=seed, engine_request=engine, tune=tp,
+              k=k, dtype_name=problem.dtype_name(), probe=probe,
+              use_kernel=use_kernel, mat_shape=tuple(mat.shape),
+              mat_nnz=mat.nnz, key=key, scheme_costs=scheme_costs,
+              reorder_ms=reorder_ms, tune_ms=tune_ms,
+              plan_ms=(time.perf_counter() - t_start) * 1e3,
+              perm=None if perm is None else np.asarray(perm, np.int64),
+              _mat=mat, _rmat=rmat)
+    if cache and store_enabled():
+        pl.save()
+    return pl

@@ -5,7 +5,10 @@ kernel is tested against these, which are tested against the numpy
 CSRMatrix.spmv and against the JAX package's jnp oracles. Segment sums are
 `index_add_`. Every oracle accumulates at >= float32 (the promoted type of
 the operands and float32) and returns the operand dtype, so an f64
-operator keeps f64 accuracy.
+operator keeps f64 accuracy, with one exception: the CSR oracle in bf16
+multiplies and sums in bf16, as the reference's `spmv_csr` does (on the
+CPU the two agree bit for bit; on the card `index_add_` adds atomically,
+in no fixed order).
 """
 from __future__ import annotations
 
@@ -24,12 +27,22 @@ def spmv_csr(row_ids: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
 
     row_ids: int[nnz] (row of each stored element, nondecreasing);
     x: [n] or [n, k] (the k axis rides along every gathered element).
+    In bf16 the products and the segment sum stay in bf16, as in the
+    reference; every other type accumulates at >= float32.
     """
-    acc = acc_dtype(torch.promote_types(vals.dtype, x.dtype))
+    dt = torch.promote_types(vals.dtype, x.dtype)
+    acc = dt if dt == torch.bfloat16 else acc_dtype(dt)
     prod = x[cols.long()].to(acc)
     prod *= vals.to(acc).reshape((-1,) + (1,) * (x.dim() - 1))
+    rows = row_ids.long()
+    if acc == torch.bfloat16 and x.dim() > 1:
+        # torch sums a 2-D bf16 index_add_ in f32 on the CPU; one 1-D sum
+        # per column adds in bf16 in row order, as the reference does
+        cols_y = [torch.zeros(m, dtype=acc, device=x.device).index_add_(
+            0, rows, prod[:, j].contiguous()) for j in range(x.shape[1])]
+        return torch.stack(cols_y, dim=1)
     y = torch.zeros((m,) + tuple(x.shape[1:]), dtype=acc, device=x.device)
-    y.index_add_(0, row_ids.long(), prod)
+    y.index_add_(0, rows, prod)
     return y.to(x.dtype)
 
 

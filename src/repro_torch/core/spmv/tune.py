@@ -104,7 +104,7 @@ def matrix_features(mat: CSRMatrix, bm: int = 8, bn: int = 128) -> dict:
     c = mat.cols.astype(np.int64)
     nbc = (mat.n + bn - 1) // bn
     bkeys = (r // bm) * nbc + (c // bn)
-    ub = np.unique(bkeys) if mat.nnz else np.empty(0, np.int64)
+    ub = metrics.sorted_unique(bkeys) if mat.nnz else np.empty(0, np.int64)
     nblocks = int(ub.size)
     br_counts = np.bincount((ub // nbc).astype(np.int64),
                             minlength=(mat.m + bm - 1) // bm) if nblocks else \

@@ -1,6 +1,6 @@
 // Hand-written SpMV/SpMM kernels for Hopper (sm_90a), bound with ctypes.
 //
-// Four kernels, each templated on float and double, each with one
+// Four kernels, each templated on float, double and bf16, each with one
 // extern "C" launcher per type that launches on the caller's stream and
 // returns cudaGetLastError(). The wrappers (repro_torch/kernels/*/kernel.py)
 // check shapes, types and contiguity, allocate the outputs and raise on a
@@ -14,8 +14,10 @@
 //     outputs once. A warp's partial sums meet in a fixed butterfly of
 //     shuffles. The result is deterministic and needs no atomics and no
 //     zero-fill.
-//   * Every product is a scalar FMA in the accumulator type (the operand
-//     type: float for f32, double for f64, so always >= f32). No tensor
+//   * Every product is a scalar FMA in the accumulator type Acc<T>
+//     (common.cuh: float for f32 and bf16, double for f64, so always
+//     >= f32). A bf16 kernel reads bf16 values and x, converts each to
+//     f32 before its FMA and rounds y to bf16 once, at the store. No tensor
 //     core runs, so no TF32 rounding can enter.
 //   * Offsets are 64-bit: T * C * W and T * bm * bn pass 2^31 on large
 //     matrices.
@@ -30,10 +32,15 @@
 //     the shapes and alignments its vector body does not take, chosen by
 //     its launcher.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float fma_acc(float a, float b, float c) {
   return __fmaf_rn(a, b, c);
@@ -48,7 +55,13 @@ inline bool aligned(const void* p, int64_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// One 16-byte load: 4 floats or 2 doubles, and as many int32 column ids.
+// kN = 8 int32 column ids, 32 bytes: the columns of one bf16 value vector.
+struct Int8 {
+  int4 lo, hi;
+};
+
+// One 16-byte load: 4 floats, 2 doubles or 8 bf16, and I, the kN int32
+// column ids beside them (16, 8 or 32 bytes).
 template <typename T>
 struct Vec16;
 template <>
@@ -63,6 +76,20 @@ struct Vec16<double> {
   using V = double2;
   using I = int2;
 };
+template <>
+struct Vec16<bf16> {
+  static constexpr int kN = 8;
+  using V = uint4;
+  using I = Int8;
+};
+
+// Column ids streamed past L1: one load, or two 16-byte loads for Int8.
+__device__ __forceinline__ int4 ldcs_cols(const int4* p) { return __ldcs(p); }
+__device__ __forceinline__ int2 ldcs_cols(const int2* p) { return __ldcs(p); }
+__device__ __forceinline__ Int8 ldcs_cols(const Int8* p) {
+  const int4* q = reinterpret_cast<const int4*>(p);
+  return Int8{__ldcs(q), __ldcs(q + 1)};
+}
 
 // Sum over aligned groups of `width` lanes (a power of two <= 32), every
 // lane of the warp taking part; each lane of a group gets the group's sum.
@@ -86,7 +113,8 @@ constexpr int kWarps = 8;  // warps per thread block of K1, K3 and K4
 // slice_ptr[s] .. slice_ptr[s + 1]); x [n, nv]; y [S, C, nv].
 //
 // Bound: bytes — each stored slot is read once (value + int32 column, 8
-// bytes in f32) plus the x gathers, which stay in L2. One warp per slice:
+// bytes in f32, 6 in bf16) plus the x gathers, which stay in L2. One warp
+// per slice:
 // a chunk is C * W contiguous values and as many contiguous columns, and
 // consecutive lanes read consecutive 16-byte vectors of values and as many
 // columns (a 512-byte warp load of values per 32-lane step). With W a multiple of the vector width
@@ -96,7 +124,9 @@ constexpr int kWarps = 8;  // warps per thread block of K1, K3 and K4
 // (rows r0 .. r0 + STEPS * 32 / g), adds its kN products in order, walks
 // the slice's chunks, then each group of g lanes sums its row by shuffles
 // and its first lane writes y. All STEPS loads of a chunk are issued
-// before the gathers. grid.y walks the columns v of x.
+// before the gathers. grid.y walks the columns v of x. In bf16 a vector is
+// 8 values (kN = 8) and its columns two 16-byte loads; at the Fig. 1 shape
+// (C = 8, W = 32) g = 4 lanes cover a row and one step covers the chunk.
 template <typename T, int STEPS>
 __global__ void __launch_bounds__(kWarps * 32)
     sell_spmv_kernel(const T* __restrict__ vals,
@@ -117,7 +147,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int64_t t0 = slice_ptr[s], t1 = slice_ptr[s + 1];
   for (int64_t v = blockIdx.y; v < nv; v += gridDim.y) {
     for (int64_t r0 = 0; r0 < C; r0 += STEPS * rows) {
-      T acc[STEPS];
+      Acc<T> acc[STEPS];
 #pragma unroll
       for (int i = 0; i < STEPS; ++i) acc[i] = 0;
       for (int64_t t = t0; t < t1; ++t) {
@@ -129,7 +159,7 @@ __global__ void __launch_bounds__(kWarps * 32)
           if (r < C) {
             const int64_t o = (t * C + r) * W + w_lane;
             a[i] = __ldcs(reinterpret_cast<const V*>(vals + o));
-            c[i] = __ldcs(reinterpret_cast<const I*>(cols + o));
+            c[i] = ldcs_cols(reinterpret_cast<const I*>(cols + o));
           }
         }
 #pragma unroll
@@ -139,7 +169,8 @@ __global__ void __launch_bounds__(kWarps * 32)
             const int* ci = reinterpret_cast<const int*>(&c[i]);
 #pragma unroll
             for (int e = 0; e < kN; ++e) {
-              acc[i] = fma_acc(av[e], __ldg(x + (int64_t)ci[e] * nv + v),
+              acc[i] = fma_acc(to_acc(av[e]),
+                               to_acc(__ldg(x + (int64_t)ci[e] * nv + v)),
                                acc[i]);
             }
           }
@@ -147,9 +178,9 @@ __global__ void __launch_bounds__(kWarps * 32)
       }
 #pragma unroll
       for (int i = 0; i < STEPS; ++i) {
-        const T sum = group_sum(acc[i], g);
+        const Acc<T> sum = group_sum(acc[i], g);
         const int64_t r = r0 + i * rows + r_lane;
-        if (r < C && lane % g == 0) y[(s * C + r) * nv + v] = sum;
+        if (r < C && lane % g == 0) y[(s * C + r) * nv + v] = from_acc<T>(sum);
       }
     }
   }
@@ -172,16 +203,16 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int64_t t0 = slice_ptr[s], t1 = slice_ptr[s + 1];
   for (int64_t v = blockIdx.y; v < nv; v += gridDim.y) {
     for (int64_t r = 0; r < C; ++r) {
-      T acc = 0;
+      Acc<T> acc = 0;
       for (int64_t t = t0; t < t1; ++t) {
         const int64_t base = (t * C + r) * W;
         for (int64_t w = lane; w < W; w += 32) {
-          acc = fma_acc(vals[base + w], x[(int64_t)cols[base + w] * nv + v],
-                        acc);
+          acc = fma_acc(to_acc(vals[base + w]),
+                        to_acc(x[(int64_t)cols[base + w] * nv + v]), acc);
         }
       }
       acc = group_sum(acc, 32);
-      if (lane == 0) y[(s * C + r) * nv + v] = acc;
+      if (lane == 0) y[(s * C + r) * nv + v] = from_acc<T>(acc);
     }
   }
 }
@@ -222,9 +253,12 @@ __global__ void __launch_bounds__(kWarps * 32)
 // division (PERF.md has the measurements; pipelining the next slice's
 // chunk, or staging a window of x rows in shared memory, gained nothing).
 //
-// The body takes C a power of two <= 32, W a power of two >= 4, k a
-// multiple of kN, and 16-byte-aligned values, columns, x and y; a k-tile
-// past k loads and stores nothing.
+// The body takes C a power of two <= 32, W a power of two >= max(4, kN), k
+// a multiple of kN, and 16-byte-aligned values, columns, x and y; a k-tile
+// past k loads and stores nothing. In bf16 (kN = 8) a staged value row is
+// half the bytes of its column row, both padded by 16 bytes, and at KT = 8
+// a slot's x tile is one 16-byte vector (NV = 1, NS = 32 slots per warp
+// load).
 //
 // Scalar body (sell_spmm_rows_kernel) for every other shape: one warp per
 // slice and k-tile, a row at a time; lane = wl * kt + jc takes column
@@ -236,12 +270,6 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 constexpr int kStage = 256;  // slots of one staged sub-chunk (C x Wb)
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n"
                "cp.async.wait_group 0;\n" ::
@@ -296,7 +324,7 @@ __global__ void __launch_bounds__(kWarps * 32)
        j0 += (int64_t)gridDim.y * KT) {
     const bool on = j0 + v * kN < k;
     const T* xv = x + j0 + v * kN;
-    T acc[RPL][kN];
+    Acc<T> acc[RPL][kN];
 #pragma unroll
     for (int m = 0; m < RPL; ++m) {
 #pragma unroll
@@ -336,7 +364,8 @@ __global__ void __launch_bounds__(kWarps * 32)
               const T* xe = reinterpret_cast<const T*>(&xt[b]);
 #pragma unroll
               for (int e = 0; e < kN; ++e) {
-                acc[b % RPL][e] = fma_acc(a[b], xe[e], acc[b % RPL][e]);
+                acc[b % RPL][e] = fma_acc(to_acc(a[b]), to_acc(xe[e]),
+                                          acc[b % RPL][e]);
               }
             }
           }
@@ -356,7 +385,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         V out;
         T* oe = reinterpret_cast<T*>(&out);
 #pragma unroll
-        for (int e = 0; e < kN; ++e) oe[e] = acc[m][e];
+        for (int e = 0; e < kN; ++e) oe[e] = from_acc<T>(acc[m][e]);
         *reinterpret_cast<V*>(y + (s * C + r0 + NS * m) * k + j0 + v * kN) =
             out;
       }
@@ -381,20 +410,20 @@ __global__ void __launch_bounds__(kWarps * 32)
        j0 += (int64_t)gridDim.y * kt) {
     const int64_t j = j0 + jc;
     for (int64_t r = 0; r < C; ++r) {
-      T acc = 0;
+      Acc<T> acc = 0;
       if (j < k) {
         for (int64_t t = t0; t < t1; ++t) {
           const int64_t base = (t * C + r) * W;
           for (int64_t w = wl; w < W; w += nw) {
-            acc = fma_acc(vals[base + w],
-                          x[(int64_t)cols[base + w] * k + j], acc);
+            acc = fma_acc(to_acc(vals[base + w]),
+                          to_acc(x[(int64_t)cols[base + w] * k + j]), acc);
           }
         }
       }
       for (int off = kt; off < 32; off *= 2) {
         acc += __shfl_xor_sync(0xffffffffu, acc, off);
       }
-      if (wl == 0 && j < k) y[(s * C + r) * k + j] = acc;
+      if (wl == 0 && j < k) y[(s * C + r) * k + j] = from_acc<T>(acc);
     }
   }
 }
@@ -416,7 +445,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 // lane keeps R partial sums; after the last block each row is summed over
 // the warp and lane i writes y[r, i, 0]. This body takes nv = 1, bm <= 16
 // and bn a multiple of kN with aligned bases (lanes stride by 32 vectors
-// when bn > 32 * kN and idle when bn < 32 * kN). A block row with no block
+// when bn > 32 * kN and idle when bn < 32 * kN: in bf16 at bn = 128, 16
+// lanes of 8 values each read a row). A block row with no block
 // (g0 == g1) writes zeros. On power-law matrices a warp per block row is
 // load-imbalanced: a long block row holds its warp while the others idle.
 template <typename T, int R>
@@ -429,7 +459,7 @@ __device__ __forceinline__ void block_row_vec(const T* __restrict__ blocks,
   using V = typename Vec16<T>::V;
   constexpr int kN = Vec16<T>::kN;
   const int lane = threadIdx.x % 32;
-  T acc[R];
+  Acc<T> acc[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = 0;
   for (int64_t g = g0; g < g1; ++g) {
@@ -448,18 +478,20 @@ __device__ __forceinline__ void block_row_vec(const T* __restrict__ blocks,
         if (i < bm) {
           const T* ae = reinterpret_cast<const T*>(&a[i]);
 #pragma unroll
-          for (int e = 0; e < kN; ++e) acc[i] = fma_acc(ae[e], xe[e], acc[i]);
+          for (int e = 0; e < kN; ++e) {
+            acc[i] = fma_acc(to_acc(ae[e]), to_acc(xe[e]), acc[i]);
+          }
         }
       }
     }
   }
-  T out = 0;
+  Acc<T> out = 0;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
-    const T sum = group_sum(acc[i], 32);
+    const Acc<T> sum = group_sum(acc[i], 32);
     if (lane == i) out = sum;
   }
-  if (lane < bm) y[r * bm + lane] = out;
+  if (lane < bm) y[r * bm + lane] = from_acc<T>(out);
 }
 
 // The body for every other shape (nv > 1, bm > 16, bn not a multiple of
@@ -477,16 +509,16 @@ __device__ __forceinline__ void block_row_scalar(const T* __restrict__ blocks,
   const int lane = threadIdx.x % 32;
   for (int64_t v = blockIdx.y; v < nv; v += gridDim.y) {
     for (int64_t i = 0; i < bm; ++i) {
-      T acc = 0;
+      Acc<T> acc = 0;
       for (int64_t g = g0; g < g1; ++g) {
         const T* a = blocks + (g * bm + i) * bn;
         const T* xb = x + (int64_t)block_cols[g] * bn * nv + v;
         for (int64_t jj = lane; jj < bn; jj += 32) {
-          acc = fma_acc(a[jj], xb[jj * nv], acc);
+          acc = fma_acc(to_acc(a[jj]), to_acc(xb[jj * nv]), acc);
         }
       }
       acc = group_sum(acc, 32);
-      if (lane == 0) y[(r * bm + i) * nv + v] = acc;
+      if (lane == 0) y[(r * bm + i) * nv + v] = from_acc<T>(acc);
     }
   }
 }
@@ -574,7 +606,7 @@ int launch_sell_spmv(const void* vals, const void* cols, const void* ptr,
   const dim3 grid = warp_grid(S, nv);
   const cudaStream_t st = (cudaStream_t)stream;
   if (W % kN != 0 || g > 32 || (g & (g - 1)) != 0 || !aligned(vals, 16) ||
-      !aligned(cols, 4 * kN)) {
+      !aligned(cols, 4 * kN < 16 ? 4 * kN : 16)) {
     sell_spmv_rows_kernel<T><<<grid, kWarps * 32, 0, st>>>(
         (const T*)vals, (const int32_t*)cols, (const int64_t*)ptr,
         (const T*)x, (T*)y, S, C, W, nv);
@@ -614,9 +646,10 @@ int launch_sell_spmm(const void* vals, const void* cols, const void* ptr,
   if (S * C * k == 0) return 0;
   if (kt != 8 && kt != 16 && kt != 32) return (int)cudaErrorInvalidValue;
   constexpr int kN = Vec16<T>::kN;
+  constexpr int kMinW = kN > 4 ? kN : 4;  // a staged row: whole vectors
   const dim3 grid = warp_grid(S, ceil_div(k, kt));
   const cudaStream_t st = (cudaStream_t)stream;
-  if (!pow2(C) || C > 32 || !pow2(W) || W < 4 || k % kN != 0 ||
+  if (!pow2(C) || C > 32 || !pow2(W) || W < kMinW || k % kN != 0 ||
       !aligned(vals, 16) || !aligned(cols, 16) || !aligned(x, 16) ||
       !aligned(y, 16)) {
     sell_spmm_rows_kernel<T><<<grid, kWarps * 32, 0, st>>>(
@@ -743,6 +776,34 @@ extern "C" int bell_spmv_f64(const void* blocks, const void* cols,
                              long long nv, void* stream) {
   return launch_bell_spmv<double>(blocks, cols, x, y, nbr, K, bm, bn, nv,
                                   stream);
+}
+
+extern "C" int sell_spmv_bf16(const void* vals, const void* cols,
+                              const void* ptr, const void* x, void* y,
+                              long long S, long long C, long long W,
+                              long long nv, void* stream) {
+  return launch_sell_spmv<bf16>(vals, cols, ptr, x, y, S, C, W, nv, stream);
+}
+extern "C" int sell_spmm_bf16(const void* vals, const void* cols,
+                              const void* ptr, const void* x, void* y,
+                              long long S, long long C, long long W,
+                              long long k, long long kt, void* stream) {
+  return launch_sell_spmm<bf16>(vals, cols, ptr, x, y, S, C, W, k, kt,
+                                stream);
+}
+extern "C" int bcsr_spmv_bf16(const void* blocks, const void* cols,
+                              const void* rowptr, const void* x, void* y,
+                              long long nbr, long long bm, long long bn,
+                              long long nv, void* stream) {
+  return launch_bcsr_spmv<bf16>(blocks, cols, rowptr, x, y, nbr, bm, bn, nv,
+                                stream);
+}
+extern "C" int bell_spmv_bf16(const void* blocks, const void* cols,
+                              const void* x, void* y, long long nbr,
+                              long long K, long long bm, long long bn,
+                              long long nv, void* stream) {
+  return launch_bell_spmv<bf16>(blocks, cols, x, y, nbr, K, bm, bn, nv,
+                                stream);
 }
 
 extern "C" const char* spmv_error_string(int code) {

@@ -88,6 +88,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"  // cp_async16
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -314,11 +316,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

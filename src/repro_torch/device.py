@@ -26,6 +26,11 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def device_kind(dev: torch.device) -> str:
+    """What a record says it ran on: "cpu", or the card's name."""
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
 def check_use_kernel(use_kernel: str) -> str:
     if use_kernel not in USE_KERNEL:
         raise ValueError(f"use_kernel must be one of {USE_KERNEL}, "
@@ -45,11 +50,27 @@ def wants_plain(use_kernel: str, x: torch.Tensor) -> bool:
 
 
 def to_device(arr, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """A host numpy array as a contiguous tensor of `dtype` on `device`."""
+    """A host numpy array as a contiguous tensor of `dtype` on `device`.
+
+    numpy has no bf16: a uint16 array going to bf16 holds raw bf16 bits
+    (what `host_array` gives for a bf16 tensor) and is restored bit for
+    bit."""
     import numpy as np
 
     arr = np.require(arr, requirements=["C", "W"])  # copies read-only views
+    if dtype == torch.bfloat16 and arr.dtype == np.uint16:
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+
+def host_array(t: torch.Tensor):
+    """A tensor's values as a host numpy array; a bf16 tensor gives its raw
+    bits as uint16 (numpy has no bf16), which `to_device` restores."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("uint16")
+    return t.numpy()
 
 
 def torch_dtype(dtype) -> torch.dtype:

@@ -9,8 +9,8 @@ started together, then one link:
     nvcc -shared -o <build>/librepro_torch_<hash>.so *.o
 
 The library lands in `build/repro_torch/` at the repository root
-(REPRO_TORCH_BUILD_DIR overrides), keyed by a hash of the sources and the
-flags, written to a temporary name and renamed into place. A failed build
+(REPRO_TORCH_BUILD_DIR overrides), keyed by a hash of the flags and of every
+file under csrc/ (the sources and the headers they include), written to a temporary name and renamed into place. A failed build
 raises with the compiler's output; nothing falls back.
 
 `launch(name, dtype, tensors, ints)` calls the `<name>_<f32|f64|bf16>`
@@ -31,17 +31,18 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "spmv_kernels.cu", _PKG / "csrc" / "ssd_chunk.cu")
+CSRC = _PKG / "csrc"
+SOURCES = (CSRC / "spmv_kernels.cu", CSRC / "ssd_chunk.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _F32, _F64, _BF16 = torch.float32, torch.float64, torch.bfloat16
 # launcher name -> (pointer args, integer args, value types); every launcher
 # takes the stream last and returns a cudaError_t as int
 KERNELS = {
-    "sell_spmv": (5, 4, (_F32, _F64)),
-    "sell_spmm": (5, 5, (_F32, _F64)),
-    "bcsr_spmv": (5, 4, (_F32, _F64)),
-    "bell_spmv": (4, 5, (_F32, _F64)),
+    "sell_spmv": (5, 4, (_F32, _F64, _BF16)),
+    "sell_spmm": (5, 5, (_F32, _F64, _BF16)),
+    "bcsr_spmv": (5, 4, (_F32, _F64, _BF16)),
+    "bell_spmv": (4, 5, (_F32, _F64, _BF16)),
     "ssd_scan": (7, 10, (_F32, _BF16)),
 }
 _SUFFIX = {_F32: "f32", _F64: "f64", _BF16: "bf16"}
@@ -75,12 +76,20 @@ def _finish(cmd, proc, out: str, err: str) -> str:
     return out + err
 
 
+def source_hash() -> str:
+    """sha1 over the flags and every file under csrc/, names included, so
+    an edited header rebuilds the library as an edited source does."""
+    h = hashlib.sha1(" ".join(FLAGS).encode())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(CSRC)).encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()
+
+
 def build() -> Path:
     """Compile the sources unless a library for their hash exists."""
-    h = hashlib.sha1(" ".join(FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.read_bytes())
-    out = build_dir() / f"librepro_torch_{h.hexdigest()[:16]}.so"
+    h = source_hash()
+    out = build_dir() / f"librepro_torch_{h[:16]}.so"
     if out.exists():
         BUILD_INFO.update(path=str(out), seconds=0.0, compiled=False, log="")
         return out

@@ -6,7 +6,7 @@ import torch
 
 from ... import obs
 from ...core.sparse.bell import BCSR
-from ...device import (check_use_kernel, resolve_device,
+from ...device import (check_use_kernel, host_array, resolve_device,
                        to_device, torch_dtype, wants_plain)
 from .kernel import bcsr_spmv, bcsr_spmv_plain
 
@@ -63,7 +63,7 @@ class BcsrOperator:
     def _finish(self, dev, use_kernel: str) -> None:
         self.device = dev
         # block_rows is sorted and covers every block row (pad_empty_rows)
-        rows = self.block_rows.cpu().numpy()
+        rows = host_array(self.block_rows)
         self.block_rowptr = to_device(
             np.searchsorted(rows, np.arange(self.nbr + 1)), torch.int64, dev)
         self.use_kernel = check_use_kernel(use_kernel)
@@ -99,9 +99,9 @@ class BcsrOperator:
                 "block_shape": list(self.block_shape),
                 "nbr": self.nbr, "ncb": self.ncb,
                 "use_kernel": self.use_kernel}
-        return meta, {"blocks": self.blocks.cpu().numpy(),
-                      "block_rows": self.block_rows.cpu().numpy(),
-                      "block_cols": self.block_cols.cpu().numpy()}
+        return meta, {"blocks": host_array(self.blocks),
+                      "block_rows": host_array(self.block_rows),
+                      "block_cols": host_array(self.block_cols)}
 
     @classmethod
     def from_state(cls, meta, arrays, dtype=None, device=None):

@@ -6,7 +6,7 @@ import torch
 
 from ... import obs
 from ...core.sparse.bell import BlockELL
-from ...device import (check_use_kernel, resolve_device,
+from ...device import (check_use_kernel, host_array, resolve_device,
                        to_device, torch_dtype, wants_plain)
 from ..bcsr_spmv.ops import pad_x2d
 from .kernel import bell_spmv, bell_spmv_plain
@@ -57,8 +57,8 @@ class BellOperator:
         meta = {"shape": list(self.shape),
                 "block_shape": list(self.block_shape),
                 "ncb": self.ncb, "use_kernel": self.use_kernel}
-        return meta, {"blocks": self.blocks.cpu().numpy(),
-                      "block_cols": self.block_cols.cpu().numpy()}
+        return meta, {"blocks": host_array(self.blocks),
+                      "block_cols": host_array(self.block_cols)}
 
     @classmethod
     def from_state(cls, meta, arrays, dtype=None, device=None):

@@ -6,7 +6,7 @@ repro_torch/csrc/spmv_kernels.cu (`sell_spmm_kernel`, one warp per slice and
 k-tile, the chunk staged in shared memory by 16-byte cp.async loads and each
 slot's x tile gathered as 16-byte vectors, or
 `sell_spmm_rows_kernel` for the shapes it does not take; launched by
-`sell_spmm_f32` / `sell_spmm_f64`). The plain version is K1's: the SpMV
+`sell_spmm_f32` / `_f64` / `_bf16`). The plain version is K1's: the SpMV
 oracle already carries a trailing vector axis.
 """
 from __future__ import annotations
@@ -24,8 +24,8 @@ def pick_k_tile(k: int) -> int:
     """Columns per k-tile (KT): the smallest of 8, 16 and 32 covering k.
 
     The kernel's vector body gives each slot KT / kN lanes, one 16-byte x
-    vector each (kN = 4 in f32, 2 in f64), so a warp load gathers 32 * kN /
-    KT slots; each lane keeps at most KT accumulators. The matrix is staged
+    vector each (kN = 4 in f32, 2 in f64, 8 in bf16), so a warp load
+    gathers 32 * kN / KT slots; each lane keeps at most KT accumulators. The matrix is staged
     once per k-tile, ceil(k / KT) times: once for k <= 32, twice at k = 64.
     A wider tile would cut the slots per warp load below 4 and take more
     registers. The kernel is compiled for these three widths; at k = 4 the

@@ -5,7 +5,7 @@ src/repro/kernels/sell_spmv/kernel.py. The kernel itself, and the note on
 what bounds it and what its design does about that, are in
 repro_torch/csrc/spmv_kernels.cu (`sell_spmv_kernel`, one warp per slice
 with 16-byte loads, or `sell_spmv_rows_kernel` for the shapes it does not
-take; launched by `sell_spmv_f32` / `sell_spmv_f64`).
+take; launched by `sell_spmv_f32` / `_f64` / `_bf16`).
 """
 from __future__ import annotations
 

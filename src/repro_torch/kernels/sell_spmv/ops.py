@@ -11,7 +11,7 @@ import torch
 
 from ... import obs
 from ...core.sparse.sell import SellCS
-from ...device import (check_use_kernel, resolve_device,
+from ...device import (check_use_kernel, host_array, resolve_device,
                        to_device, torch_dtype, wants_plain)
 from .kernel import sell_spmv, sell_spmv_plain, slice_chunk_ptr
 
@@ -38,7 +38,7 @@ class SellOperator:
     def _finish(self, dev, use_kernel: str) -> None:
         self.device = dev
         self.slice_ptr = to_device(
-            slice_chunk_ptr(self.chunk_slice.cpu().numpy(), self.num_slices),
+            slice_chunk_ptr(host_array(self.chunk_slice), self.num_slices),
             torch.int64, dev)
         self.use_kernel = check_use_kernel(use_kernel)
 
@@ -72,10 +72,10 @@ class SellOperator:
         meta = {"shape": list(self.shape), "c": self.c, "sigma": self.sigma,
                 "w": self.w, "num_slices": self.num_slices,
                 "n_pad": self.n_pad, "use_kernel": self.use_kernel}
-        arrays = {"chunk_vals": self.chunk_vals.cpu().numpy(),
-                  "chunk_cols": self.chunk_cols.cpu().numpy(),
-                  "chunk_slice": self.chunk_slice.cpu().numpy(),
-                  "inv_perm": self.inv_perm.cpu().numpy()}
+        arrays = {"chunk_vals": host_array(self.chunk_vals),
+                  "chunk_cols": host_array(self.chunk_cols),
+                  "chunk_slice": host_array(self.chunk_slice),
+                  "inv_perm": host_array(self.inv_perm)}
         return meta, arrays
 
     @classmethod

@@ -2,6 +2,7 @@
 
     python -m repro_torch.launch.spmv_bench --matrix fig1_shuffled \\
         --scheme rcm --engine auto [--spmm K] [--iters N] [--device cuda]
+    python -m repro_torch.launch.spmv_bench --campaign smoke [--device cpu]
 
 The port's counterpart of the JAX package's `run_single`: one matrix, one
 reordering scheme ("auto" searches), one engine ("auto" tunes). It prints
@@ -10,8 +11,16 @@ median and GFLOP/s (2 flops per nonzero per right-hand side), and the
 launches of each hand-written kernel during the cell. Verification is
 against the numpy float64 oracle `CSRMatrix.spmv` in the original index
 space, for the cell's operator and for its structure twin (the same
-structure with values U(-1, 1)). There is no result store yet: every
-invocation measures.
+structure with values U(-1, 1)). A single cell measures on every
+invocation; its plan and operator come from the plan store when they are
+there.
+
+`--campaign smoke` is the port's counterpart of the JAX package's
+`benchmarks/run.py --smoke`: the smoke matrices x {baseline, rcm} x the
+auto engine through the experiments Runner (verify on, probe on), then the
+same campaign again, which must be served entirely from the result store;
+it writes the port's bench summary (experiments/report.py SUMMARY_PATH)
+and exits nonzero on any failure.
 """
 from __future__ import annotations
 
@@ -26,12 +35,8 @@ import torch
 from ..core.measure import cg, ios
 from ..core.sparse.csr import CSRMatrix
 from ..core.spmv.plan import SpmvProblem, plan
-from ..device import resolve_device, torch_dtype
+from ..device import device_kind, resolve_device, torch_dtype
 from ..kernels import LAUNCHES
-
-
-def device_name(dev: torch.device) -> str:
-    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
 def structure_twin(mat: CSRMatrix, seed: int = 0) -> CSRMatrix:
@@ -112,7 +117,7 @@ def run_cell(mat: CSRMatrix, scheme: str = "baseline", engine: str = "auto",
     op = pl.build(device=dev)
     rmat = pl.reordered_matrix()
     rec = {
-        "device": device_name(dev), "m": int(mat.m), "n": int(mat.n),
+        "device": device_kind(dev), "m": int(mat.m), "n": int(mat.n),
         "nnz": int(mat.nnz), "k": int(k), "scheme": scheme,
         "resolved_scheme": pl.scheme, "engine": pl.tune.engine,
         "plan_label": pl.label(), "reorder_ms": pl.reorder_ms,
@@ -156,10 +161,68 @@ def run_single(matrix: str, scheme: str = "baseline", engine: str = "auto",
     return rec
 
 
+def smoke_spec(matrices=None):
+    from ..experiments import ExperimentSpec, MeasurePolicy
+    from ..matrices import suite
+
+    return ExperimentSpec(
+        name="smoke_torch", matrices=tuple(matrices or suite.smoke_names()),
+        schemes=("baseline", "rcm"), engines=("auto",),
+        policy=MeasurePolicy(iters=3, warmup=1, with_yax=False,
+                             with_parallel=False, with_metrics=False,
+                             verify=True, probe=True))
+
+
+def campaign_smoke(device=None, matrices=None) -> int:
+    """The smoke campaign, then the resume check. Returns the number of
+    failures (failed cells, or a second run that measured anything)."""
+    from ..experiments import ResultStore, Runner
+    from ..experiments.report import SUMMARY_PATH
+
+    spec = smoke_spec(matrices)
+    store = ResultStore()
+    t0 = time.perf_counter()
+    rep = Runner(spec, store=store, verbose=False, on_error="record",
+                 device=device).run()
+    first_s = time.perf_counter() - t0
+    print("matrix,scheme,engine,plan_label,seq_ios_ms,verify_rel_err,"
+          "verify_twin_rel_err,store", flush=True)
+    for r in rep.records:
+        print(f"{r['matrix']},{r['scheme']},{r.get('engine', '?')},"
+              f"{r.get('plan_label', '?')},{r.get('seq_ios_ms', -1):.4f},"
+              f"{r.get('verify_rel_err', -1):.2e},"
+              f"{r.get('verify_twin_rel_err', -1):.2e},"
+              f"{'hit' if r['store_reused'] else 'miss+measure'}",
+              flush=True)
+    failures = len(rep.failures)
+    for f in rep.failures:
+        print(f"{f['label']}: ERROR {f['error']}\n{f['traceback']}",
+              flush=True)
+    if not failures:
+        t0 = time.perf_counter()
+        rep2 = Runner(spec, store=store, verbose=False,
+                      device=device).run()
+        ncells = len(rep2.records)
+        if rep2.measured != 0 or rep2.reused != ncells:
+            print(f"RESUME FAILED: second run measured={rep2.measured} "
+                  f"reused={rep2.reused} (want 0/{ncells})", flush=True)
+            failures += 1
+        else:
+            print(f"# resume: {rep2.reused}/{ncells} cells served from the "
+                  f"store ({time.perf_counter() - t0:.2f} s, first run "
+                  f"{first_s:.2f} s)", flush=True)
+    summary = rep.write_bench_summary()
+    print(f"# {SUMMARY_PATH}: geomean={summary['geomean']} "
+          f"speedup={summary.get('speedup_vs_baseline', {})}", flush=True)
+    return failures
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--matrix", required=True,
+    ap.add_argument("--matrix",
                     help="suite matrix name (repro_torch.matrices.suite)")
+    ap.add_argument("--campaign", choices=("smoke",),
+                    help="run a campaign instead of one cell")
     ap.add_argument("--scheme", default="baseline")
     ap.add_argument("--engine", default="auto")
     ap.add_argument("--spmm", type=int, default=1, metavar="K",
@@ -168,6 +231,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu only on request)")
     args = ap.parse_args(argv)
+    if args.campaign:
+        raise SystemExit(1 if campaign_smoke(args.device) else 0)
+    if not args.matrix:
+        ap.error("give --matrix or --campaign")
     run_single(args.matrix, args.scheme, args.engine, k=args.spmm,
                iters=args.iters, device=args.device)
 

@@ -17,6 +17,7 @@ from repro_torch.core.spmv import plan as tplan
 from repro_torch.core.spmv.ops import make_engine
 from repro_torch.configs import registry
 from repro_torch.configs.base import smoke_config
+from repro_torch.experiments import ExperimentSpec, MeasurePolicy, Runner
 from repro_torch.launch import spmv_bench
 from repro_torch.models import model as lm
 from repro_torch.serving.decode import generate, prefill
@@ -25,6 +26,13 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+
+
+@pytest.fixture(autouse=True)
+def _hermetic_stores(tmp_path, monkeypatch):
+    for var in ("REPRO_TORCH_PLAN_CACHE", "REPRO_TORCH_REORDER_CACHE",
+                "REPRO_TORCH_RESULT_STORE"):
+        monkeypatch.setenv(var, str(tmp_path / var))
 
 
 def _modules():
@@ -88,6 +96,10 @@ def test_entry_points_default_to_the_card_and_raise_without_it(monkeypatch):
         ios.run_ios_batched(lambda x: x, 8, 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         spmv_bench.run_cell(mat, "baseline")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Runner(ExperimentSpec(name="x", matrices=("m",)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spmv_bench.campaign_smoke()
     cfg = smoke_config(registry.get("zamba2-7b"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.init_params(cfg)
@@ -113,3 +125,13 @@ def test_cpu_runs_only_on_request():
     with pytest.raises(ValueError, match="use_kernel"):
         make_engine(mat, "sell", block_shape=(8, 8), use_kernel="pallas",
                     device="cpu")
+
+
+def test_runner_runs_on_the_cpu_only_on_request():
+    spec = ExperimentSpec(name="x", matrices=("m",), schemes=("rcm",),
+                          policy=MeasurePolicy(iters=2, warmup=1,
+                                               verify=True))
+    rep = Runner(spec, verbose=False, get_matrix=lambda name: _mat(),
+                 device="cpu").run()
+    (rec,) = rep.records
+    assert rec["device"] == "cpu" and rec["verify_twin_rel_err"] < 1e-6

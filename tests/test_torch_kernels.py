@@ -327,3 +327,47 @@ def test_bcsr_and_bell_share_their_block_row_bodies():
         start = text.index(f"int {launcher}(")
         assert "block_rows_scalar<T>(blocks, x, bm, bn, nv)" in \
             text[start:text.index("\n}\n", start)]
+
+
+BF16_ENGINES = {"csr": None, "ell": None, "sell": (8, 8), "bcsr": (4, 4),
+                "bell": (4, 4)}
+BF16_MATS = {"stencil_2d": lambda: RG.stencil_2d(8, seed=1),
+             "power_law": lambda: _mat("power_law")}
+
+
+@pytest.mark.parametrize("engine", sorted(BF16_ENGINES))
+@pytest.mark.parametrize("name", sorted(BF16_MATS))
+@pytest.mark.parametrize("nv", [1, 3])
+def test_bf16_engines_match_the_references_bf16_engines(engine, name, nv):
+    """Each of the five engines in bf16 (the plain path on the CPU: values
+    and x bf16, f32 sums, y rounded once; csr in bf16 throughout) against
+    the reference's engine in bf16 (its Pallas kernels in interpret mode)
+    within 0.05 of the scale (tests/test_kernels.py's bf16 tolerance), and
+    against the float64 oracle within 0.15 (tests/test_spmv_engines.py's)."""
+    from repro.core.spmv.ops import make_engine as ref_make_engine
+    from repro_torch.core.sparse.csr import CSRMatrix
+    from repro_torch.core.spmv.ops import make_engine
+
+    rm = BF16_MATS[name]()
+    pm = CSRMatrix(rowptr=rm.rowptr, cols=rm.cols, vals=rm.vals,
+                   shape=rm.shape)
+    kw = {} if BF16_ENGINES[engine] is None else \
+        {"block_shape": BF16_ENGINES[engine]}
+    x = np.random.default_rng(11).standard_normal((rm.n, nv))
+    xb = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    ref_op = ref_make_engine(rm, engine, dtype=jnp.bfloat16,
+                             use_kernel="interpret", **kw)
+    op = make_engine(pm, engine, dtype=torch.bfloat16, device=CPU, **kw)
+    xt = torch.as_tensor(xb).to(torch.bfloat16)
+    if nv == 1:
+        want = ref_op(jnp.asarray(xb[:, 0], jnp.bfloat16))
+        got = op(xt[:, 0])
+        oracle = rm.spmv(x[:, 0])
+    else:
+        want = ref_op.matmul(jnp.asarray(xb, jnp.bfloat16))
+        got = op.matmul(xt)
+        oracle = np.stack([rm.spmv(x[:, j]) for j in range(nv)], axis=1)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert _rel(got, np.asarray(want.astype(jnp.float32))) < 0.05
+    assert _rel(got, oracle) < 0.15

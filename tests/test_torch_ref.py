@@ -205,3 +205,33 @@ def test_block_oracles(kind, fmt, bm, bn):
     y = port(torch.float64).reshape(-1, nv)[: rm.m]
     want = np.stack([rm.spmv(x[:, j]) for j in range(nv)], 1)
     assert _rel(y, want) < 1e-12
+
+
+BF16_CSR_MATS = {
+    "stencil_2d": lambda: RG.stencil_2d(8, seed=1),
+    "random_uniform": lambda: RG.random_uniform(4096, 12, seed=0),
+    "banded": lambda: RG.banded(4096, 15, seed=0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CSR_MATS))
+@pytest.mark.parametrize("nv", [1, 3])
+def test_bf16_csr_oracle_is_the_references_bit_for_bit(name, nv):
+    """In bf16 the CSR oracle multiplies and segment-sums in bf16, as the
+    reference's does, and agrees with it bit for bit (spmv_csr at nv = 1,
+    spmm_csr at nv = 3); the other types keep their >= f32 sums."""
+    rm = BF16_CSR_MATS[name]()
+    rows = np.repeat(np.arange(rm.m, dtype=np.int32), rm.row_nnz())
+    x = _x(rm.n, nv, seed=7).astype(np.float32)
+    if nv == 1:
+        x = x[:, 0]
+    fn = jref.spmv_csr if nv == 1 else jref.spmm_csr
+    want = fn(jnp.asarray(rows), jnp.asarray(rm.cols),
+              jnp.asarray(rm.vals, jnp.bfloat16),
+              jnp.asarray(x, jnp.bfloat16), rm.m)
+    got = tref.spmv_csr(torch.as_tensor(rows), torch.as_tensor(rm.cols),
+                        torch.as_tensor(rm.vals).to(torch.bfloat16),
+                        torch.as_tensor(x).to(torch.bfloat16), rm.m)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))

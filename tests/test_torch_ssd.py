@@ -142,8 +142,8 @@ def test_build_table_types_and_sources():
     """K5's sequence launcher is built into the one library beside K1-K4's:
     seven pointers (la, xw, b, c, state, y, state out) and ten integers
     (B, S, T, H, N, P and four batch strides); it takes f32 and bf16 (la
-    always f32), and the per-chunk launcher is gone. K1-K4 still take f32
-    and f64 only."""
+    always f32), and the per-chunk launcher is gone. K1-K4 take f32, f64
+    and bf16, and nothing else."""
     assert [p.name for p in _build.SOURCES] == ["spmv_kernels.cu",
                                                 "ssd_chunk.cu"]
     assert all(p.exists() for p in _build.SOURCES)
@@ -161,8 +161,10 @@ def test_build_table_types_and_sources():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         _build.check("ssd_scan", torch.float64, cpu, xw=x.double())
     for name in ("sell_spmv", "sell_spmm", "bcsr_spmv", "bell_spmv"):
-        with pytest.raises(TypeError, match="float32 or float64"):
-            _build.check(name, torch.bfloat16, cpu, x=x)
+        _build.check(name, torch.bfloat16, cpu, x=x)
+        with pytest.raises(TypeError,
+                           match="float32 or float64 or bfloat16"):
+            _build.check(name, torch.float16, cpu, x=x.half())
 
 
 def test_check_takes_batch_strided_views_only_where_asked():
