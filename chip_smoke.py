@@ -42,10 +42,22 @@ the run with a nonzero exit code (nothing is caught):
                   store (every cell served from it), each with its
                   seconds against the first run's; then the Fig. 4
                   schedule spec on banded_m65536_bw24 and its shuffled
-                  twin (static_default, static_c16, nnz_balanced, p = 8).
-                  Plans, reorderings, operators and records live in a
-                  temporary directory for the run (no earlier run's entry
-                  is read);
+                  twin (static_default, static_c16, nnz_balanced and
+                  metis_cut, p = 8). Plans, reorderings, operators, corpus
+                  artifacts and records live in a temporary directory for
+                  the run (no earlier run's entry is read);
+4c. schemes     — the paper's scheme axis: one spmv ExperimentSpec on
+                  loc_stencil2d_shuf (524,176 rows, 2,617,984 nnz) over
+                  paper_schemes() (baseline, rcm, metis, louvain, patoh,
+                  random) and metis_nnzbal x {auto, sell (K1), bcsr (K3)},
+                  the full policy, each cell with its host reorder ms and
+                  IOS speedup over baseline; then the RCM-vs-METIS duel
+                  (IOS, YAX, CG), pairwise win rates and speedup buckets;
+4e. corpus      — every bundled fixture verified against the manifest's
+                  dims; spmv cells on corpus://fix_banded_1k and the
+                  stand-in of corpus://pwtk; plan(probe="learned") on the
+                  stand-in of corpus://cant after the advisor has mined
+                  the records of phases 4-4e, beside plan(probe=True);
  5. forced      — the kernel engines through make_engine on the structure
                   twin of the RCM-reordered fig1_shuffled (its sparsity
                   pattern, values U(-1, 1) from a seed; the order comes
@@ -53,8 +65,9 @@ the run with a nonzero exit code (nothing is caught):
                   (K3) and bell (K4), each verified, then IOS-timed; then
                   the same engines in bf16, each operator called once and
                   held against the f64 product of the bf16-rounded
-                  operands within 1e-2, and the bf16 csr engine within
-                  2e-2;
+                  operands within 1e-2, and the bf16 csr engine held row
+                  by row to its rounding bound γ_n·Σ|a·x| (see
+                  bf16_row_bound) on 16 readings;
  6. kernel times — each SpMV kernel at the shape phase 5 gave it, against
                   its plain version (error; ms per call, see time_ms), its
                   byte bound and torch's CSR SpMV/SpMM on the same matrix
@@ -63,10 +76,17 @@ the run with a nonzero exit code (nothing is caught):
                   ms, bound, library; kept in K2's row as "k32"); then the
                   bf16 kernels the same way (rows named <kernel>_bf16,
                   torch's bf16 CSR as the library, or none with its error);
+6b. power law   — K1 (σ-sorted SELL), K2 at k = 8 and K3 (the largest
+                  block shape under 8 GB of BCSR) on the structure twin of
+                  the webbase-1M stand-in (1,000,005 rows, largest row
+                  115,668 nonzeros), each path verified and IOS-timed, each
+                  kernel timed as in phase 6 (rows <kernel>_powerlaw); K4's
+                  Block-ELL bytes counted, not built;
  7. controls    — planted faults at the main-path shape must fail the
                   checks: each kernel, f32 and bf16, with its largest
-                  stored chunk or block dropped, and a diagonal-only
-                  operator under verify;
+                  stored chunk or block dropped, the bf16 csr engine with
+                  one block of rows zeroed against its rounding bound, and
+                  a diagonal-only operator under verify;
  8. lm prefill  — the SpMV tensors are freed; Zamba2-7B at full width and
                   depth (81 Mamba2 layers, the shared attention block after
                   each group of 6), random f32 parameters from a seeded
@@ -103,10 +123,11 @@ the run with a nonzero exit code (nothing is caught):
                   each fail the check against the intact plain result.
 
 Every kernel launch counter is set to 0 just before the first campaign of
-phase 4, each forced path of phase 5 (f32 and bf16) and the f32 prefill of
-phase 8, and read just after it; a forced path that did not launch its
-kernel, a cell whose plan picked a kernel engine that launched nothing,
-or a prefill whose K5 count is not its number of Mamba2 layers (81),
+phase 4, the campaign of phase 4c, each forced path of phase 5 (f32 and
+bf16) and of phase 6b and the f32 prefill of phase 8, and read just after
+it; a forced path that did not launch its kernel, a cell whose plan (or
+forced engine) is a kernel engine that launched nothing in its own timed
+calls, or a prefill whose K5 count is not its number of Mamba2 layers (81),
 fails the run. The kernels line reports, for each kernel, the launches of
 the path that feeds its row.
 
@@ -541,8 +562,10 @@ def campaign(dev, mats: dict, iters: int) -> tuple:
 
 def schedule_campaign(dev) -> None:
     """The Fig. 4 scheduling sweep on a bench-tier pair: banded_m65536_bw24
-    and its shuffled twin x {static_default, static_c16, nnz_balanced} at
-    p = 8, csr panels (the bench tier's size: 65,536 rows)."""
+    and its shuffled twin x {static_default, static_c16, nnz_balanced,
+    metis_cut} at p = 8, csr panels (the bench tier's size: 65,536 rows);
+    metis_cut groups the rows by their METIS 8-way labels and splits the
+    grouped matrix into nnz-balanced panels."""
     from repro_torch.experiments import (ExperimentSpec, MeasurePolicy,
                                          ResultStore, Runner)
 
@@ -551,7 +574,8 @@ def schedule_campaign(dev) -> None:
         name="fig4_schedule", kind="schedule",
         matrices=("banded_m65536_bw24", "banded_shuf_m65536_bw24"),
         engines=("csr",), ps=(PARALLEL_P,),
-        variants=("static_default", "static_c16", "nnz_balanced"),
+        variants=("static_default", "static_c16", "nnz_balanced",
+                  "metis_cut"),
         policy=MeasurePolicy(iters=10, with_yax=False, with_parallel=False,
                              with_metrics=False))
     rep = Runner(spec, ResultStore(os.path.join(
@@ -561,7 +585,210 @@ def schedule_campaign(dev) -> None:
         print(f"[schedule] {rec['matrix']} {rec['variant']} p={rec['p']} "
               f"modelled_par_ms={rec['modelled_par_ms']:.4f} "
               f"gflops={rec['gflops']:.2f}", flush=True)
+    if {r["variant"] for r in rep.records} != set(spec.variants):
+        raise AssertionError(f"schedule spec: variants measured "
+                             f"{sorted({r['variant'] for r in rep.records})}")
     phase("campaign fig4 schedule", t0, cells=len(rep.records))
+
+
+# -- phase 4c: the paper's scheme axis -------------------------------------
+SCHEME_MATRIX = "loc_stencil2d_shuf"   # a shuffled 724 x 724 5-point grid
+SCHEME_ENGINES = ("auto", "sell", "bcsr")
+DUEL_FIELDS = ("seq_ios_gflops", "seq_yax_gflops", "cg_gflops")
+ONE_MATRIX = ("one matrix: a per-matrix answer, not the paper's counts "
+              "over its corpus")
+
+
+def scheme_campaign(dev, iters: int) -> None:
+    """Phase 4c: one spmv ExperimentSpec through the Runner on
+    loc_stencil2d_shuf: paper_schemes() and metis_nnzbal x {auto, sell (K1),
+    bcsr (K3)}, verified on the matrix and its structure twin, IOS, YAX, CG,
+    the modelled-parallel time and the metrics at p = 8. Each cell prints its
+    reorder ms (host), IOS ms and speedup over baseline on the same engine;
+    each sell and bcsr cell must have launched its kernel in its own timed
+    calls. Then the paper's views over the schemes: the RCM-vs-METIS duel
+    under IOS, YAX and CG (Table 1's question), pairwise win rates (Fig. 7)
+    and speedup buckets (Fig. 6). The plan store is off for these cells:
+    the bcsr operators of the shuffled orders hold 8.8 GB each (8 x 128
+    blocks of 2.6 M scattered nonzeros), which it would write to disk; the
+    reorder cache stays on, so each scheme reorders once."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core.measure.profiles import BUCKET_LABELS
+    from repro_torch.experiments import (ExperimentSpec, MeasurePolicy,
+                                         ResultStore, Runner, paper_schemes)
+    from repro_torch.matrices import suite
+
+    t0 = time.perf_counter()
+    mat = suite.get(SCHEME_MATRIX)
+    phase(f"matrix {SCHEME_MATRIX}", t0, shape=f"{mat.m}x{mat.n}",
+          nnz=mat.nnz)
+    schemes = tuple(paper_schemes()) + ("metis_nnzbal",)
+    spec = ExperimentSpec(
+        name="schemes", matrices=(SCHEME_MATRIX,), schemes=schemes,
+        engines=SCHEME_ENGINES, ps=(PARALLEL_P,),
+        policy=MeasurePolicy(iters=iters, warmup=3, cg_profiles=("*",),
+                             verify=True, verify_tol=VERIFY_TOL))
+    ncells = len(spec.cells())
+    t0 = time.perf_counter()
+    plans = os.environ["REPRO_TORCH_PLAN_CACHE"]
+    os.environ["REPRO_TORCH_PLAN_CACHE"] = "off"
+    kernels.reset_launches()
+    try:
+        rep = Runner(spec, ResultStore(os.path.join(
+            os.environ["REPRO_TORCH_RESULT_STORE"], "schemes")),
+            get_matrix={SCHEME_MATRIX: mat}.__getitem__, device=dev).run()
+    finally:
+        os.environ["REPRO_TORCH_PLAN_CACHE"] = plans
+    launches = dict(kernels.LAUNCHES)
+    if rep.measured != ncells:
+        raise AssertionError(f"scheme spec: measured {rep.measured} of "
+                             f"{ncells} cells")
+    reorder_ms = {}
+    for rec in rep.records:
+        check_cell_launches(rec)
+        eng = rec["engine_request"]
+        base = rep.value("seq_ios_ms", SCHEME_MATRIX, "baseline", engine=eng)
+        # the first engine of a scheme reorders, the others hit the cache
+        reorder_ms[rec["scheme"]] = max(reorder_ms.get(rec["scheme"], 0.0),
+                                        rec["reorder_ms"])
+        phase(f"cell {SCHEME_MATRIX}/{rec['scheme']}/{eng}",
+              time.perf_counter() - rec["runner_wall_s"],
+              engine=rec["engine"], label=rec["plan_label"],
+              reorder_ms=f"{rec['reorder_ms']:.1f}",
+              tune_ms=f"{rec['tune_ms']:.1f}",
+              build_ms=f"{rec['format_build_ms']:.1f}",
+              verify=f"{rec['verify_rel_err']:.2e}",
+              verify_twin=f"{rec['verify_twin_rel_err']:.2e}",
+              ios_ms=rec["seq_ios_ms"],
+              speedup=f"{base / rec['seq_ios_ms']:.3f}",
+              yax_ms=rec["seq_yax_ms"], cg_ms=rec["cg_ms"],
+              par_static_ms=rec["par_static_ms"],
+              par_nnz_balanced_ms=rec["par_nnz_balanced_ms"],
+              li_static=f"{rec['li_static']:.4f}",
+              bandwidth=rec["bandwidth"], cut_volume=rec["cut_volume"],
+              block_fill_8x128=f"{rec['block_fill_8x128']:.4f}",
+              launches=json.dumps(rec["launches"]))
+    phase("campaign schemes", t0, cells=ncells, measured=rep.measured,
+          launches=json.dumps(launches))
+    print(f"[reorder] host ms per scheme on {SCHEME_MATRIX} ({mat.m} rows, "
+          f"{mat.nnz} nnz, numpy {np.__version__}, {os.cpu_count()} cores): "
+          f"{json.dumps(reorder_ms)}", flush=True)
+    for eng in SCHEME_ENGINES:
+        duel = {}
+        for field in DUEL_FIELDS:
+            rcm, metis = (rep.value(field, SCHEME_MATRIX, s, engine=eng)
+                          for s in ("rcm", "metis"))
+            duel[field] = {"rcm": rcm, "metis": metis,
+                           "winner": "rcm" if rcm > metis else "metis"}
+        print(f"[view] table 1, rcm vs metis (GFLOP/s), engine={eng}, "
+              f"{ONE_MATRIX}: {json.dumps(duel)}", flush=True)
+        win = rep.pairwise_win_rates("seq_ios_gflops", [SCHEME_MATRIX],
+                                     schemes, engine=eng)
+        print(f"[view] fig. 7, pairwise win rates under IOS (row beats "
+              f"column), engine={eng}, {ONE_MATRIX}: " + json.dumps(
+                  {a: {b: float(win[i, j]) for j, b in enumerate(schemes)
+                       if j != i} for i, a in enumerate(schemes)}),
+              flush=True)
+        buckets = rep.speedup_buckets("seq_ios_gflops", [SCHEME_MATRIX],
+                                      schemes, engine=eng)
+        print(f"[view] fig. 6, speedup buckets under IOS, engine={eng}, "
+              f"{ONE_MATRIX}: " + json.dumps(
+                  {s: dict(zip(BUCKET_LABELS, map(int, row)))
+                   for s, row in zip(schemes, buckets)}), flush=True)
+
+
+# -- phase 4e: the offline corpus and the learned probe ---------------------
+CORPUS_CELLS = ("corpus://fix_banded_1k", "corpus://pwtk")
+LEARNED_MATRIX = "corpus://cant"
+
+
+def corpus_phase(dev, iters: int) -> None:
+    """Phase 4e: `python -m repro_torch.corpus verify`'s check over every
+    bundled fixture (its CSR held to the manifest's m, n, nnz); one spmv cell
+    on fix_banded_1k and one on the stand-in of pwtk (217,918 rows, banded),
+    engine auto, the full policy; then plan(probe="learned") on the stand-in
+    of cant, after the advisor has mined every record phases 4-4e wrote,
+    beside plan(probe=True) on the same matrix."""
+    from repro_torch.core.spmv.plan import SpmvProblem, plan
+    from repro_torch.corpus import advisor, manifest
+    from repro_torch.experiments import (ExperimentSpec, MeasurePolicy,
+                                         ResultStore, Runner)
+    from repro_torch.matrices import suite
+
+    t0 = time.perf_counter()
+    entries = manifest.load_manifest()
+    for name in sorted(n for n, e in entries.items() if e.fixture):
+        rep = manifest.verify_entry(name)
+        mat, e = manifest.resolve(name), entries[name]
+        if not rep["ok"] or rep["standin"] or \
+                (mat.m, mat.n, mat.nnz) != (e.m, e.n, e.nnz):
+            raise AssertionError(f"corpus fixture {name}: {rep}, CSR "
+                                 f"{(mat.m, mat.n, mat.nnz)} against the "
+                                 f"manifest's {(e.m, e.n, e.nnz)}")
+        print(f"[corpus] {e.qualified}: ok, m={mat.m} n={mat.n} "
+              f"nnz={mat.nnz}", flush=True)
+    phase("corpus fixtures verified", t0)
+
+    results = os.environ["REPRO_TORCH_RESULT_STORE"]
+    spec = ExperimentSpec(
+        name="corpus", matrices=CORPUS_CELLS, schemes=("baseline",),
+        ps=(PARALLEL_P,),
+        policy=MeasurePolicy(iters=iters, warmup=3, cg_profiles=("*",),
+                             verify=True, verify_tol=VERIFY_TOL))
+    t0 = time.perf_counter()
+    rep = Runner(spec, ResultStore(os.path.join(results, "corpus")),
+                 device=dev).run()
+    if rep.measured != len(CORPUS_CELLS):
+        raise AssertionError(f"corpus spec: measured {rep.measured} of "
+                             f"{len(CORPUS_CELLS)} cells")
+    for rec in rep.records:
+        check_cell_launches(rec)
+        meta = manifest.ensure(rec["matrix"]).meta
+        phase(f"cell {rec['matrix']}", time.perf_counter()
+              - rec["runner_wall_s"], standin=bool(meta.get("standin")),
+              m=rec["m"], nnz=rec["nnz"], engine=rec["engine"],
+              label=rec["plan_label"], tune_ms=f"{rec['tune_ms']:.1f}",
+              build_ms=f"{rec['format_build_ms']:.1f}",
+              verify=f"{rec['verify_rel_err']:.2e}",
+              verify_twin=f"{rec['verify_twin_rel_err']:.2e}",
+              ios_ms=rec["seq_ios_ms"], yax_ms=rec["seq_yax_ms"],
+              cg_ms=rec["cg_ms"], par_static_ms=rec["par_static_ms"],
+              launches=json.dumps(rec["launches"]))
+    phase("campaign corpus", t0, cells=rep.measured)
+
+    # the advisor mines the default result store: gather every record the
+    # campaigns of phases 4-4e wrote into it
+    t0 = time.perf_counter()
+    kb = ResultStore(results)
+    for sub in sorted(os.listdir(results)):
+        if os.path.isdir(os.path.join(results, sub)):
+            for key, entry in ResultStore(os.path.join(results,
+                                                       sub)).entries():
+                kb.put(key, entry["cell"], entry["record"])
+    advisor.advisor_reset()
+    known = advisor.default_advisor().knowledge_size()
+    mat = suite.get(LEARNED_MATRIX)
+    learned = plan(SpmvProblem(mat), reorder="baseline", probe="learned",
+                   cache=False, device=dev)
+    probed = plan(SpmvProblem(mat), reorder="baseline", probe=True,
+                  cache=False, device=dev)
+    info = learned.tune.advisor or {}
+    if learned.tune.source != "learned" or not known:
+        raise AssertionError(f"plan(probe='learned') on {LEARNED_MATRIX}: "
+                             f"source {learned.tune.source!r} with "
+                             f"{known} mined records")
+    phase(f"learned plan {LEARNED_MATRIX}", t0, standin=bool(
+              manifest.ensure(LEARNED_MATRIX).meta.get("standin")),
+          mined_records=known, source=learned.tune.source,
+          confidence=f"{learned.advisor_confidence:.4f}",
+          predicted=info.get("predicted"), hit=info.get("hit"),
+          probed=json.dumps(learned.tune.probe_ms),
+          learned_choice=learned.tune.label(),
+          probe_choice=probed.tune.label(),
+          probe_probed=json.dumps(probed.tune.probe_ms),
+          agree=learned.tune.label() == probed.tune.label())
 
 
 def forced_paths(dev, rmat, iters: int) -> tuple:
@@ -577,7 +804,7 @@ def forced_paths(dev, rmat, iters: int) -> tuple:
     forced, recs = {}, {}
     vmat = spmv_bench.structure_twin(rmat, seed=1)
     w_fit = pick_chunk_width(vmat)
-    for eng, shape, sigma, ks in (("sell", (8, w_fit), 64, (1, 8)),
+    for eng, shape, sigma, ks in (("sell", (8, w_fit), 64, (1, 8, K2_WIDE)),
                                   ("bcsr", (8, 128), None, (1,)),
                                   ("bell", (8, 128), None, (1,))):
         t0 = time.perf_counter()
@@ -667,11 +894,12 @@ def kernel_work(op, calls, nv: int, xin) -> tuple[int, int]:
     return mat_bytes + tensor_bytes(xin) + y_elems * xin.element_size(), flops
 
 
-def kernel_time(op, calls, nv: int, x, xin, csrs, plain_ms: bool = True):
+def kernel_time(op, calls, nv: int, x, xin, csrs,
+                plain_batch: int = BATCH):
     """One kernel at one shape: its error against its plain version (which
-    must be within the f32 tolerance), its ms, the plain version's ms (when
-    asked), its bound and torch's CSR product on the same matrix with int32
-    and int64 indices."""
+    must be within the f32 tolerance), its ms, the plain version's ms (one
+    event pair per `plain_batch` calls), its bound and torch's CSR product on
+    the same matrix with int32 and int64 indices."""
     name, kern, plain = calls(op, xin)
     abs_err, rel = rel_err(kern(), plain())
     dname = str(xin.dtype).replace("torch.", "")
@@ -685,7 +913,7 @@ def kernel_time(op, calls, nv: int, x, xin, csrs, plain_ms: bool = True):
     lib_index = min(lib, key=lib.get) if lib else None
     out = {"name": name, "max_abs_err": abs_err, "rel_err": rel,
            "ms": time_ms(kern),
-           "plain_ms": time_ms(plain) if plain_ms else None,
+           "plain_ms": time_ms(plain, plain_batch),
            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops,
            "library_ms": lib[lib_index] if lib else None,
            "library_index": lib_index,
@@ -693,12 +921,12 @@ def kernel_time(op, calls, nv: int, x, xin, csrs, plain_ms: bool = True):
            "library_int64_ms": lib.get("int64")}
     if not lib:
         out["library_error"] = csrs["error"]
-    plain_s = f"{out['plain_ms']:.4f}" if plain_ms else "not timed"
     lib_s = (f"{out['library_ms']:.4f} (CSR int32 {lib['int32']:.4f}, "
              f"int64 {lib['int64']:.4f})" if lib
              else f"none ({csrs['error']})")
     print(f"[kernel] {name} {dname} nv={nv} rel_err={rel:.2e} "
-          f"ms={out['ms']:.4f} plain_ms={plain_s} library_ms={lib_s} "
+          f"ms={out['ms']:.4f} plain_ms={out['plain_ms']:.4f} "
+          f"library_ms={lib_s} "
           f"bound_ms={bms:.4f} ({by}, {nbytes} B, {flops} flop)",
           flush=True)
     return out
@@ -756,16 +984,140 @@ def kernel_times(forced, vmat, dev, recs: dict, feeds: dict = FEEDS,
               f"({path})", flush=True)
         if name == "sell_spmm" and dtype == torch.float32:
             # the plain version at k = 32 gathers 4.3 GB and takes ~0.1 s a
-            # call: it is held against the kernel once, not timed
+            # call: one event pair per 2 calls
             xw = torch_randn((vmat.n, K2_WIDE), torch_generator(3),
                              op.chunk_vals.dtype, dev)
             wide = kernel_time(op, calls, K2_WIDE, xw, xw, csrs,
-                               plain_ms=False)
-            row[f"k{K2_WIDE}"] = {key: wide[key] for key in (
-                "max_abs_err", "rel_err", "ms", "bound_ms", "bound_by",
-                "library_int32_ms", "library_int64_ms")}
+                               plain_batch=2)
+            wide_path = f"forced/sell/k{K2_WIDE}"
+            row[f"k{K2_WIDE}"] = dict({key: wide[key] for key in (
+                "max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_int32_ms",
+                "library_int64_ms")}, launches=recs[wide_path]["launches"][
+                    name], launches_path=wide_path)
             del xw
         rows.append(row)
+    return rows
+
+
+# -- phase 6b: power-law rows, the paper's load-imbalance case -------------
+POWERLAW = "corpus://webbase-1M"         # its stand-in: 1,000,005 rows
+BCSR_CAP_BYTES = 8e9
+BCSR_LADDER = ((8, 128), (8, 64), (8, 32), (8, 16), (4, 16), (2, 16),
+               (1, 16))                  # block shapes, largest first
+BELL_SHAPE = (8, 128)
+
+
+def block_counts(mat, bm: int, bn: int) -> tuple[int, int]:
+    """(nonempty blocks, blocks of the widest block row) of `mat` at bm x
+    bn, counted from its CSR without building a block format."""
+    import numpy as np
+
+    from repro_torch.core.sparse.metrics import sorted_unique
+
+    nbc = -(-mat.n // bn)
+    rows = np.repeat(np.arange(mat.m, dtype=np.int64), mat.row_nnz())
+    keys = sorted_unique(rows // bm * nbc + mat.cols.astype(np.int64) // bn)
+    return int(keys.size), int(np.bincount(keys // nbc).max())
+
+
+def powerlaw_phase(dev, iters: int) -> list:
+    """Phase 6b: the kernels on power-law rows, the structure twin of the
+    webbase-1M stand-in (median row 3 nonzeros, largest 115,668): K1 on
+    SELL σ-sorted (C = 8, σ = m), K2 on it at k = 8, and K3 at the largest
+    block shape of BCSR_LADDER whose BCSR bytes, counted before the build,
+    stay under 8 GB. Each path is verified and IOS-timed with the launch
+    counts set to 0 just before and read just after, then its kernel timed
+    as in phase 6. K4's Block-ELL pads every block row to the widest: its
+    bytes are counted, not built. Returns the kernels line's rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.sparse.sell import pick_chunk_width
+    from repro_torch.core.spmv.ops import make_engine
+    from repro_torch.launch import spmv_bench
+    from repro_torch.matrices import suite
+
+    t0 = time.perf_counter()
+    vmat = spmv_bench.structure_twin(suite.get(POWERLAW), seed=1)
+    rn = vmat.row_nnz()
+    phase(f"matrix {POWERLAW} (stand-in, structure twin)", t0,
+          shape=f"{vmat.m}x{vmat.n}", nnz=vmat.nnz,
+          row_nnz_median=float(np.median(rn)),
+          row_nnz_p99=float(np.percentile(rn, 99)), row_nnz_max=int(rn.max()))
+
+    t0 = time.perf_counter()
+    sized, widest = {}, {}
+    for bm, bn in BCSR_LADDER:
+        nb, widest[(bm, bn)] = block_counts(vmat, bm, bn)
+        # values, a block-row and a block-column id per block, row pointer
+        sized[(bm, bn)] = nb * (bm * bn * 4 + 8) + 4 * (-(-vmat.m // bm) + 1)
+        if sized[(bm, bn)] < BCSR_CAP_BYTES:
+            bcsr_shape = (bm, bn)
+            break
+    else:
+        raise AssertionError(f"no BCSR shape of {BCSR_LADDER} under "
+                             f"{BCSR_CAP_BYTES:.0e} B: {sized}")
+    nbr = -(-vmat.m // BELL_SHAPE[0])
+    bell = nbr * widest[BELL_SHAPE] * (BELL_SHAPE[0] * BELL_SHAPE[1] * 4 + 4)
+    phase("powerlaw sizes", t0, bcsr_bytes=json.dumps(
+              {f"{bm}x{bn}": b for (bm, bn), b in sized.items()}),
+          bcsr_shape=f"{bcsr_shape[0]}x{bcsr_shape[1]}",
+          bcsr_shape_bytes=sized[bcsr_shape])
+    print(f"[powerlaw] bell_spmv (K4) is not built on these rows: Block-ELL "
+          f"at {BELL_SHAPE[0]}x{BELL_SHAPE[1]} pads each of {nbr} block rows "
+          f"to the widest ({widest[BELL_SHAPE]} blocks), {bell} B in f32, "
+          f"{bell / 80e9:.0f}x the card's 80 GB", flush=True)
+
+    csrs = library_csrs(vmat, dev)
+    gen = torch_generator(7)
+    rows = []
+    for eng, shape, sigma, ks in (
+            ("sell", (8, pick_chunk_width(vmat)), vmat.m, (1, 8)),
+            ("bcsr", bcsr_shape, None, (1,))):
+        t0 = time.perf_counter()
+        op = make_engine(vmat, eng, block_shape=shape, sell_sigma=sigma,
+                         device=dev)
+        phase(f"powerlaw build {eng}", t0, block_shape=shape, sigma=sigma,
+              device_bytes=operator_bytes(op))
+        for k in ks:
+            t0 = time.perf_counter()
+            path = f"powerlaw/{eng}/k{k}"
+            kernels.reset_launches()
+            err = spmv_bench.verify(op, vmat, k, device=dev, tol=VERIFY_TOL)
+            rec = spmv_bench.measure(op, vmat.nnz, vmat.n, k, device=dev,
+                                     iters=iters)
+            launches = dict(kernels.LAUNCHES)
+            phase(path, t0, verify=f"{err:.2e}", ios_ms=rec["ios_ms"],
+                  gflops=f"{rec['ios_gflops']:.2f}",
+                  launches=json.dumps(launches))
+            if eng == "sell":
+                calls = sell_calls
+                x = xin = torch_randn((vmat.n, k), gen, torch.float32, dev)
+            else:
+                calls = bcsr_calls
+                xin = x2d_for(op, k, gen, torch.float32, dev)
+                x = xin.reshape(-1, k)[: vmat.n]
+            m = kernel_time(op, calls, k, x, xin, csrs)
+            name = m["name"]
+            if launches[name] == 0:
+                raise AssertionError(f"{path} never launched {name}")
+            rows.append({
+                "name": f"{name}_powerlaw", "route": "cuda",
+                "source": SOURCE, "replaces": KERNELS[name],
+                "launches": launches[name], "launches_path": path,
+                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+                "library_index": m["library_index"], "dtype": "float32",
+                "matrix": f"{POWERLAW} (stand-in, structure twin)",
+                "block_shape": list(shape), "sigma": sigma,
+                "bytes": m["bytes"]})
+            del x, xin
+        del op
+        gc.collect()
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -773,9 +1125,10 @@ def kernel_times(forced, vmat, dev, recs: dict, feeds: dict = FEEDS,
 BF16_FEEDS = {name: path.replace("forced/", "forced_bf16/")
               for name, path in FEEDS.items()}
 BF16_ORACLE_TOL = 1e-2           # bf16 kernel operators vs the f64 product
-BF16_CSR_TOL = 2e-2              # the bf16 csr engine (atomic bf16 sums)
+BF16_U = 2.0 ** -8               # bf16 unit roundoff (8 significand bits)
 BF16_CSR_REPEATS = 8             # calls of the csr engine on one x
-BF16_CSR_XS = 8                  # distinct x for it (the first repeated)
+BF16_CSR_OTHER_XS = 8            # then one call on each of 8 other x
+BF16_CSR_DROPPED_ROWS = 64       # the planted control's zeroed rows
 
 
 def bf16_oracle(vmat, dev):
@@ -792,6 +1145,42 @@ def bf16_oracle(vmat, dev):
     vals = torch.as_tensor(vmat.vals).to(torch.bfloat16).to(dev,
                                                             torch.float64)
     return lambda x: ref.spmv_csr(rows, cols, vals, x.double(), vmat.m)
+
+
+def bf16_row_bound(vmat, dev):
+    """x -> the rounding bound of each row of the bf16 csr engine, in
+    float64: |y_i - ŷ_i| <= γ_{n_i} · Σ_j |a_ij x_j| with γ_n = n·u / (1 -
+    n·u), u = 2^-8, for a and x rounded to bf16 and y_i their exact
+    product. The engine rounds each of the n_i products of row i to bf16
+    and adds them into y_i in bf16, atomically in any order: each term
+    passes at most n_i roundings (its product and up to n_i - 1 adds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.spmv import ref
+
+    nnz = vmat.row_nnz().astype(np.float64)
+    if not (nnz * BF16_U).max() < 1:
+        raise ValueError("a row too long for the bf16 rounding bound")
+    gamma = torch.as_tensor(nnz * BF16_U / (1 - nnz * BF16_U), device=dev)
+    rows = torch.as_tensor(np.repeat(np.arange(vmat.m), vmat.row_nnz()),
+                           device=dev)
+    cols = torch.as_tensor(vmat.cols, device=dev)
+    absvals = torch.as_tensor(vmat.vals).to(torch.bfloat16).to(
+        dev, torch.float64).abs()
+    return lambda x: gamma * ref.spmv_csr(rows, cols, absvals,
+                                          x.double().abs(), vmat.m)
+
+
+def bf16_csr_ratio(y, want, bound) -> float:
+    """The largest err_i / bound_i over the rows (a row whose bound is 0
+    must be exact); the engine passes where it is <= 1."""
+    import torch
+
+    err = (y.double() - want).abs()
+    ratio = torch.where(bound > 0, err / bound.clamp_min(1e-300),
+                        torch.where(err > 0, float("inf"), 0.0))
+    return float(ratio.max())
 
 
 def bf16_paths(dev, vmat) -> tuple:
@@ -837,21 +1226,29 @@ def bf16_paths(dev, vmat) -> tuple:
             raise AssertionError(f"{tag} never launched {name}")
     t0 = time.perf_counter()
     op = make_engine(vmat, "csr", dtype=bf16, device=dev)
+    bound = bf16_row_bound(vmat, dev)
     xs = [torch_randn((vmat.n,), gen, bf16, dev)
-          for _ in range(BF16_CSR_XS)]
-    _, rel = rel_err(op(xs[0]), oracle(xs[0]))
-    if not rel <= BF16_CSR_TOL:
-        raise AssertionError(f"csr bf16: rel err {rel:.3e} against the f64 "
-                             f"product > {BF16_CSR_TOL:.0e}")
-    # the spread of that reading: the atomic bf16 sums add in another
-    # order on every call (the same x again) and round other values
-    # (other x); printed, not gated, as the margin of the gate above
-    rels = [rel] + [rel_err(op(x), oracle(x))[1]
-                    for x in [xs[0]] * (BF16_CSR_REPEATS - 1) + xs[1:]]
-    phase("bf16 csr engine", t0, oracle_rel_err=f"{rel:.3e}",
-          same_x=" ".join(f"{r:.3e}" for r in rels[:BF16_CSR_REPEATS]),
-          other_x=" ".join(f"{r:.3e}" for r in rels[BF16_CSR_REPEATS:]),
-          max=f"{max(rels):.3e}", tol=f"{BF16_CSR_TOL:.0e}")
+          for _ in range(1 + BF16_CSR_OTHER_XS)]
+    # 16 readings: the atomic bf16 sums add in another order on every call
+    # (the same x again) and round other values (other x); every row of
+    # every reading is held to its rounding bound
+    ratios, rels = [], []
+    for i, x in enumerate([xs[0]] * BF16_CSR_REPEATS + xs[1:]):
+        y, want = op(x), oracle(x)
+        ratios.append(bf16_csr_ratio(y, want, bound(x)))
+        rels.append(rel_err(y, want)[1])
+        if not ratios[-1] <= 1.0:
+            raise AssertionError(f"csr bf16 reading {i}: a row's error is "
+                                 f"{ratios[-1]:.3f} times its rounding "
+                                 f"bound γ_n·Σ|a·x|")
+    same, other = slice(0, BF16_CSR_REPEATS), slice(BF16_CSR_REPEATS, None)
+    phase("bf16 csr engine", t0, readings=len(ratios),
+          max_err_over_bound=f"{max(ratios):.4f}",
+          same_x_ratio=" ".join(f"{r:.4f}" for r in ratios[same]),
+          other_x_ratio=" ".join(f"{r:.4f}" for r in ratios[other]),
+          same_x_rel_err=" ".join(f"{r:.3e}" for r in rels[same]),
+          other_x_rel_err=" ".join(f"{r:.3e}" for r in rels[other]),
+          max_rel_err=f"{max(rels):.3e}")
     return forced, recs
 
 
@@ -903,6 +1300,7 @@ def planted_faults(forced_sets, rmat, vmat, dev) -> None:
                   f"dropped: rel err {rel:.3e} > {tol:.0e}, caught",
                   flush=True)
             del bad
+    bf16_csr_control(vmat, dev)
     inf = float("inf")
     hidden = spmv_bench.verify(diagonal_only(rmat, dev), rmat, tol=inf,
                                device=dev)
@@ -915,6 +1313,33 @@ def planted_faults(forced_sets, rmat, vmat, dev) -> None:
     print(f"[control] diagonal-only operator under verify: rel err "
           f"{hidden:.3e} on the matrix itself ({verdict} {VERIFY_TOL:.0e}), "
           f"{seen:.3e} on its structure twin, caught", flush=True)
+
+
+def bf16_csr_control(vmat, dev) -> None:
+    """The bf16 csr engine with the values of one block of rows zeroed must
+    fail the per-row rounding gate against the intact product."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.spmv.ops import make_engine
+
+    r0 = vmat.m // 2
+    r1 = r0 + BF16_CSR_DROPPED_ROWS
+    vals = vmat.vals.copy()
+    vals[vmat.rowptr[r0]:vmat.rowptr[r1]] = 0.0
+    bad = make_engine(dataclasses.replace(vmat, vals=vals), "csr",
+                      dtype=torch.bfloat16, device=dev)
+    x = torch_randn((vmat.n,), torch_generator(6), torch.bfloat16, dev)
+    ratio = bf16_csr_ratio(bad(x), bf16_oracle(vmat, dev)(x),
+                           bf16_row_bound(vmat, dev)(x))
+    if not ratio > 1.0:
+        raise AssertionError(f"csr bf16 with rows {r0}..{r1 - 1} zeroed "
+                             f"passes the rounding gate (largest err / "
+                             f"bound {ratio:.3f})")
+    print(f"[control] csr bf16 with the values of rows {r0}..{r1 - 1} "
+          f"zeroed: largest err / rounding bound {ratio:.3f} > 1, caught",
+          flush=True)
 
 
 # -- K5 ssd_chunk: small shapes, the Zamba2 path, times, control -----------
@@ -1476,7 +1901,8 @@ def main(argv=None) -> int:
     for var, sub in (("REPRO_TORCH_PLAN_CACHE", "plans"),
                      ("REPRO_TORCH_OPERATOR_CACHE", "opcache"),
                      ("REPRO_TORCH_REORDER_CACHE", "reorder"),
-                     ("REPRO_TORCH_RESULT_STORE", "results")):
+                     ("REPRO_TORCH_RESULT_STORE", "results"),
+                     ("REPRO_TORCH_CORPUS_CACHE", "corpus")):
         os.environ[var] = os.path.join(stores, sub)
     try:
         return run(args, torch)
@@ -1525,6 +1951,8 @@ def run(args, torch) -> int:
     del mats
     phase("rcm order from the plan store", t0)
     schedule_campaign(dev)
+    scheme_campaign(dev, args.iters)
+    corpus_phase(dev, args.iters)
 
     forced, vmat, recs = forced_paths(dev, rmat, args.iters)
     forced16, recs16 = bf16_paths(dev, vmat)
@@ -1537,6 +1965,9 @@ def run(args, torch) -> int:
     rows = kernel_times(forced, vmat, dev, recs)
     rows += kernel_times(forced16, vmat, dev, recs, BF16_FEEDS, "_bf16")
     phase("kernel times", t0)
+    t0 = time.perf_counter()
+    rows += powerlaw_phase(dev, args.iters)
+    phase("powerlaw kernel times", t0)
 
     t0 = time.perf_counter()
     planted_faults((forced, forced16), rmat, vmat, dev)

@@ -2,9 +2,10 @@
 
 reorder(mat, scheme, seed) -> permutation (perm[i] = old row at position i)
 
-Schemes: baseline (identity), random (the paper's Fig. 1 shuffle), rcm
-(paper §2.1) and the beyond-paper rcm_blocked (block-fill-aware
-tie-break). METIS, PaToH and Louvain are not ported yet.
+Schemes (paper §2.1): baseline (identity), random (the Fig. 1 shuffle),
+rcm, metis, louvain, patoh; plus metis_nnzbal (METIS balancing nnz) and the
+beyond-paper rcm_blocked (block-fill-aware tie-break). They register in the
+JAX package's order, so the scheme registry iterates alike in both.
 
 Reordering is plan-time preprocessing (the paper never times it). With
 cache=True a permutation is content-addressed on disk, written
@@ -22,8 +23,11 @@ import threading
 import numpy as np
 
 from ... import obs
-from ..registry import get_scheme, register_scheme
+from ..registry import SCHEME_REGISTRY, get_scheme, register_scheme
 from ..sparse.csr import CSRMatrix
+from .louvain import louvain_order
+from .metis import metis_order, metis_partition
+from .patoh import patoh_order, patoh_partition
 from .rcm import rcm_order
 
 
@@ -40,6 +44,14 @@ def _identity(mat: CSRMatrix, seed: int = 0) -> np.ndarray:
     return np.arange(mat.m, dtype=np.int64)
 
 
+@register_scheme("metis_nnzbal",
+                 description="METIS with degree-weighted (nnz) balance")
+def _metis_nnzbal(mat: CSRMatrix, seed: int = 0) -> np.ndarray:
+    """METIS with degree-weighted (nnz) balance: the variant that improves
+    the static load imbalance on skewed graphs."""
+    return metis_order(mat, seed, degree_weighted=True)
+
+
 @register_scheme("random", description="random shuffle (paper Fig. 1)")
 def _random(mat: CSRMatrix, seed: int = 0) -> np.ndarray:
     return np.random.default_rng(seed).permutation(mat.m).astype(np.int64)
@@ -47,6 +59,12 @@ def _random(mat: CSRMatrix, seed: int = 0) -> np.ndarray:
 
 register_scheme("rcm", paper=True, auto_candidate=True,
                 description="reverse Cuthill-McKee")(rcm_order)
+register_scheme("metis", paper=True,
+                description="METIS k-way partition order")(metis_order)
+register_scheme("louvain", paper=True,
+                description="Louvain community order")(louvain_order)
+register_scheme("patoh", paper=True,
+                description="PaToH hypergraph partition order")(patoh_order)
 
 
 @register_scheme("rcm_blocked", auto_candidate=True,
@@ -72,6 +90,9 @@ def _rcm_blocked(mat: CSRMatrix, seed: int = 0, block: int = 8) -> np.ndarray:
         order = np.argsort(sig[w0:w1], kind="stable")
         perm_local[w0:w1] = rows[order]
     return base[perm_local]
+
+
+PAPER_SCHEMES = [s.name for s in SCHEME_REGISTRY.values() if s.paper]
 
 
 def _content_key(mat: CSRMatrix, scheme: str, seed: int) -> str:
@@ -107,3 +128,14 @@ def reorder(mat: CSRMatrix, scheme: str, seed: int = 0,
             np.save(f, perm)
         os.replace(tmp, path)
         return perm
+
+
+PARTITIONERS = {
+    "metis": metis_partition,
+    "patoh": patoh_partition,
+}
+
+
+def partition_labels(mat: CSRMatrix, scheme: str, k: int,
+                     seed: int = 0) -> np.ndarray:
+    return PARTITIONERS[scheme](mat, k, seed)

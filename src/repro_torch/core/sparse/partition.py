@@ -18,9 +18,8 @@ yet). Partitioners that regroup rows (chunked_cyclic) return the grouping
 permutation instead of emitting non-contiguous panels — contiguous panels
 of the permuted matrix ARE the strided assignment.
 
-The port's own copy of the JAX package's numpy code (the same panels, bit
-for bit). The cut-minimizing `metis_cut` partitioner waits for the METIS
-port: `resolve_partitioner("metis_cut")` raises KeyError until then.
+The port's own copy of the JAX package's numpy code (the same panels and
+permutations, bit for bit), the cut-minimizing `metis_cut` included.
 """
 from __future__ import annotations
 
@@ -133,17 +132,25 @@ def chunked_cyclic_partitioner(mat: CSRMatrix, p: int, seed: int = 0,
     return perm, starts
 
 
-# registered by the JAX package, waiting here for the modules they need
-NOT_PORTED = {"metis_cut": "it needs the METIS reordering "
-                           "(core/reorder/metis.py)"}
+@register_partitioner("metis_cut", reorders=True,
+                      description="cut-minimizing: METIS k-way labels group "
+                                  "rows, nnz-balanced contiguous split")
+def metis_cut_partitioner(mat: CSRMatrix, p: int, seed: int = 0):
+    """Communication-volume-minimizing partition: rows are grouped by their
+    METIS k-way partition label, then the grouped matrix is split into p
+    nnz-balanced contiguous panels. The label groups minimize the cut, the
+    balanced split bounds the load imbalance."""
+    from ..reorder.metis import metis_partition
+
+    labels = metis_partition(mat, p, seed)
+    perm = np.argsort(labels, kind="stable").astype(np.int64)
+    starts = nnz_balanced_partition(mat.permute(perm), p)
+    return perm, starts
 
 
 def resolve_partitioner(name: str):
     """(canonical_name, fn) for a registered partitioner name, supporting
     the parameterized `<base>_c<chunk>` form (e.g. chunked_cyclic_c16)."""
-    if name in NOT_PORTED:
-        raise KeyError(f"partitioner {name!r} is not ported yet: "
-                       f"{NOT_PORTED[name]}")
     if name in PARTITIONER_REGISTRY:
         return name, get_partitioner(name).fn
     m = re.match(r"^(.+)_c(\d+)$", name)

@@ -16,6 +16,7 @@ with the same array and meta names.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Literal
 
 import numpy as np
@@ -147,6 +148,16 @@ class DeviceDense:
         return op
 
 
+def _in_dtype(mat: CSRMatrix, dtype) -> CSRMatrix:
+    """`mat` with its values in float32 when the operator is float32: a
+    padded format built from it holds its blocks or chunks in float32 on
+    the host, half the bytes of float64, and the device gets the same
+    values (each rounded once from float64 either way)."""
+    if torch_dtype(dtype) == torch.float32 and mat.vals.dtype != np.float32:
+        return dataclasses.replace(mat, vals=mat.vals.astype(np.float32))
+    return mat
+
+
 # -- engine registry entries (registration order = tuner candidate order) --
 
 @register_engine("csr", cost_fn=tune.cost_csr,
@@ -172,8 +183,8 @@ def _build_bell(mat: CSRMatrix, dtype=torch.float32, block_shape=(8, 128),
                 sell_sigma=None, use_kernel: str = "auto", device=None):
     from ...kernels.bell_spmv.ops import BellOperator
 
-    return BellOperator(to_block_ell(mat, *block_shape), dtype, use_kernel,
-                        device=device)
+    return BellOperator(to_block_ell(_in_dtype(mat, dtype), *block_shape),
+                        dtype, use_kernel, device=device)
 
 
 @register_engine("bcsr", cost_fn=tune.cost_bcsr,
@@ -183,8 +194,8 @@ def _build_bcsr(mat: CSRMatrix, dtype=torch.float32, block_shape=(8, 128),
                 sell_sigma=None, use_kernel: str = "auto", device=None):
     from ...kernels.bcsr_spmv.ops import BcsrOperator
 
-    return BcsrOperator(to_bcsr(mat, *block_shape), dtype, use_kernel,
-                        device=device)
+    return BcsrOperator(to_bcsr(_in_dtype(mat, dtype), *block_shape), dtype,
+                        use_kernel, device=device)
 
 
 @register_engine("sell", cost_fn=tune.cost_sell,
@@ -196,8 +207,8 @@ def _build_sell(mat: CSRMatrix, dtype=torch.float32, block_shape=(8, 128),
 
     c, w = block_shape
     sigma = 8 * c if sell_sigma is None else sell_sigma
-    return SellOperator(to_sell(mat, c=c, sigma=sigma, w=w), dtype,
-                        use_kernel, device=device)
+    return SellOperator(to_sell(_in_dtype(mat, dtype), c=c, sigma=sigma,
+                                w=w), dtype, use_kernel, device=device)
 
 
 @register_engine("dense", cost_fn=tune.cost_dense,

@@ -234,7 +234,8 @@ class Plan:
     tune_ms: float = 0.0
     plan_ms: float = 0.0
     cache_hit: bool = False           # this plan was loaded, not computed
-    advisor_confidence: float = 0.0   # the learned probe is not ported: 0
+    advisor_confidence: float = 0.0   # probe="learned": nearest-neighbor
+    #                                   confidence of the advisor (else 0)
     perm: Optional[np.ndarray] = None  # None = identity
     _mat: Optional[CSRMatrix] = dataclasses.field(
         default=None, repr=False, compare=False)
@@ -562,9 +563,9 @@ def _plan_decide(problem: SpmvProblem, reorder: str, engine: str, probe,
         if best is None or cost < best[0]:
             best = (cost, s, perm, rmat, tp)
     _, scheme, perm, rmat, tp = best
-    if probe and engine == "auto" and tp.source != "probe":
+    if probe and engine == "auto" and tp.source not in ("probe", "learned"):
         # the model picked the scheme; the empirical search refines the
-        # engine choice on the winner only
+        # engine choice on the winner only, in the caller's probe mode
         t0 = time.perf_counter()
         tp = tune_mod.tune(rmat, probe=probe, dtype=problem.dtype,
                            use_kernel=use_kernel, k=k, device=device)
@@ -576,6 +577,8 @@ def _plan_decide(problem: SpmvProblem, reorder: str, engine: str, probe,
               mat_nnz=mat.nnz, key=key, scheme_costs=scheme_costs,
               reorder_ms=reorder_ms, tune_ms=tune_ms,
               plan_ms=(time.perf_counter() - t_start) * 1e3,
+              advisor_confidence=float(
+                  (tp.advisor or {}).get("confidence", 0.0)),
               perm=None if perm is None else np.asarray(perm, np.int64),
               _mat=mat, _rmat=rmat)
     if cache and store_enabled():

@@ -15,9 +15,14 @@ Tuning modes (the `probe` argument):
   * False        — rank candidates by modelled bytes, build the argmin.
   * True         — additionally time the top PROBE_TOP_K candidates and
                    build the measured winner.
+  * "learned"    — ask the corpus TuneAdvisor (repro_torch.corpus.advisor)
+                   for a nearest-neighbor shortlist mined from the port's
+                   prior ResultStore cells and time only that (strictly
+                   fewer candidates than either probe mode); an empty
+                   knowledge base falls back to the model's top
+                   PROBE_TOP_K and bumps `advisor.fallbacks`.
   * "exhaustive" — time every candidate.
-Probes time with CUDA events on the card (core/measure/ios.py). The
-corpus advisor's "learned" mode is not ported yet.
+Probes time with CUDA events on the card (core/measure/ios.py).
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ _DENSE_MAX_ENTRIES = 64 * 64
 PROBE_TOP_K = 3
 PROBE_ITERS = 3
 
-PROBE_MODES = (False, True, "exhaustive")
+# the values `probe` accepts, here and up through plan()/MeasurePolicy
+PROBE_MODES = (False, True, "learned", "exhaustive")
 
 _VAL = 4          # float32 bytes
 _IDX = 4          # int32 bytes
@@ -53,10 +59,12 @@ class TunePlan:
     cost_bytes: float                 # modelled bytes/SpMM of the choice
     costs: dict                       # candidate label -> modelled bytes
     features: dict                    # structural features the model used
-    source: str                       # "model" | "probe" | "fixed"
+    source: str                       # "model" | "probe" | "learned" | "fixed"
     probe_ms: Optional[dict] = None   # candidate label -> measured ms
     tune_ms: float = 0.0              # wall time spent deciding
     k: int = 1                        # RHS batch width the plan was tuned for
+    advisor: Optional[dict] = None    # learned mode: {confidence, predicted,
+    #                                   hit, shortlist} (None otherwise)
 
     def label(self) -> str:
         base = _label(self.engine, self.block_shape, self.sell_sigma)
@@ -70,7 +78,7 @@ class TunePlan:
     @staticmethod
     def from_json(d: dict) -> "TunePlan":
         """From this class's or the JAX package's to_json() (fields the
-        port does not keep, such as the learned advisor's, are dropped)."""
+        port does not keep are dropped)."""
         names = {f.name for f in dataclasses.fields(TunePlan)}
         d = {k: v for k, v in d.items() if k in names}
         d["block_shape"] = tuple(d["block_shape"])
@@ -236,9 +244,11 @@ def enumerate_candidates(mat: CSRMatrix, feat: dict) -> list[dict]:
 
 
 def tune(mat: CSRMatrix, probe=False, dtype=None, use_kernel: str = "auto",
-         k: int = 1, device=None) -> TunePlan:
+         k: int = 1, device=None, advisor=None) -> TunePlan:
     """Pick (engine, shape) for `mat` at RHS batch width k. Probing builds
-    and times candidates on `device` (None = the card)."""
+    and times candidates on `device` (None = the card). `advisor`
+    optionally injects a corpus TuneAdvisor for probe="learned"; by default
+    the process-wide advisor over the default ResultStore is used."""
     if probe not in PROBE_MODES:
         raise ValueError(f"probe must be one of {PROBE_MODES}, got {probe!r}")
     with obs.span("plan.tune", shape=str(tuple(mat.shape)),
@@ -255,13 +265,19 @@ def tune(mat: CSRMatrix, probe=False, dtype=None, use_kernel: str = "auto",
                                cd["sigma"], cd.get("sell_pad"), k=k)
         ranked = sorted(cands, key=lambda cd: costs[
             _label(cd["engine"], cd["block_shape"], cd["sigma"])])
-        best, probe_ms, source = ranked[0], None, "model"
+        best, probe_ms, source, adv_info = ranked[0], None, "model", None
         if probe:
-            to_probe = ranked if probe == "exhaustive" \
-                else ranked[:PROBE_TOP_K]
+            to_probe, adv_info = _probe_set(probe, ranked, feat, advisor)
             best, probe_ms = _probe(mat, to_probe, dtype, use_kernel, k,
                                     device)
             source = "probe"
+            if adv_info is not None and adv_info["predicted"] is not None:
+                # predicted-vs-probed agreement: the advisor's learning signal
+                hit = adv_info["predicted"] == _label(
+                    best["engine"], best["block_shape"], best["sigma"])
+                adv_info["hit"] = hit
+                obs.counter("advisor.hits" if hit else "advisor.misses").inc()
+                source = "learned"
         lab = _label(best["engine"], best["block_shape"], best["sigma"])
         sp.set(engine=best["engine"], source=source)
         return TunePlan(engine=best["engine"],
@@ -269,7 +285,26 @@ def tune(mat: CSRMatrix, probe=False, dtype=None, use_kernel: str = "auto",
                         sell_sigma=best["sigma"], cost_bytes=costs[lab],
                         costs=costs, features=feat, source=source,
                         probe_ms=probe_ms,
-                        tune_ms=(time.perf_counter() - t0) * 1e3, k=k)
+                        tune_ms=(time.perf_counter() - t0) * 1e3, k=k,
+                        advisor=adv_info)
+
+
+def _probe_set(probe, ranked, feat, advisor):
+    """The candidates to time, plus the advisor record for learned mode."""
+    if probe == "exhaustive":
+        return ranked, None
+    if probe != "learned":
+        return ranked[:PROBE_TOP_K], None
+    if advisor is None:
+        from ...corpus.advisor import default_advisor
+        advisor = default_advisor()
+    shortlist, confidence, predicted = advisor.shortlist(feat, ranked)
+    if not shortlist:
+        obs.counter("advisor.fallbacks").inc()
+        return ranked[:PROBE_TOP_K], {"confidence": 0.0, "predicted": None,
+                                      "hit": None, "shortlist": 0}
+    return shortlist, {"confidence": confidence, "predicted": predicted,
+                       "hit": None, "shortlist": len(shortlist)}
 
 
 def _probe(mat, to_probe, dtype, use_kernel, k, device):

@@ -267,9 +267,12 @@ def _chunked_static_ms(mat, p: int, chunk: int, iters: int, seed: int,
 def measure_schedule_cell(cell, mat, device) -> dict:
     """One (matrix, scheme, scheduling-policy) point; the policy is the
     variant. The scheme axis is honored like everywhere else (the matrix
-    is permuted before panels are cut)."""
+    is permuted before panels are cut). Beside the paper's policies a
+    variant may name a registered row partitioner (metis_cut): its
+    permutation is applied and its panels are timed."""
     from ..core.measure import ios, parallel_model
     from ..core.reorder import api as reorder_api
+    from ..core.sparse import partition
 
     pol = cell.policy_dict()
     if cell.scheme != "baseline":
@@ -287,6 +290,14 @@ def measure_schedule_cell(cell, mat, device) -> dict:
     elif var.startswith("static_c"):
         ms = _chunked_static_ms(mat, cell.p, int(var[len("static_c"):]),
                                 pol["iters"], pol["seed"], device)
+    elif var in partition.PARTITIONER_REGISTRY:
+        perm, starts = partition.resolve_partitioner(var)[1](
+            mat, cell.p, pol["seed"])
+        if perm is not None:
+            mat = mat.permute(perm)
+        ms = parallel_model.modelled_parallel_ms(
+            mat, cell.p, cell.engine, iters=pol["iters"], panels=starts,
+            device=device)
     else:
         raise ValueError(f"unknown scheduling variant {var!r}")
     return {

@@ -62,8 +62,9 @@ class MeasurePolicy:
     * time_spmv=False — analytic-only cells (no operator build at all).
     * verify — gate each cell on the original-index-space numpy oracle.
     * probe — tuner probe mode, threaded to plan(): False (cost model
-      only), True (probe the top candidates) or "exhaustive" (probe
-      everything); the JAX package's "learned" mode is not ported.
+      only), True (probe the top candidates), "learned" (advisor
+      shortlist mined from prior cells of the port's result store) or
+      "exhaustive" (probe everything).
     * use_kernel — "auto" | "cuda" | "ref" (device.py).
     * trace — record each cell's phase-attributed span events (obs)
       into its stored record. Key-relevant only when True (the
@@ -83,7 +84,7 @@ class MeasurePolicy:
     with_metrics: bool = True
     verify: bool = False
     verify_tol: float = 1e-4
-    probe: object = False            # False | True | "exhaustive"
+    probe: object = False            # False | True | "learned" | "exhaustive"
     trace: bool = False
     use_kernel: str = "auto"
     seed: int = 0
@@ -233,7 +234,7 @@ def paper_schemes() -> list:
     """The paper's scheme axis: baseline + the §2.1 schemes + the random
     control (Fig. 1's shuffle) — pulled from the plugin registry, so a
     third-party paper=True scheme joins every campaign that uses this
-    default. Of the §2.1 schemes the port has RCM so far."""
+    default."""
     from ..core.reorder import api as _api  # noqa: F401 — registers built-ins
 
     paper = [s.name for s in registry.SCHEME_REGISTRY.values() if s.paper]

@@ -7,11 +7,16 @@ generators and seeds, so a name gives the same matrix in both packages:
   * BENCH    — the default benchmark corpus (10k-66k rows).
   * LARGE    — the Fig. 1 pair at 1,048,576 rows.
   * LOCALITY — ~520k rows.
+  * CORPUS   — real SuiteSparse matrices (a bundled fixture, a local .mtx,
+               or an offline stand-in) resolved through repro_torch.corpus;
+               names carry the `corpus://` prefix.
 
-`corpus://` and `workload://` names are not ported yet. Entries are
+`workload://` names are not ported yet. Synthetic entries are
 deterministic in their seed and cached on disk (npz, write-then-rename)
 after first build, under REPRO_TORCH_MATRIX_CACHE (default
-`repro_torch_matrices` under the system temp directory; "off" disables).
+`repro_torch_matrices` under the system temp directory; "off" disables);
+corpus entries resolve through the content-addressed `.csrz` artifact
+store (REPRO_TORCH_CORPUS_CACHE).
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ import numpy as np
 from ..core.sparse.csr import CSRMatrix
 from . import generators as G
 
-TIERS = ("smoke", "bench", "large", "locality")
+TIERS = ("smoke", "bench", "large", "locality", "corpus")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,10 +90,14 @@ def names(tier: Optional[str] = None) -> list:
 
 
 def get(name: str) -> CSRMatrix:
-    """Resolve a catalog name."""
+    """Resolve a catalog name, synthetic or corpus://."""
+    if name.startswith("corpus://"):
+        from ..corpus import manifest as corpus_manifest
+
+        return corpus_manifest.resolve(name)
     if name not in _CATALOG:
         raise KeyError(f"unknown matrix {name!r}; known: "
-                       f"{sorted(_CATALOG)[:10]}...")
+                       f"{sorted(_CATALOG)[:10]}... (or a corpus:// name)")
     return _cached(name, _CATALOG[name].thunk)
 
 
@@ -106,6 +115,13 @@ def large_names() -> list:
 
 def locality_names() -> list:
     return names("locality")
+
+
+def corpus_names() -> list:
+    """Qualified corpus:// names from the corpus manifest."""
+    from ..corpus import manifest as corpus_manifest
+
+    return corpus_manifest.corpus_names()
 
 
 # --------------------------------------------------------------------------

@@ -113,9 +113,14 @@ def test_partitions_are_the_references(name, p):
 
 
 def test_metis_cut_is_not_ported_yet():
-    assert "metis_cut" in rpartition.PARTITIONER_REGISTRY
-    with pytest.raises(KeyError, match="not ported yet"):
-        partition.resolve_partitioner("metis_cut")
+    """(Named when metis_cut waited for the METIS port.) It resolves now,
+    to the reference's (perm, starts); unknown names still raise."""
+    rm = MATS["rmat"]()
+    gname, gfn = partition.resolve_partitioner("metis_cut")
+    wname, wfn = rpartition.resolve_partitioner("metis_cut")
+    assert gname == wname
+    for g, w in zip(gfn(_port(rm), 4, 0), wfn(rm, 4, 0)):
+        np.testing.assert_array_equal(g, w)
     with pytest.raises(KeyError, match="unknown partitioner"):
         partition.resolve_partitioner("nope")
 
@@ -359,7 +364,8 @@ def test_machine_profiles_and_paper_schemes_match_the_reference():
     theirs = {n: s.physical() for n, s in
               rregistry.PROFILE_REGISTRY.items() if n.startswith("M")}
     assert mine == theirs and E.PRIMARY == "M1_csr_f32_p8"
-    assert E.paper_schemes() == ["baseline", "rcm", "random"]
+    assert E.paper_schemes() == rspec.paper_schemes() == [
+        "baseline", "rcm", "metis", "louvain", "patoh", "random"]
     assert "sell" in E.registered_engines()
 
 

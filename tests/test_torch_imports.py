@@ -1,6 +1,7 @@
 """The port stands alone: importing repro_torch loads neither jax nor the JAX
-package, no source file under src/repro_torch imports either, and every
-entry point runs on the card unless the caller asks for the CPU."""
+package, no source file under src/repro_torch imports either (nor a network
+library), and every entry point runs on the card unless the caller asks for
+the CPU."""
 import ast
 import os
 import pathlib
@@ -71,6 +72,18 @@ def _imported_roots(tree):
 def test_no_source_imports_jax_or_repro(path):
     roots = set(_imported_roots(ast.parse(path.read_text())))
     assert not roots & {"jax", "jaxlib", "repro"}, path
+
+
+NETWORK = {"urllib", "http", "socket", "ssl", "ftplib", "requests"}
+
+
+@pytest.mark.parametrize("path", [p for p, _ in _modules()],
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_no_source_has_network_code(path):
+    """Nothing is downloaded: no module of the port imports a network
+    library."""
+    roots = set(_imported_roots(ast.parse(path.read_text())))
+    assert not roots & NETWORK, path
 
 
 def test_chip_smoke_imports_neither():

@@ -371,3 +371,33 @@ def test_bf16_engines_match_the_references_bf16_engines(engine, name, nv):
     got = got.float().numpy()
     assert _rel(got, np.asarray(want.astype(jnp.float32))) < 0.05
     assert _rel(got, oracle) < 0.15
+
+
+@pytest.mark.parametrize("engine,attr,shape", [
+    ("sell", "chunk_vals", (8, 32)), ("bcsr", "blocks", (8, 16)),
+    ("bell", "blocks", (4, 16))])
+@pytest.mark.parametrize("kind", ["power_law", "holes"])
+def test_float32_formats_hold_the_float64_formats_values(kind, engine, attr,
+                                                         shape):
+    """A float32 operator's padded format is built from float32 values on
+    the host: its device values are the float64 format's, cast once."""
+    from repro_torch.core.sparse.bell import to_bcsr, to_block_ell
+    from repro_torch.core.sparse.csr import CSRMatrix
+    from repro_torch.core.sparse.sell import to_sell
+    from repro_torch.core.spmv.ops import make_engine
+
+    rm = _mat(kind)
+    mat = CSRMatrix(rowptr=rm.rowptr, cols=rm.cols, vals=rm.vals,
+                    shape=rm.shape)
+    op = make_engine(mat, engine, block_shape=shape, sell_sigma=64,
+                     device=CPU)
+    host = {"sell": lambda: to_sell(mat, c=shape[0], sigma=64, w=shape[1]),
+            "bcsr": lambda: to_bcsr(mat, *shape),
+            "bell": lambda: to_block_ell(mat, *shape)}[engine]()
+    want = getattr(host, "chunk_vals" if engine == "sell" else "blocks")
+    got = getattr(op, attr)
+    assert got.dtype == torch.float32
+    if engine == "bcsr":             # the operator adds a block per empty row
+        from repro_torch.kernels.bcsr_spmv.ops import pad_empty_rows
+        want = pad_empty_rows(host).blocks
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
