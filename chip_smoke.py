@@ -36,11 +36,12 @@ the run with a nonzero exit code (nothing is caught):
                   instrumented CG → modelled-parallel time and structural
                   metrics at p = 8): fig1_shuffled with baseline and rcm,
                   fig1_banded with baseline, all engine="auto", and
-                  fig1_shuffled + rcm at k = 8; then the same spec on a
-                  fresh result store with the same plan store (every cell
-                  a plan-store hit, tune_ms = 0), and on the first result
-                  store (every cell served from it), each with its
-                  seconds against the first run's; then the Fig. 4
+                  fig1_shuffled + rcm at k = 8; then its reordered k = 1
+                  cell (fig1_shuffled + rcm) on a fresh result store with
+                  the same plan store (a plan-store hit, tune_ms = 0),
+                  and the whole spec on the first result store (every
+                  cell served from it), each with its seconds against the
+                  first run's; then the Fig. 4
                   schedule spec on banded_m65536_bw24 and its shuffled
                   twin (static_default, static_c16, nnz_balanced and
                   metis_cut, p = 8). Plans, reorderings, operators, corpus
@@ -87,6 +88,37 @@ the run with a nonzero exit code (nothing is caught):
                   stored chunk or block dropped, the bf16 csr engine with
                   one block of rows zeroed against its rounding bound, and
                   a diagonal-only operator under verify;
+7s. serve       — repro_torch.serving.spmv_service on the Fig. 1 pair
+                  (rcm, max_batch 8, window 20 ms): 48 seeded requests
+                  over both matrices with engine sell (K2 per batch, K1
+                  for the last, sent alone) and with bcsr (K3), every
+                  response within 1e-4 of the float64 host product and
+                  within 1e-5 of the unbatched op(x), fewer batches than
+                  requests; where a dispatch's time goes; on one sell key
+                  a value swap (x 1.01, no replan), a 0.5% deletion delta
+                  (Plan.apply_delta: no reorder, no tune) and an
+                  over-churn delta (a full replan), each answered
+                  correctly, and the planted control (a response after the
+                  swap held against the old product must fail); then
+                  a profiled stretch of 64 dispatches; open-loop traffic
+                  (spmv_bench.run_serve_traffic: 4 keys, Zipf 1.1,
+                  poisson, 200 arrivals, 10% value updates, 2% structure
+                  deltas, a budget of 2.5 operators) on the Fig. 1
+                  generator cut to TRAFFIC_ROWS rows: a sqrt(2) rate ramp
+                  to the sustained rate, and the runs at 0.5x and 2x it
+                  (every Future answered and none failed, budget kept,
+                  counters balanced, operators reloaded, K2 launched,
+                  rejects at 2x); one serve cell on fig1_shuffled at its
+                  full size (16 arrivals with the value updates, the 0.5x
+                  rate) through the Runner under torch.profiler, resumed
+                  from its store;
+7w. workloads   — repro_torch.workloads.run_stream(verify=True) over the
+                  drift scenario: MoE routing at Qwen3-30B-A3B's router
+                  (128 experts, top 8, d 2048, 4096 tokens; sell, K2; the
+                  dispatch buffer bit for bit the one-hot one's), a GNN
+                  of 1,048,576 rows (sell, K2; every step after the first
+                  a StructureDelta, no replan) and block-sparse attention
+                  at S = 8192 (bcsr 64 x 64, K3);
  8. lm prefill  — the SpMV tensors are freed; Zamba2-7B at full width and
                   depth (81 Mamba2 layers, the shared attention block after
                   each group of 6), random f32 parameters from a seeded
@@ -124,12 +156,15 @@ the run with a nonzero exit code (nothing is caught):
 
 Every kernel launch counter is set to 0 just before the first campaign of
 phase 4, the campaign of phase 4c, each forced path of phase 5 (f32 and
-bf16) and of phase 6b and the f32 prefill of phase 8, and read just after
-it; a forced path that did not launch its kernel, a cell whose plan (or
-forced engine) is a kernel engine that launched nothing in its own timed
-calls, or a prefill whose K5 count is not its number of Mamba2 layers (81),
-fails the run. The kernels line reports, for each kernel, the launches of
-the path that feeds its row.
+bf16) and of phase 6b, each service and workload path of phases 7s and 7w
+and the f32 prefill of phase 8, and read just after it; a forced path that
+did not launch its kernel, a cell whose plan (or forced engine) is a
+kernel engine that launched nothing in its own timed calls, a service or
+workload path that did not launch its kernels, or a prefill whose K5
+count is not its number of Mamba2 layers (81), fails the run. The kernels
+line reports, for each kernel, the launches of the path that feeds its
+row and, for K1-K3 in f32, those of the service and workload paths
+(`launches_paths`).
 
 Verification is against the numpy float64 oracle at rel err <= 1e-4 (the
 error over the oracle's largest entry); a kernel against its plain version
@@ -167,6 +202,7 @@ VERIFY_TOL = 1e-4
 ITERS = 20
 BATCH = 20                       # kernel times: calls per CUDA event pair
 BATCHES = 5                      # kernel times: event pairs, median taken
+POWERLAW_BATCH = 5               # the power-law rows' calls take 9-40 ms each
 K2_WIDTHS = (1, 3, 4, 8, 16, 32, 33, 36, 64)   # K2 at small shapes
 K2_WIDE = 32                     # K2's second width at the main-path shape
 PARALLEL_P = 8                   # modelled-parallel cores of the campaigns
@@ -429,17 +465,17 @@ KERNEL_OF = {"sell": ("sell_spmv", "sell_spmm"), "bcsr": ("bcsr_spmv",),
              "bell": ("bell_spmv",)}
 
 
-def fig1_spec(shuffled: str, banded: str, iters: int):
+def fig1_spec(shuffled: str, banded: str, iters: int, keep=None):
     """The paper's four Fig. 1 cells as one spmv ExperimentSpec: the
     product grid (both matrices x {baseline, rcm} x k in {1, 8}) cut to
     fig1_shuffled x {baseline, rcm}, fig1_banded x baseline (k = 1) and
-    fig1_shuffled x rcm at k = 8; verified (matrix and structure twin),
-    IOS, YAX, CG, the modelled-parallel time and the structural metrics at
-    p = 8."""
+    fig1_shuffled x rcm at k = 8 (or to `keep`, (matrix, scheme, k)
+    triples); verified (matrix and structure twin), IOS, YAX, CG, the
+    modelled-parallel time and the structural metrics at p = 8."""
     from repro_torch.experiments import ExperimentSpec, MeasurePolicy
 
-    keep = {(shuffled, "baseline", 1), (shuffled, "rcm", 1),
-            (banded, "baseline", 1), (shuffled, "rcm", 8)}
+    keep = keep or {(shuffled, "baseline", 1), (shuffled, "rcm", 1),
+                    (banded, "baseline", 1), (shuffled, "rcm", 8)}
 
     class Fig1Spec(ExperimentSpec):
         def cells(self, matrices=None, device="cpu"):
@@ -522,8 +558,12 @@ def campaign(dev, mats: dict, iters: int) -> tuple:
     print(f"[result] rcm speedup over baseline on {shuffled} (IOS, auto "
           f"engine): {base / rcm:.3f}x", flush=True)
 
+    # from the plan store: the reordered k = 1 cell, not all four, to keep
+    # the run inside its time
     t1 = time.perf_counter()
-    again = Runner(spec, ResultStore(os.path.join(results, "again")),
+    again_spec = fig1_spec(shuffled, banded, iters,
+                           keep={(shuffled, "rcm", 1)})
+    again = Runner(again_spec, ResultStore(os.path.join(results, "again")),
                    get_matrix=mats.__getitem__, device=dev).run()
     again_s = time.perf_counter() - t1
     for rec in again.records:
@@ -544,7 +584,7 @@ def campaign(dev, mats: dict, iters: int) -> tuple:
               launches=json.dumps(rec["launches"]))
     phase("campaign fig1 from the plan store", t1,
           plan_store_hits=f"{sum(r['plan_store_hit'] for r in again.records)}"
-                          f"/{ncells}", seconds=f"{again_s:.2f}",
+                          f"/{len(again.records)}", seconds=f"{again_s:.2f}",
           first_run_seconds=f"{first_s:.2f}")
 
     t1 = time.perf_counter()
@@ -895,11 +935,12 @@ def kernel_work(op, calls, nv: int, xin) -> tuple[int, int]:
 
 
 def kernel_time(op, calls, nv: int, x, xin, csrs,
-                plain_batch: int = BATCH):
+                plain_batch: int = BATCH, batch: int = BATCH):
     """One kernel at one shape: its error against its plain version (which
-    must be within the f32 tolerance), its ms, the plain version's ms (one
-    event pair per `plain_batch` calls), its bound and torch's CSR product on
-    the same matrix with int32 and int64 indices."""
+    must be within the f32 tolerance), its ms (one event pair per `batch`
+    calls), the plain version's ms (one per min(`plain_batch`, `batch`)
+    calls), its bound and torch's CSR product on the same matrix with int32
+    and int64 indices."""
     name, kern, plain = calls(op, xin)
     abs_err, rel = rel_err(kern(), plain())
     dname = str(xin.dtype).replace("torch.", "")
@@ -912,8 +953,8 @@ def kernel_time(op, calls, nv: int, x, xin, csrs,
     lib = library_times(csrs, xl)
     lib_index = min(lib, key=lib.get) if lib else None
     out = {"name": name, "max_abs_err": abs_err, "rel_err": rel,
-           "ms": time_ms(kern),
-           "plain_ms": time_ms(plain, plain_batch),
+           "ms": time_ms(kern, batch),
+           "plain_ms": time_ms(plain, min(plain_batch, batch)),
            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops,
            "library_ms": lib[lib_index] if lib else None,
            "library_index": lib_index,
@@ -1099,7 +1140,7 @@ def powerlaw_phase(dev, iters: int) -> list:
                 calls = bcsr_calls
                 xin = x2d_for(op, k, gen, torch.float32, dev)
                 x = xin.reshape(-1, k)[: vmat.n]
-            m = kernel_time(op, calls, k, x, xin, csrs)
+            m = kernel_time(op, calls, k, x, xin, csrs, batch=POWERLAW_BATCH)
             name = m["name"]
             if launches[name] == 0:
                 raise AssertionError(f"{path} never launched {name}")
@@ -1340,6 +1381,569 @@ def bf16_csr_control(vmat, dev) -> None:
     print(f"[control] csr bf16 with the values of rows {r0}..{r1 - 1} "
           f"zeroed: largest err / rounding bound {ratio:.3f} > 1, caught",
           flush=True)
+
+
+# -- phase 7s: the SpMV service --------------------------------------------
+SERVE_REQUESTS = 48
+SERVE_KW = {"reorder": "rcm", "max_batch": 8, "window_ms": 20.0}
+SERVE_TOL = 1e-5                 # a response against the unbatched op(x)
+# The rate ramp runs on the Fig. 1 generator cut to TRAFFIC_ROWS rows (the
+# same band, seeds and shuffle; PERF.md lists the cut): at 1,048,576 rows a
+# value swap rebuilds the operator in the submitting thread for ~6 s and an
+# evicted key reloads its 1.1 GB operator, so the service answers about one
+# request a second under this mix (the serve cell) and each ramp step there
+# would take minutes. The serve cell (SERVE_CELL) runs at the full size.
+TRAFFIC_ROWS = 65536
+TRAFFIC_MATRIX = f"fig1_shuffled_m{TRAFFIC_ROWS}"
+# max_queue: two batches a key, one dispatching and one filling; a request
+# past that would wait out two more dispatches and is refused with a
+# retry-after instead
+TRAFFIC = {"arrival": "poisson", "requests": 200, "n_keys": 4,
+           "zipf_s": 1.1, "update_frac": 0.1, "structure_frac": 0.02,
+           "max_batch": 8, "window_ms": 2.0, "max_queue": 16,
+           "overload": "reject", "engine": "sell", "reorder": "rcm"}
+TRAFFIC_BUDGET_OPS = 2.5         # the memory budget, in operators
+# the ramp's rates are RAMP_BASE * sqrt(2)**i: the runs at 0.5x and 2x a
+# step are the steps two below and two above it. It starts at step
+# RAMP_START and walks up while runs are sustained, or down until one is.
+RAMP_BASE, RAMP_START, RAMP_STEPS = 10.0, 2, range(-4, 11)
+# the serve cell at the full size: the first 16 arrivals of the schedule
+# with the value updates of the mix (the cell kind has no structure deltas)
+SERVE_CELL = {"requests": 16, "update_frac": 0.1}
+OVER_CHURN = 0.16                # deletion fraction past delta.MAX_CHURN
+
+
+def device_product(mat, x, dev):
+    """float64 A @ x on the card (x [n] or [n, b]): the workloads' plain
+    product (gather, scale, index_add_) over the port's host CSR arrays.
+    The checker, no kernel under test."""
+    import numpy as np
+    import torch
+
+    from repro_torch.workloads.adapters import _plain_product
+
+    x2 = torch.as_tensor(np.asarray(x, np.float64).reshape(mat.n, -1),
+                         device=dev)
+    fn, args = _plain_product(mat, x2, dev)
+    return fn(*args).cpu().numpy().reshape((mat.m,) + np.shape(x)[1:])
+
+
+def scaled_err(got, want) -> float:
+    """max |got - want| over the largest |want| (float64)."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max()) / (float(np.abs(want).max())
+                                              + 1e-30)
+
+
+def check_product(name: str, got, want, tol: float = VERIFY_TOL) -> float:
+    err = scaled_err(got, want)
+    if not err <= tol:
+        raise AssertionError(f"{name}: rel err {err:.3e} > {tol:.0e}")
+    return err
+
+
+def serve_requests(dev, mats: dict) -> tuple:
+    """SERVE_REQUESTS (matrix, x) requests from a seeded generator over
+    the matrices, and each response's float64 product (device_product)."""
+    import numpy as np
+
+    names = list(mats)
+    rng = np.random.default_rng(0)
+    reqs = []
+    for _ in range(SERVE_REQUESTS):
+        name = names[rng.integers(len(names))]
+        reqs.append((name, rng.standard_normal(mats[name].n)))
+    want = [None] * len(reqs)
+    for name in names:
+        idx = [i for i, (n, _) in enumerate(reqs) if n == name]
+        y = device_product(mats[name],
+                           np.stack([reqs[i][1] for i in idx], axis=1), dev)
+        for j, i in enumerate(idx):
+            want[i] = y[:, j]
+    return reqs, want
+
+
+def serve_sim(dev, mats: dict, engine: str, reqs: list, want: list) -> dict:
+    """7s.1: the requests of serve_requests through one SpmvService over
+    both Fig. 1 matrices; the last one is sent after the burst has
+    drained, so a lone request takes op(x). Every response is held
+    against its float64 product (VERIFY_TOL of its largest entry) and
+    against the unbatched op(x) (SERVE_TOL). Launch counts are set to 0
+    just before the requests and read just after the last response; the
+    op(x) comparisons come after. Returns the launches and the service
+    (open: the dynamic checks of a sell run continue on it)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.spmv.opcache import operator_nbytes
+    from repro_torch.serving.spmv_service import SpmvService
+
+    t0 = time.perf_counter()
+    names = list(mats)
+    svc = SpmvService(engine=engine, device=dev, **SERVE_KW)
+    for name, mat in mats.items():
+        svc.register(name, mat)
+    for name in names:            # plan + build before the clock starts
+        svc.operator(name)
+    build_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    kernels.reset_launches()
+    futs = [svc.submit(name, x) for name, x in reqs[:-1]]
+    svc.flush(timeout=600)
+    futs.append(svc.submit(*reqs[-1]))
+    ys = [f.result(timeout=600) for f in futs]
+    launches = dict(kernels.LAUNCHES)
+    serve_s = time.perf_counter() - t1
+    stats = svc.stats()
+    errs, alone_errs = [], []
+    for i, (name, x) in enumerate(reqs):
+        errs.append(check_product(f"serve-sim {engine} {name} request {i}",
+                                  ys[i], want[i]))
+        alone = svc.operator(name)(torch.as_tensor(
+            x, dtype=torch.float32, device=dev)).cpu().numpy()
+        alone_errs.append(check_product(
+            f"serve-sim {engine} {name} request {i} against op(x)", ys[i],
+            alone, SERVE_TOL))
+    if not stats["batches"] < SERVE_REQUESTS:
+        raise AssertionError(f"serve-sim {engine}: {stats['batches']} "
+                             f"batches for {SERVE_REQUESTS} requests")
+    need = KERNEL_OF[engine]
+    if not all(launches[k] > 0 for k in need):
+        raise AssertionError(f"serve-sim {engine}: the dispatches did not "
+                             f"launch {need}: {launches}")
+    phase(f"serve-sim {engine}", t0, requests=SERVE_REQUESTS,
+          batches=stats["batches"], avg_batch=f"{stats['avg_batch']:.2f}",
+          build_s=f"{build_s:.2f}", serve_s=f"{serve_s:.3f}",
+          p50_ms=stats["slo"]["p50_ms"], p99_ms=stats["slo"]["p99_ms"],
+          max_rel_err=f"{max(errs):.2e}",
+          max_rel_err_vs_op=f"{max(alone_errs):.2e}",
+          op_bytes=json.dumps({n: operator_nbytes(svc.operator(n))
+                               for n in names}),
+          launches=json.dumps(launches))
+    return {"launches": launches, "service": svc}
+
+
+def serve_dynamic(dev, svc, mat, key: str) -> None:
+    """7s.2 on one sell key of the serve-sim service: a value swap (values
+    x 1.01), a 0.5% deletion delta (applied under the frozen plan) and an
+    over-churn delta (a full replan), each followed by a request held
+    against the new product; then the planted control: a response after
+    the swap, held against the product before it, must fail."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.serving import traffic
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(mat.n)
+    old_want = device_product(mat, x, dev)
+
+    t0 = time.perf_counter()
+    s0 = svc.stats()
+    cur = dataclasses.replace(mat, vals=mat.vals * 1.01)
+    svc.update_values(key, cur.vals)
+    y = svc.submit(key, x).result(timeout=600)
+    err = check_product("value swap", y, device_product(cur, x, dev))
+    s1 = svc.stats()
+    swaps = s1["value_swaps"] - s0["value_swaps"]
+    replans = s1["replans"] - s0["replans"]
+    if (swaps, replans) != (1, 0):
+        raise AssertionError(f"value swap: value_swaps +{swaps}, replans "
+                             f"+{replans} (want +1, +0)")
+    phase("serve value swap", t0, rel_err=f"{err:.2e}", value_swaps=swaps,
+          replans=replans,
+          build_ms=f"{svc._build_info[key]['build_ms']:.1f}")
+    stale = scaled_err(y, old_want)
+    if stale <= VERIFY_TOL:
+        raise AssertionError(f"control: the response after the 1.01 swap "
+                             f"passes against the old product ({stale:.3e})")
+    print(f"[control] response after the value swap held against the "
+          f"product before it: rel err {stale:.3e} > {VERIFY_TOL:.0e}, "
+          f"caught", flush=True)
+
+    for label, frac, counter in (("delta", 0.005, "delta.applies"),
+                                 ("over-churn delta", OVER_CHURN,
+                                  "delta.fallbacks")):
+        t0 = time.perf_counter()
+        c0 = obs.counter(counter).value
+        r0 = svc.stats()["replans"]
+        d = traffic._deletion_delta(cur, rng, frac)
+        churn = d.churn(cur)
+        fut = svc.update_structure(key, delta=d)
+        submit_s = time.perf_counter() - t0
+        fut.result(timeout=900)
+        landed_s = time.perf_counter() - t0
+        cur = d.apply_to(cur)
+        y = svc.submit(key, x).result(timeout=600)
+        err = check_product(label, y, device_product(cur, x, dev))
+        moved = obs.counter(counter).value - c0
+        info = svc._build_info[key]
+        pl = svc._plans[key][2]
+        if moved != 1 or svc.stats()["replans"] - r0 != 1:
+            raise AssertionError(f"{label}: {counter} +{moved}, replans "
+                                 f"+{svc.stats()['replans'] - r0}")
+        if counter == "delta.applies" and not (
+                info["tune_ms"] == 0.0 and pl.tune_ms == 0.0
+                and pl.reorder_ms == 0.0):
+            raise AssertionError(f"delta: the new operator was tuned or "
+                                 f"reordered: build tune_ms="
+                                 f"{info['tune_ms']} plan tune_ms="
+                                 f"{pl.tune_ms} reorder_ms={pl.reorder_ms}")
+        phase(f"serve {label}", t0, deleted=d.churn_nnz,
+              churn=f"{churn:.4f}", **{counter: moved},
+              submit_s=f"{submit_s:.2f}", landed_s=f"{landed_s:.2f}",
+              tune_ms=info["tune_ms"], reorder_ms=pl.reorder_ms,
+              plan_ms=f"{pl.plan_ms:.1f}", rel_err=f"{err:.2e}")
+
+
+def ramp_rate(step: int) -> float:
+    return RAMP_BASE * 2.0 ** (step / 2)
+
+
+def sustained_at(rec) -> bool:
+    """A traffic run kept pace: every request offered over the submit
+    window was answered (none rejected, shed or failed), and the last
+    answer came within the run's p95 latency of the last arrival. A
+    backlog that grows through the run leaves its last request the
+    longest wait, past the p95; a service that keeps up answers it as it
+    answers the others."""
+    return (not (rec["rejected"] or rec["shed"] or rec["errors"])
+            and rec["drain_s"] - rec["submit_s"] <= rec["p95_ms"] / 1e3)
+
+
+def traffic_matrix():
+    """The Fig. 1 matrix's generator at TRAFFIC_ROWS rows, registered in
+    the suite under TRAFFIC_MATRIX."""
+    from repro_torch.matrices import generators as G
+    from repro_torch.matrices import suite
+
+    if TRAFFIC_MATRIX not in suite.names("large"):
+        suite.register_matrix(
+            TRAFFIC_MATRIX, "large",
+            lambda: G.shuffle(G.banded(TRAFFIC_ROWS, 15, seed=7), seed=8))
+    return suite.get(TRAFFIC_MATRIX)
+
+
+def traffic_run(dev, matrix: str, rate: float, budget_mb: float,
+                label: str) -> dict:
+    """One run_serve_traffic run; fails on any failed, unanswered or
+    unaccounted request, update or replan."""
+    from repro_torch.launch import spmv_bench
+
+    t0 = time.perf_counter()
+    rec = spmv_bench.run_serve_traffic(
+        matrix=matrix, rate_rps=rate, budget_mb=budget_mb, device=dev,
+        **TRAFFIC)
+    if not rec["ok"]:
+        raise AssertionError(
+            f"traffic {label}: unresolved={rec['unresolved']} "
+            f"replan_unresolved={rec['replan_unresolved']} "
+            f"errors={rec['errors']} replan_errors={rec['replan_errors']} "
+            f"update_errors={rec['update_errors']} "
+            f"structure_errors={rec['structure_errors']} "
+            f"budget_ok={rec['budget_ok']} "
+            f"counters_balanced={rec['counters_balanced']}")
+    if rec["op_reloads"] < 1 or rec["launches"]["sell_spmm"] == 0:
+        raise AssertionError(f"traffic {label}: op_reloads="
+                             f"{rec['op_reloads']} launches="
+                             f"{rec['launches']}")
+    phase(f"traffic {label}", t0, rate_rps=rate, ok=rec["ok_count"],
+          shed=rec["shed"], rejected=rec["rejected"], errors=rec["errors"],
+          unresolved=rec["unresolved"],
+          p50_ms=rec["p50_ms"], p95_ms=rec["p95_ms"], p99_ms=rec["p99_ms"],
+          offered_rps=(rec["ok_count"] + rec["shed"] + rec["errors"]
+                       + rec["unresolved"] + rec["rejected"])
+          / rec["submit_s"],
+          achieved_rps=rec["ok_count"] / rec["drain_s"],
+          schedule_s=rec["schedule_s"], submit_s=rec["submit_s"],
+          drain_s=rec["drain_s"], wall_s=rec["wall_s"],
+          drain_after_last_s=rec["drain_s"] - rec["submit_s"],
+          sustained=sustained_at(rec),
+          coalesce=f"{rec['coalesce_ratio']:.3f}",
+          evictions=rec["evictions"], reloads=rec["op_reloads"],
+          builds=rec["op_builds"], swaps=rec["value_swaps"],
+          replans_landed=rec["replans_landed"],
+          structure_updates=rec["structure_updates"],
+          resident_bytes_max=rec["resident_bytes_max"],
+          budget_bytes=rec["memory_budget_bytes"],
+          retry_after_positive=rec["retry_after_positive"],
+          launches=json.dumps(rec["launches"]))
+    return rec
+
+
+def dispatch_stretch(svc, key: str) -> None:
+    """One profiled stretch of dispatches: 64 requests on one resident
+    key of the serve-sim service, under torch.profiler (device busy
+    share)."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    xs = [rng.standard_normal(svc.operator(key).shape[1])
+          for _ in range(64)]
+
+    def stretch():
+        futs = [svc.submit(key, x) for x in xs]
+        for f in futs:
+            f.result(timeout=600)
+
+    profile_call(f"serve dispatches {key} x{len(xs)}", stretch)
+
+
+def serve_traffic(dev) -> dict:
+    """7s.3 on TRAFFIC_MATRIX: the ramp (RAMP_*) finds the sustained rate,
+    the highest step whose run is sustained (sustained_at) below one that
+    is not; the runs at 0.5x and 2x it are the steps two below and two
+    above, run if the ramp did not reach them. The 2x run must reject with
+    a positive retry_after. The memory budget holds TRAFFIC_BUDGET_OPS
+    operators, read from one built operator. Returns the launches of the
+    0.5x and 2x runs and the 0.5x rate."""
+    from repro_torch.core.spmv.opcache import operator_nbytes
+    from repro_torch.core.spmv.plan import SpmvProblem, plan
+
+    mat = traffic_matrix()
+    t0 = time.perf_counter()
+    op = plan(SpmvProblem(mat, k=TRAFFIC["max_batch"]),
+              reorder=TRAFFIC["reorder"], engine=TRAFFIC["engine"],
+              device=dev).build(device=dev)
+    nbytes = operator_nbytes(op)
+    del op
+    budget_mb = TRAFFIC_BUDGET_OPS * nbytes / (1 << 20)
+    phase("traffic matrix", t0, matrix=TRAFFIC_MATRIX,
+          shape=f"{mat.m}x{mat.n}", nnz=mat.nnz, operator_bytes=nbytes,
+          budget_mb=f"{budget_mb:.3f}")
+    runs = {}
+
+    def held(step: int, label: str = "") -> bool:
+        if step not in runs:
+            rate = ramp_rate(step)
+            runs[step] = traffic_run(dev, TRAFFIC_MATRIX, rate, budget_mb,
+                                     label or f"ramp {rate:.4g} rps")
+        return sustained_at(runs[step])
+
+    step = RAMP_START
+    up = held(step)
+    while True:
+        nxt = step + (1 if up else -1)
+        if nxt not in RAMP_STEPS:
+            raise AssertionError(f"traffic: the ramp left its steps at "
+                                 f"{ramp_rate(step):.4g} rps")
+        if held(nxt) != up:
+            sustained = step if up else nxt
+            break
+        step = nxt
+    launches = {}
+    for mult, k in ((0.5, sustained - 2), (2.0, sustained + 2)):
+        held(k, f"{mult:g}x sustained")
+        for name, n in runs[k]["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    over, half = runs[sustained + 2], runs[sustained - 2]
+    if not (over["rejected"] and over["retry_after_positive"]):
+        raise AssertionError(f"traffic 2x sustained "
+                             f"({ramp_rate(sustained + 2):.4g} rps): "
+                             f"rejected={over['rejected']} "
+                             f"retry_after_positive="
+                             f"{over['retry_after_positive']}")
+    print(f"[result] traffic on {TRAFFIC_MATRIX}: sustained "
+          f"{ramp_rate(sustained):.4g} rps; 0.5x "
+          f"({ramp_rate(sustained - 2):.4g} rps) p50/p99 "
+          f"{half['p50_ms']:.1f}/{half['p99_ms']:.1f} ms; 2x "
+          f"({ramp_rate(sustained + 2):.4g} rps) rejected "
+          f"{over['rejected']} of {over['ok_count'] + over['rejected']}, "
+          f"p50/p99 "
+          f"{over['p50_ms']:.1f}/{over['p99_ms']:.1f} ms", flush=True)
+    return {"launches": launches, "rate": ramp_rate(sustained - 2)}
+
+
+def serve_cell(dev, name: str, mat, rate: float, op_bytes: int) -> None:
+    """7s.4: one serve cell on the Fig. 1 matrix at its full size (sell,
+    k = 8, K = 4 keys, SERVE_CELL's arrivals at the traffic's 0.5x rate, a
+    budget of TRAFFIC_BUDGET_OPS of its operators) through the Runner on a
+    fresh result store, under torch.profiler (the device's idle share
+    under the value-update mix), then resumed from the store."""
+    from repro_torch.experiments import (ExperimentSpec, MeasurePolicy,
+                                         ResultStore, Runner)
+    from repro_torch.experiments.cells import serve_variant
+
+    t0 = time.perf_counter()
+    budget_mb = TRAFFIC_BUDGET_OPS * op_bytes / (1 << 20)
+    spec = ExperimentSpec(
+        name="serve", kind="serve", matrices=(name,),
+        schemes=(TRAFFIC["reorder"],), engines=(TRAFFIC["engine"],),
+        ks=(TRAFFIC["max_batch"],),
+        variants=(serve_variant(rate_rps=rate, n_keys=TRAFFIC["n_keys"],
+                                budget_mb=budget_mb,
+                                max_queue=TRAFFIC["max_queue"],
+                                **SERVE_CELL),),
+        policy=MeasurePolicy(iters=1, warmup=0, with_yax=False,
+                             with_parallel=False, with_metrics=False))
+    store = ResultStore(os.path.join(
+        os.environ["REPRO_TORCH_RESULT_STORE"], "serve"))
+    get = {name: mat}.__getitem__
+    out = {}
+    profile_call(f"serve cell {name}", lambda: out.update(
+        rep=Runner(spec, store, get_matrix=get, device=dev).run()))
+    (rec,) = out["rep"].records
+    check_cell_launches(dict(rec, engine=rec["engine_request"]))
+    if not (rec["budget_ok"] and rec["counters_balanced"]
+            and rec["unresolved"] == 0 and rec["errors"] == 0
+            and rec["update_errors"] == 0):
+        raise AssertionError(f"serve cell: {rec}")
+    again = Runner(spec, store, get_matrix=get, device=dev).run()
+    if again.measured != 0 or again.reused != 1:
+        raise AssertionError(f"serve cell resume: measured "
+                             f"{again.measured}, reused {again.reused}")
+    phase("serve cell", t0, variant=spec.variants[0], ok=rec["ok"],
+          rejected=rec["rejected"], updates=rec["updates"],
+          p50_ms=rec["p50_ms"], p95_ms=rec["p95_ms"], p99_ms=rec["p99_ms"],
+          offered_rps=(rec["submitted"] + rec["rejected"]) / rec["submit_s"],
+          achieved_rps=rec["ok"] / rec["drain_s"],
+          submit_s=rec["submit_s"], drain_s=rec["drain_s"],
+          coalesce=f"{rec['coalesce_ratio']:.3f}",
+          reloads=rec["op_reloads"], builds=rec["op_builds"],
+          evictions=rec["evictions"], swaps=rec["value_swaps"],
+          resident_bytes_max=rec["resident_bytes_max"],
+          budget_bytes=rec["memory_budget_bytes"],
+          resumed=f"{again.reused}/1", launches=json.dumps(rec["launches"]))
+
+
+def dispatch_breakdown(dev, svc, key: str) -> None:
+    """Where one dispatch of a batch of max_batch float64 requests goes at
+    the Fig. 1 size, step by step as the service runs it (host clock
+    around each step with the card synchronized, median of 10): host
+    stack, host-to-device copy and cast, the perm gather, the kernel
+    (inner.matmul), the iperm gather, device-to-host copy."""
+    import numpy as np
+    import torch
+
+    op = svc.operator(key)
+    n = op.shape[1]
+    rng = np.random.default_rng(4)
+    xs = [rng.standard_normal(n) for _ in range(SERVE_KW["max_batch"])]
+    steps = {k: [] for k in ("stack", "h2d_cast", "perm_gather", "kernel",
+                             "iperm_gather", "d2h", "whole")}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        xb = timed("stack", lambda: np.stack(xs, axis=1))
+        xd = timed("h2d_cast", lambda: torch.as_tensor(
+            xb, dtype=torch.float32, device=dev))
+        xp = timed("perm_gather", lambda: xd.index_select(0, op._perm))
+        yp = timed("kernel", lambda: op.inner.matmul(xp))
+        yd = timed("iperm_gather", lambda: yp.index_select(0, op._iperm))
+        timed("d2h", lambda: yd.cpu().numpy())
+        steps["whole"].append((time.perf_counter() - t) * 1e3)
+    med = {k: float(np.median(v[2:])) for k, v in steps.items()}
+    print(f"[serve] dispatch breakdown {key} batch="
+          f"{SERVE_KW['max_batch']} float64 ms: {json.dumps(med)}",
+          flush=True)
+
+
+def serve_phase(dev, mats: dict) -> dict:
+    """Phase 7s; returns the launches of its service paths by kernel."""
+    from repro_torch import kernels
+    from repro_torch.core.spmv.opcache import operator_nbytes
+
+    paths = {}
+    shuffled = next(iter(mats))
+    reqs, want = serve_requests(dev, mats)
+    for engine in ("sell", "bcsr"):
+        out = serve_sim(dev, mats, engine, reqs, want)
+        paths[f"serve-sim/{engine}"] = out["launches"]
+        svc = out["service"]
+        if engine == "sell":
+            op_bytes = operator_nbytes(svc.operator(shuffled))
+            dispatch_breakdown(dev, svc, shuffled)
+            dispatch_stretch(svc, shuffled)
+            serve_dynamic(dev, svc, mats[shuffled], shuffled)
+        svc.close()
+    del svc, out
+    traffic = serve_traffic(dev)
+    paths["serve-traffic"] = traffic["launches"]
+    kernels.reset_launches()
+    serve_cell(dev, shuffled, mats[shuffled], traffic["rate"], op_bytes)
+    paths["serve-cell"] = dict(kernels.LAUNCHES)
+    return paths
+
+
+# -- phase 7w: the workload streams ----------------------------------------
+WORKLOAD_CELLS = (
+    # name, engine, use_deltas, the kernel its products run
+    ("workload://moe-e128-k8-t4096-d2048-n4", "sell", False, "sell_spmm"),
+    ("workload://gnn-m1048576-deg16-f64-n4-rw0.01", "sell", True,
+     "sell_spmm"),
+    ("workload://attn-s8192-b64-w2-g1-d128-n4", "bcsr", False, "bcsr_spmv"),
+)
+
+
+def workload_phase(dev) -> dict:
+    """Phase 7w: each cell's drift stream through run_stream(verify=True);
+    returns the launches of each cell's stream."""
+    from repro_torch import kernels
+    from repro_torch.workloads import (DynamicSparseProblem, WorkloadSession,
+                                       run_stream)
+
+    paths = {}
+    for name, engine, deltas, kernel in WORKLOAD_CELLS:
+        t0 = time.perf_counter()
+        problem = DynamicSparseProblem(name, scenario="drift", seed=0)
+        session = WorkloadSession(problem, engine=engine, use_deltas=deltas,
+                                  device=dev)
+        kernels.reset_launches()
+        rec = run_stream(problem, session, iters=3, verify=True)
+        launches = dict(kernels.LAUNCHES)
+        paths[f"workload/{problem.wdef.kind}"] = launches
+        fails = []
+        if not rec["verify_ok"]:
+            fails.append(f"max_rel_err {rec['max_rel_err']:.3e}")
+        if problem.wdef.kind == "moe" and not rec["dispatch_bitwise_equal"]:
+            fails.append("dispatch buffer differs from the one-hot one")
+        if deltas and not (rec["replans"] == 0
+                           and rec["deltas"] == rec["steps"] - 1):
+            fails.append(f"replans {rec['replans']}, deltas "
+                         f"{rec['deltas']} of {rec['steps']} steps")
+        if launches[kernel] == 0:
+            fails.append(f"{kernel} never launched: {launches}")
+        if fails:
+            raise AssertionError(f"{name}: " + "; ".join(fails))
+        phase(f"workload {name}", t0, engine=engine,
+              steps=rec["steps"], m=rec["m"], n=rec["n"], nnz=rec["nnz"],
+              plans=rec["plans"], replans=rec["replans"],
+              reuses=rec["reuses"], rebuilds=rec["rebuilds"],
+              deltas=rec["deltas"], reuse_rate=rec["reuse_rate"],
+              plan_cost_share=rec["plan_cost_share"],
+              plan_ms_total=rec["plan_ms_total"],
+              sparse_ms=rec["sparse_ms"], ref_ms=rec["ref_ms"],
+              max_rel_err=f"{rec['max_rel_err']:.2e}",
+              dispatch_bitwise_equal=rec.get("dispatch_bitwise_equal"),
+              launches=json.dumps(launches))
+        del session
+    return paths
+
+
+def add_path_launches(rows: list, paths: dict) -> None:
+    """Fold the launches of the service and workload paths into the
+    kernels line: each row's `launches` becomes the sum over its forced
+    path and these, `launches_paths` lists each."""
+    for row in rows:
+        name = row["name"]
+        if name not in FEEDS:           # the f32 rows of K1-K4
+            continue
+        by = {row["launches_path"]: row["launches"]}
+        by.update({p: n[name] for p, n in paths.items() if n.get(name)})
+        row["launches_paths"] = by
+        row["launches"] = sum(by.values())
 
 
 # -- K5 ssd_chunk: small shapes, the Zamba2 path, times, control -----------
@@ -1948,7 +2552,6 @@ def run(args, torch) -> int:
     campaign(dev, mats, args.iters)
     t0 = time.perf_counter()
     rmat = rcm_order(dev, mats[args.shuffled])
-    del mats
     phase("rcm order from the plan store", t0)
     schedule_campaign(dev)
     scheme_campaign(dev, args.iters)
@@ -1972,6 +2575,17 @@ def run(args, torch) -> int:
     t0 = time.perf_counter()
     planted_faults((forced, forced16), rmat, vmat, dev)
     phase("controls", t0)
+
+    t0 = time.perf_counter()
+    paths = serve_phase(dev, mats)
+    del mats
+    phase("serve", t0)
+    t0 = time.perf_counter()
+    paths.update(workload_phase(dev))
+    phase("workloads", t0)
+    add_path_launches(rows, paths)
+    print(f"[launches] service and workload paths: {json.dumps(paths)}",
+          flush=True)
 
     t0 = time.perf_counter()
     del forced, forced16, rmat, vmat

@@ -5,9 +5,15 @@ and is the plan-time representation every other component consumes:
 reorderers permute it, partitioners split it, and the device formats
 (Block-ELL / BCSR, see bell.py / bcsr.py) are built from it.
 
-All arrays are numpy (host). Device/JAX formats are separate classes so that
-nothing here ever touches jax device state (important: the dry-run must be
-able to set XLA_FLAGS before any jax import).
+All arrays are numpy (host). Device formats are separate classes.
+
+The arrays are the JAX package's, bit for bit; the sorts are not its
+calls. numpy 2.3 takes `np.unique` without an inverse through a hash
+table, and `np.lexsort` of two keys costs ~20 s on the 32.5 M entries of
+a Fig. 1 matrix against ~1 s for one stable argsort of the combined key
+row * n + col, which orders entries of valid coordinates the same way.
+`from_coo` raises ValueError for coordinates outside the shape, where the
+JAX package builds a corrupt matrix or raises IndexError.
 """
 from __future__ import annotations
 
@@ -39,17 +45,25 @@ class CSRMatrix:
         cols = np.asarray(cols, dtype=np.int64)
         vals = np.asarray(vals)
         m, n = shape
-        order = np.lexsort((cols, rows))
+        if rows.size and (rows.min() < 0 or rows.max() >= m
+                          or cols.min() < 0 or cols.max() >= n):
+            raise ValueError(f"COO coordinates out of range for shape "
+                             f"{(m, n)}")
+        order = _row_major_order(rows, cols, n)
         rows, cols, vals = rows[order], cols[order], vals[order]
-        # deduplicate (sum duplicates, scipy semantics)
+        # deduplicate (sum duplicates, scipy semantics); the key is sorted,
+        # so a new entry starts where it changes
         if rows.size:
             key = rows * n + cols
-            uniq, inv = np.unique(key, return_inverse=True)
-            if uniq.size != rows.size:
-                summed = np.zeros(uniq.size, dtype=vals.dtype)
-                np.add.at(summed, inv, vals)
-                rows = (uniq // n).astype(np.int64)
-                cols = (uniq % n).astype(np.int64)
+            new = np.empty(key.size, dtype=bool)
+            new[0] = True
+            np.not_equal(key[1:], key[:-1], out=new[1:])
+            if not new.all():
+                summed = np.zeros(int(new.sum()), dtype=vals.dtype)
+                np.add.at(summed, np.cumsum(new) - 1, vals)
+                uniq = key[new]
+                rows = uniq // n
+                cols = uniq % n
                 vals = summed
         rowptr = np.zeros(m + 1, dtype=np.int64)
         np.add.at(rowptr, rows + 1, 1)
@@ -120,7 +134,7 @@ class CSRMatrix:
         new_rows = np.repeat(np.arange(m, dtype=np.int64), counts)
         new_cols = inv_col[self.cols[src]].astype(np.int32)
         new_vals = self.vals[src]
-        order = np.lexsort((new_cols, new_rows))
+        order = _row_major_order(new_rows, new_cols, n)
         new_cols = new_cols[order]
         new_vals = new_vals[order]
         return CSRMatrix(
@@ -141,3 +155,9 @@ class CSRMatrix:
 
     def astype(self, dtype) -> "CSRMatrix":
         return dataclasses.replace(self, vals=self.vals.astype(dtype))
+
+
+def _row_major_order(rows: np.ndarray, cols: np.ndarray, n: int) -> np.ndarray:
+    """np.lexsort((cols, rows)) for rows >= 0 and 0 <= cols < n: a stable
+    argsort of row * n + col (the same permutation, ties in input order)."""
+    return np.argsort(rows.astype(np.int64) * n + cols, kind="stable")

@@ -30,7 +30,9 @@ vectors in the ORIGINAL index space and return results in the original
 index space. `permuted=True` (or `op.unwrap()`) runs in the reordered
 space — what the measurement harness times.
 
-Not ported yet: `Plan.apply_delta` and topology-aware (sharded) plans.
+`Plan.apply_delta` edits a plan's matrix by a StructureDelta under the
+frozen decision (core/spmv/delta.py). Not ported yet: topology-aware
+(sharded) plans.
 """
 from __future__ import annotations
 
@@ -457,6 +459,30 @@ class Plan:
                     "load_ms": 0.0, "engine": self.tune.engine,
                     "plan": self.tune.to_json(), "value_swap": True}
         return Operator(inner, self.perm, self, dev, build_info=info)
+
+    def apply_delta(self, delta, *, max_churn: Optional[float] = None,
+                    max_bw_growth: Optional[float] = None) -> "Plan":
+        """A NEW Plan for this plan's matrix edited by a StructureDelta
+        (core/spmv/delta.py), reusing the frozen tuning decision and
+        permutation — the amortization tier between `rebuild` (values
+        only) and a full replan (new search).
+
+        An empty delta returns this plan unchanged (no counters move).
+        A small delta (nnz churn <= max_churn AND bandwidth growth <=
+        max_bw_growth, defaults delta.MAX_CHURN / delta.MAX_BW_GROWTH)
+        returns the edited plan under a `plan.delta` span, counting
+        `delta.applies`; appended rows extend the permutation with
+        identity tail positions. Past either threshold the frozen
+        decision is stale: DeltaTooLarge is raised (counting
+        `delta.fallbacks`) and the caller replans."""
+        from . import delta as delta_mod
+
+        kw = {}
+        if max_churn is not None:
+            kw["max_churn"] = max_churn
+        if max_bw_growth is not None:
+            kw["max_bw_growth"] = max_bw_growth
+        return delta_mod.apply_delta(self, delta, **kw)
 
 
 def _auto_schemes(hints: dict) -> list:

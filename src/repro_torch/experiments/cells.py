@@ -21,10 +21,18 @@ CELL_KINDS. Built-ins, as in the JAX package:
                  variant names pick the policy — "static_default",
                  "static_c<chunk>" (strided chunked-cyclic panels, each
                  timed on its own gathered submatrix), "nnz_balanced".
+  * "workload" — one workload:// stream (the variant is the scenario)
+                 through a WorkloadSession: plan/reuse/rebuild counts,
+                 plan cost share, sparse vs reference time.
+  * "serve"    — one open-loop traffic run (serve_variant encodes it)
+                 against an SpmvService: SLO percentiles, outcome counts
+                 and the hardening invariants.
+The workload and serve records carry `launches`, the kernel launches of
+their own run.
 
-The JAX package's "parallel", "workload", "serve" and "route" kinds are
-not ported yet; asking for one raises NotImplementedError naming what it
-waits for. Third-party kinds register with @register_cell_kind.
+The JAX package's "parallel" and "route" kinds are not ported yet;
+asking for one raises NotImplementedError naming what it waits for.
+Third-party kinds register with @register_cell_kind.
 """
 from __future__ import annotations
 
@@ -40,10 +48,8 @@ CELL_KINDS: Dict[str, Callable] = {}
 # the JAX package's other kinds, and what each waits for (ROADMAP queue A)
 NOT_PORTED = {
     "parallel": "sharded plans (core/spmv/topology.py, distributed.py; "
-                "queue A item 7)",
-    "workload": "the workloads package (queue A item 6)",
-    "serve": "the serving layer (queue A item 5)",
-    "route": "the router (queue A item 5)",
+                "queue A item 5)",
+    "route": "the router, which runs on sharded plans (queue A item 5)",
 }
 
 
@@ -188,8 +194,7 @@ def measure_spmv_cell(cell, mat, device) -> dict:
             rec["cg_ms"] = cg_ms
             rec["cg_gflops"] = float(
                 ios.gflops(rmat.nnz, np.array([cg_ms]))[0])
-        rec["launches"] = {name: n - before[name]
-                           for name, n in kernels.LAUNCHES.items()}
+        rec["launches"] = kernels.launches_since(before)
         del op, op_full
 
     if pol["with_parallel"]:
@@ -304,4 +309,185 @@ def measure_schedule_cell(cell, mat, device) -> dict:
         "m": int(mat.m), "n": int(mat.n), "nnz": int(mat.nnz),
         "modelled_par_ms": ms,
         "gflops": float(ios.gflops(mat.nnz, np.array([ms]))[0]),
+    }
+
+
+# --------------------------------------------------------------------------
+# workload cells (dynamic sparsity streams)
+# --------------------------------------------------------------------------
+@register_cell_kind("workload")
+def measure_workload_cell(cell, mat, device) -> dict:
+    """One workload stream: cell.matrix is a `workload://` name, the
+    variant is the scenario. The resolved suite matrix (step-0
+    representative) is ignored — the stream regenerates every step from
+    the cell's seed, so the cell stays content-addressed on
+    (name, scenario, scheme, engine, policy)."""
+    from .. import kernels
+    from ..workloads import DynamicSparseProblem, WorkloadSession, run_stream
+
+    pol = cell.policy_dict()
+    scenario = cell.variant or "drift"
+    problem = DynamicSparseProblem(cell.matrix, scenario=scenario,
+                                   seed=pol["seed"], dtype=cell.dtype)
+    if problem.wdef.kind == "moe" and cell.scheme != "baseline":
+        raise ValueError(
+            f"moe workloads have rectangular dispatch/combine matrices; "
+            f"symmetric reordering scheme {cell.scheme!r} does not apply "
+            f"(the dispatch IS the reordering) — use scheme='baseline'")
+    session = WorkloadSession(problem, reorder=cell.scheme,
+                              engine=cell.engine, probe=pol["probe"],
+                              device=device)
+    before = dict(kernels.LAUNCHES)
+    rec = run_stream(problem, session, iters=max(int(pol["iters"]), 2),
+                     compare_dense=pol["time_spmv"], verify=pol["verify"])
+    rec["launches"] = kernels.launches_since(before)
+    if problem.wdef.kind == "moe":
+        # the seed benchmark's vocabulary: sparse chain == sorted
+        # dispatch, reference == onehot baseline
+        rec["sorted_ms"] = rec["sparse_ms"]
+        if "ref_ms" in rec:
+            rec["onehot_ms"] = rec["ref_ms"]
+            rec["sorted_vs_onehot_speedup"] = rec["speedup_vs_ref"]
+        if "verify_ok" in rec:
+            rec["dispatch_agree"] = rec["verify_ok"]
+    return rec
+
+
+# --------------------------------------------------------------------------
+# serving cells (open-loop traffic sim -> SLO summary)
+# --------------------------------------------------------------------------
+_SERVE_DEFAULTS = {
+    "arrival": "poisson", "rate_rps": 300.0, "requests": 200,
+    "n_keys": 1, "zipf_s": 1.1, "update_frac": 0.0,
+    "budget_mb": 0.0,            # 0 = unbudgeted
+    "max_queue": 64, "window_ms": 2.0, "overload": "reject",
+}
+
+
+def serve_variant(arrival: str = "poisson", rate_rps: float = 300.0,
+                  requests: int = 200, n_keys: int = 1,
+                  zipf_s: float = 1.1, update_frac: float = 0.0,
+                  budget_mb: float = 0.0, max_queue: int = 64,
+                  window_ms: float = 2.0,
+                  overload: str = "reject") -> str:
+    """The variants-axis encoding of one traffic scenario: the arrival
+    kind followed by single-letter-prefixed tokens (r=rate_rps,
+    n=requests, K=n_keys, z=zipf_s, u=update_frac, m=budget_mb [0=none],
+    q=max_queue, w=window_ms, o=overload policy). Defaults are elided so
+    equal scenarios always encode to the SAME string (cell identity)."""
+    toks = [arrival]
+    for tag, name, val in (("r", "rate_rps", rate_rps),
+                           ("n", "requests", requests),
+                           ("K", "n_keys", n_keys),
+                           ("z", "zipf_s", zipf_s),
+                           ("u", "update_frac", update_frac),
+                           ("m", "budget_mb", budget_mb),
+                           ("q", "max_queue", max_queue),
+                           ("w", "window_ms", window_ms),
+                           ("o", "overload", overload)):
+        if val != _SERVE_DEFAULTS[name]:
+            toks.append(f"{tag}{val:g}" if isinstance(val, float)
+                        else f"{tag}{val}")
+    return ",".join(toks)
+
+
+def _parse_serve_variant(variant: str) -> dict:
+    from ..serving.traffic import ARRIVALS
+
+    cfg = dict(_SERVE_DEFAULTS)
+    toks = [t for t in (variant or "").split(",") if t]
+    if toks and toks[0] in ARRIVALS:
+        cfg["arrival"] = toks.pop(0)
+    casts = {"r": ("rate_rps", float), "n": ("requests", int),
+             "K": ("n_keys", int), "z": ("zipf_s", float),
+             "u": ("update_frac", float), "m": ("budget_mb", float),
+             "q": ("max_queue", int), "w": ("window_ms", float),
+             "o": ("overload", str)}
+    for t in toks:
+        if t[0] not in casts:
+            raise ValueError(f"unknown serve-variant token {t!r} in "
+                             f"{variant!r} (known: {sorted(casts)})")
+        name, cast = casts[t[0]]
+        cfg[name] = cast(t[1:])
+    return cfg
+
+
+@register_cell_kind("serve")
+def measure_serve_cell(cell, mat, device) -> dict:
+    """One open-loop traffic run: cell.k is the service's max_batch, the
+    variant the scenario. The matrix is registered under n_keys distinct
+    service keys (Zipf-skewed traffic over them), so the memory budget
+    sees n_keys resident operators while the content-addressed plan
+    store holds ONE entry — evictions reload zero-re-tune, which is the
+    LRU pillar this cell measures."""
+    from .. import kernels
+    from ..serving import traffic
+    from ..serving.spmv_service import SpmvService
+
+    pol = cell.policy_dict()
+    cfg = _parse_serve_variant(cell.variant)
+    pattern = traffic.TrafficPattern(
+        arrival=cfg["arrival"], rate_rps=cfg["rate_rps"],
+        requests=cfg["requests"], n_keys=cfg["n_keys"],
+        zipf_s=cfg["zipf_s"], update_frac=cfg["update_frac"],
+        seed=pol["seed"])
+    budget = (None if cfg["budget_mb"] <= 0
+              else int(cfg["budget_mb"] * (1 << 20)))
+    svc = SpmvService(
+        engine=cell.engine, max_batch=max(int(cell.k), 1),
+        window_ms=cfg["window_ms"], use_kernel=pol["use_kernel"],
+        dtype=torch_dtype(cell.dtype), max_queue=cfg["max_queue"],
+        reorder=cell.scheme, memory_budget_bytes=budget,
+        overload=cfg["overload"], device=device)
+    before = dict(kernels.LAUNCHES)
+    try:
+        for i in range(cfg["n_keys"]):
+            svc.register(f"{cell.matrix}#{i}", mat)
+        summary = traffic.run_open_loop(
+            svc, {f"{cell.matrix}#{i}": mat for i in range(cfg["n_keys"])},
+            pattern)
+        svc.flush()
+        stats = svc.stats()       # quiescent: counters fully balanced
+    finally:
+        svc.close()
+    slo = stats["slo"]
+    return {
+        "m": int(mat.m), "n": int(mat.n), "nnz": int(mat.nnz),
+        "offered": summary["offered"], "submitted": summary["submitted"],
+        "ok": summary["ok"], "shed": summary["shed"],
+        "rejected": summary["rejected"], "errors": summary["errors"],
+        "unresolved": summary["unresolved"],
+        "updates": summary["updates"],
+        "update_conflicts": summary["update_conflicts"],
+        "update_errors": summary["update_errors"],
+        "retry_after_positive": bool(summary["retry_after_positive"]),
+        "offered_rps": float(summary["offered_rps"]),
+        "achieved_rps": float(summary["achieved_rps"]),
+        "wall_s": float(summary["wall_s"]),
+        "submit_s": float(summary["submit_s"]),
+        "drain_s": float(summary["drain_s"]),
+        "p50_ms": float(slo["p50_ms"]), "p95_ms": float(slo["p95_ms"]),
+        "p99_ms": float(slo["p99_ms"]),
+        "throughput_rps": float(slo["throughput_rps"]),
+        "shed_rate": float(slo["shed_rate"]),
+        "reject_rate": float(slo["reject_rate"]),
+        "eviction_rate": float(slo["eviction_rate"]),
+        "coalesce_ratio": float(stats["coalesce_ratio"]),
+        "avg_batch": float(stats["avg_batch"]),
+        "batch_size_max": int(stats["batch_size_max"]),
+        "op_builds": int(stats["op_builds"]),
+        "op_reloads": int(stats["op_reloads"]),
+        "evictions": int(stats["evictions"]),
+        "value_swaps": int(stats["value_swaps"]),
+        "replans": int(stats["replans"]),
+        "wakeups": int(stats["wakeups"]),
+        "resident_bytes_max": int(stats["resident_bytes_max"]),
+        "memory_budget_bytes": int(budget or 0),
+        "budget_ok": bool(summary["budget_ok"]),
+        # the no-silent-drops invariant, checked at quiescence: every
+        # admitted request is accounted a result, a shed, or an error
+        "counters_balanced": bool(
+            stats["requests"] == stats["results"] + stats["sheds"]
+            + stats["errors"] and stats["pending"] == 0),
+        "launches": kernels.launches_since(before),
     }

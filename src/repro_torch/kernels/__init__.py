@@ -14,7 +14,8 @@ tensors and that the tests and chip_smoke.py hold the kernel against.
 
 LAUNCHES counts, per kernel, the launches its wrapper made: a plain
 integer, bumped only where the kernel is launched, so a run can show which
-kernels it went through. `reset_launches()` sets every count to 0.
+kernels it went through. `reset_launches()` sets every count to 0;
+`launches_since(before)` gives the launches since a copy of LAUNCHES.
 """
 from __future__ import annotations
 
@@ -25,3 +26,8 @@ LAUNCHES = {"sell_spmv": 0, "sell_spmm": 0, "bcsr_spmv": 0, "bell_spmv": 0,
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def launches_since(before: dict) -> dict:
+    """Launches per kernel since `before`, a copy of LAUNCHES."""
+    return {name: n - before[name] for name, n in LAUNCHES.items()}

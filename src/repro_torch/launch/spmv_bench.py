@@ -3,6 +3,10 @@
     python -m repro_torch.launch.spmv_bench --matrix fig1_shuffled \\
         --scheme rcm --engine auto [--spmm K] [--iters N] [--device cuda]
     python -m repro_torch.launch.spmv_bench --campaign smoke [--device cpu]
+    python -m repro_torch.launch.spmv_bench --serve-sim \
+        --serve-reorder rcm [--device cpu]
+    python -m repro_torch.launch.spmv_bench --serve-traffic \
+        --matrix smoke_powerlaw --rate 500 --keys 4 [--budget-mb M]
 
 The port's counterpart of the JAX package's `run_single`: one matrix, one
 reordering scheme ("auto" searches), one engine ("auto" tunes). It prints
@@ -21,6 +25,13 @@ auto engine through the experiments Runner (verify on, probe on), then the
 same campaign again, which must be served entirely from the result store;
 it writes the port's bench summary (experiments/report.py SUMMARY_PATH)
 and exits nonzero on any failure.
+
+`--serve-sim` sends a burst of requests over the smoke matrices through
+the micro-batching SpmvService (serving/spmv_service.py) and checks every
+response against the numpy oracle; `--serve-traffic` drives one open-loop
+traffic scenario (serving/traffic.py) against it and checks the service's
+invariants. Both print one line and one JSON record, as a single cell
+does; `--devices > 1` (the router over sharded plans) is not ported.
 """
 from __future__ import annotations
 
@@ -36,7 +47,7 @@ from ..core.measure import cg, ios
 from ..core.sparse.csr import CSRMatrix
 from ..core.spmv.plan import SpmvProblem, plan
 from ..device import device_kind, resolve_device, torch_dtype
-from ..kernels import LAUNCHES
+from ..kernels import LAUNCHES, launches_since
 
 
 def structure_twin(mat: CSRMatrix, seed: int = 0) -> CSRMatrix:
@@ -132,8 +143,7 @@ def run_cell(mat: CSRMatrix, scheme: str = "baseline", engine: str = "auto",
     del twin_op
     rec.update(measure(op.unwrap(), rmat.nnz, rmat.n, k, dtype, dev,
                        iters=iters, cg_iters=cg_iters, seed=seed))
-    rec["launches"] = {name: LAUNCHES[name] - before[name]
-                       for name in LAUNCHES}
+    rec["launches"] = launches_since(before)
     return rec, op, rmat
 
 
@@ -157,6 +167,175 @@ def run_single(matrix: str, scheme: str = "baseline", engine: str = "auto",
           f"verify_twin={rec['verify_twin_rel_err']:.2e} "
           f"ios_ms={rec['ios_ms']:.4f} gflops={rec['ios_gflops']:.2f} "
           f"launches={rec['launches']} device={rec['device']}", flush=True)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def run_serve_sim(matrices=("smoke_banded", "smoke_powerlaw", "smoke_rmat"),
+                  requests: int = 48, max_batch: int = 8,
+                  window_ms: float = 20.0, engine: str = "auto",
+                  reorder: str = "baseline", seed: int = 0,
+                  device=None) -> dict:
+    """Serving simulation: a burst of mixed (matrix, x) requests through the
+    micro-batching SpmvService. Verifies every response against the numpy
+    oracle and reports coalescing stats and the kernel launches.
+
+    reorder != "baseline" exercises the permutation-carrying operators:
+    the service reorders internally for locality while requests and
+    responses stay in the ORIGINAL index space (the oracle check still
+    compares against the unreordered matrix)."""
+    from ..matrices import suite
+    from ..serving.spmv_service import SpmvService
+
+    mats = {name: suite.get(name) for name in matrices}
+    rng = np.random.default_rng(seed)
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    with SpmvService(engine=engine, reorder=reorder, max_batch=max_batch,
+                     window_ms=window_ms, device=device) as svc:
+        for name, mat in mats.items():
+            svc.register(name, mat)
+        pending = []
+        for _ in range(requests):
+            name = list(matrices)[rng.integers(len(matrices))]
+            x = rng.standard_normal(mats[name].n)
+            pending.append((name, x, svc.submit(name, x)))
+        svc.flush()
+        stats = svc.stats()
+        max_rel_err = 0.0
+        for name, x, fut in pending:
+            want = mats[name].spmv(x)
+            got = np.asarray(fut.result(timeout=10))
+            scale = float(np.abs(want).max()) + 1e-9
+            max_rel_err = max(max_rel_err,
+                              float(np.abs(got - want).max()) / scale)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rec = {
+        "device": device_kind(svc.device),
+        "matrices": list(matrices),
+        "reorder": reorder,
+        "requests": requests,
+        "max_batch": max_batch,
+        "window_ms": window_ms,
+        "wall_ms": wall_ms,
+        "batches": stats["batches"],
+        "avg_batch": stats["avg_batch"],
+        "batch_size_max": stats["batch_size_max"],
+        "coalesce_ratio": stats["coalesce_ratio"],
+        "avg_wait_ms": stats["avg_wait_ms"],
+        "p50_ms": stats["slo"]["p50_ms"],
+        "p95_ms": stats["slo"]["p95_ms"],
+        "p99_ms": stats["slo"]["p99_ms"],
+        "throughput_rps": stats["slo"]["throughput_rps"],
+        "wakeups": stats["wakeups"],
+        "max_rel_err": max_rel_err,
+        "launches": launches_since(before),
+        "ok": max_rel_err < 1e-4,
+    }
+    print(f"[serve-sim] {requests} requests over {len(matrices)} matrices -> "
+          f"{rec['batches']} SpMM dispatches (avg batch "
+          f"{rec['avg_batch']:.1f}, max {rec['batch_size_max']}), "
+          f"max_rel_err={max_rel_err:.2e} launches={rec['launches']}",
+          flush=True)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def run_serve_traffic(matrix: str = "smoke_powerlaw",
+                      arrival: str = "poisson", rate_rps: float = 500.0,
+                      requests: int = 200, n_keys: int = 4,
+                      zipf_s: float = 1.1, update_frac: float = 0.1,
+                      structure_frac: float = 0.0,
+                      budget_mb: float = 0.0, max_batch: int = 8,
+                      window_ms: float = 2.0, max_queue: int = 32,
+                      overload: str = "reject", engine: str = "auto",
+                      reorder: str = "baseline", seed: int = 0,
+                      device=None) -> dict:
+    """Open-loop traffic run against the hardened service (one scenario).
+    The matrix is registered under n_keys service keys with Zipf-skewed
+    traffic; a budget_mb > 0 memory budget makes the operator LRU
+    (eviction + zero-re-tune plan-store reload) part of the scenario,
+    update_frac > 0 mixes in no-replan value swaps, structure_frac > 0
+    mixes in StructureDelta background replans. Reports outcome counts,
+    SLO percentiles, the kernel launches and the hardening invariants
+    (`ok` = every future — requests and replans — resolved, none failed,
+    no update raised, budget respected, counters balance)."""
+    from ..matrices import suite
+    from ..serving import traffic
+    from ..serving.spmv_service import SpmvService
+
+    mat = suite.get(matrix)
+    pattern = traffic.TrafficPattern(
+        arrival=arrival, rate_rps=rate_rps, requests=requests,
+        n_keys=n_keys, zipf_s=zipf_s, update_frac=update_frac,
+        structure_frac=structure_frac, seed=seed)
+    budget = None if budget_mb <= 0 else int(budget_mb * (1 << 20))
+    keys = [f"{matrix}#{i}" for i in range(n_keys)]
+    before = dict(LAUNCHES)
+    with SpmvService(engine=engine, reorder=reorder, max_batch=max_batch,
+                     window_ms=window_ms, max_queue=max_queue,
+                     memory_budget_bytes=budget, overload=overload,
+                     device=device) as svc:
+        for k in keys:
+            svc.register(k, mat)
+        summary = traffic.run_open_loop(svc, {k: mat for k in keys},
+                                        pattern)
+        svc.flush()
+        stats = svc.stats()
+    slo = stats["slo"]
+    balanced = (stats["requests"] == stats["results"] + stats["sheds"]
+                + stats["errors"] and stats["pending"] == 0)
+    rec = {
+        "device": device_kind(svc.device),
+        "matrix": matrix, "n_keys": n_keys, "arrival": arrival,
+        "rate_rps": rate_rps, "requests": requests, "zipf_s": zipf_s,
+        "update_frac": update_frac, "structure_frac": structure_frac,
+        "overload": overload,
+        "memory_budget_bytes": budget or 0,
+        "offered": summary["offered"], "ok_count": summary["ok"],
+        "shed": summary["shed"], "rejected": summary["rejected"],
+        "errors": summary["errors"], "unresolved": summary["unresolved"],
+        "updates": summary["updates"],
+        "update_errors": summary["update_errors"],
+        "structure_updates": summary["structure_updates"],
+        "structure_errors": summary["structure_errors"],
+        "replans_landed": summary["replans_landed"],
+        "replan_errors": summary["replan_errors"],
+        "replan_unresolved": summary["replan_unresolved"],
+        "retry_after_positive": summary["retry_after_positive"],
+        "offered_rps": summary["offered_rps"],
+        "achieved_rps": summary["achieved_rps"],
+        "wall_s": summary["wall_s"],
+        "schedule_s": summary["schedule_s"],
+        "submit_s": summary["submit_s"], "drain_s": summary["drain_s"],
+        "p50_ms": slo["p50_ms"], "p95_ms": slo["p95_ms"],
+        "p99_ms": slo["p99_ms"], "shed_rate": slo["shed_rate"],
+        "eviction_rate": slo["eviction_rate"],
+        "coalesce_ratio": stats["coalesce_ratio"],
+        "op_builds": stats["op_builds"], "op_reloads": stats["op_reloads"],
+        "evictions": stats["evictions"],
+        "value_swaps": stats["value_swaps"],
+        "resident_bytes_max": stats["resident_bytes_max"],
+        "budget_ok": summary["budget_ok"],
+        "counters_balanced": balanced,
+        "launches": launches_since(before),
+        "ok": (summary["unresolved"] == 0
+               and summary["replan_unresolved"] == 0
+               and summary["errors"] == 0 and summary["replan_errors"] == 0
+               and summary["update_errors"] == 0
+               and summary["structure_errors"] == 0
+               and summary["budget_ok"] and balanced),
+    }
+    print(f"[serve-traffic] {matrix} x{n_keys} keys {arrival}@"
+          f"{rate_rps:g}rps {overload}: ok={rec['ok_count']} "
+          f"shed={rec['shed']} rejected={rec['rejected']} "
+          f"errors={rec['errors']} unresolved={rec['unresolved']} | "
+          f"p50={rec['p50_ms']:.2f}ms p99={rec['p99_ms']:.2f}ms "
+          f"coalesce={rec['coalesce_ratio']:.2f} "
+          f"evictions={rec['evictions']} reloads={rec['op_reloads']} "
+          f"swaps={rec['value_swaps']} "
+          f"replans={rec['replans_landed']} budget_ok={rec['budget_ok']} "
+          f"launches={rec['launches']}", flush=True)
     print(json.dumps(rec), flush=True)
     return rec
 
@@ -230,7 +409,74 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu only on request)")
+    ap.add_argument("--serve-sim", action="store_true",
+                    help="micro-batching service simulation over smoke "
+                         "matrices")
+    ap.add_argument("--serve-traffic", action="store_true",
+                    help="open-loop traffic run against the service "
+                         "(arrivals, Zipf keys, budgets, shedding)")
+    ap.add_argument("--serve-reorder", default="baseline",
+                    help="reordering scheme the service applies internally "
+                         "(requests stay in the original index space)")
+    ap.add_argument("--requests", type=int, default=48)
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--window-ms", type=float, default=20.0)
+    ap.add_argument("--arrival", default="poisson",
+                    choices=["poisson", "uniform", "bursty"])
+    ap.add_argument("--rate", type=float, default=500.0,
+                    help="mean offered arrival rate (requests/s)")
+    ap.add_argument("--keys", type=int, default=4,
+                    help="distinct service keys (Zipf-skewed traffic)")
+    ap.add_argument("--zipf", type=float, default=1.1)
+    ap.add_argument("--update-frac", type=float, default=0.1,
+                    help="fraction of arrivals that are value updates")
+    ap.add_argument("--structure-frac", type=float, default=0.0,
+                    help="fraction of arrivals that are StructureDelta "
+                         "background replans")
+    ap.add_argument("--budget-mb", type=float, default=0.0,
+                    help="operator memory budget in MiB (0 = unbudgeted)")
+    ap.add_argument("--max-queue", type=int, default=32)
+    ap.add_argument("--overload", default="reject",
+                    choices=["reject", "shed-oldest", "degrade-to-k1"])
+    ap.add_argument("--devices", type=int, default=1,
+                    help="> 1 serves sharded keys through the router "
+                         "(not ported)")
     args = ap.parse_args(argv)
+    if args.devices > 1:
+        raise NotImplementedError("not ported: router and sharded plans "
+                                  "(ROADMAP queue A item 5)")
+    if args.serve_traffic:
+        rec = run_serve_traffic(
+            matrix=args.matrix or "smoke_powerlaw", arrival=args.arrival,
+            rate_rps=args.rate, requests=args.requests, n_keys=args.keys,
+            zipf_s=args.zipf, update_frac=args.update_frac,
+            structure_frac=args.structure_frac, budget_mb=args.budget_mb,
+            max_batch=args.max_batch, window_ms=args.window_ms,
+            max_queue=args.max_queue, overload=args.overload,
+            engine=args.engine, reorder=args.serve_reorder,
+            device=args.device)
+        if not rec["ok"]:
+            raise SystemExit(
+                f"serve-traffic invariants FAILED: "
+                f"unresolved={rec['unresolved']} "
+                f"replan_unresolved={rec['replan_unresolved']} "
+                f"errors={rec['errors']} "
+                f"replan_errors={rec['replan_errors']} "
+                f"update_errors={rec['update_errors']} "
+                f"structure_errors={rec['structure_errors']} "
+                f"budget_ok={rec['budget_ok']} "
+                f"counters_balanced={rec['counters_balanced']}")
+        return
+    if args.serve_sim:
+        if args.matrix or args.spmm != 1:
+            ap.error("--serve-sim does not combine with --matrix/--spmm")
+        rec = run_serve_sim(requests=args.requests, max_batch=args.max_batch,
+                            window_ms=args.window_ms, engine=args.engine,
+                            reorder=args.serve_reorder, device=args.device)
+        if not rec["ok"]:
+            raise SystemExit(f"serve-sim verification FAILED: max_rel_err="
+                             f"{rec['max_rel_err']:.2e}")
+        return
     if args.campaign:
         raise SystemExit(1 if campaign_smoke(args.device) else 0)
     if not args.matrix:

@@ -10,8 +10,12 @@ generators and seeds, so a name gives the same matrix in both packages:
   * CORPUS   — real SuiteSparse matrices (a bundled fixture, a local .mtx,
                or an offline stand-in) resolved through repro_torch.corpus;
                names carry the `corpus://` prefix.
+  * WORKLOAD — dynamic model-layer sparsity streams (repro_torch.workloads);
+               names carry the `workload://` prefix and resolve to the
+               stream's step-0 representative matrix (the full stream is
+               the "workload" cell kind's business).
 
-`workload://` names are not ported yet. Synthetic entries are
+Synthetic entries are
 deterministic in their seed and cached on disk (npz, write-then-rename)
 after first build, under REPRO_TORCH_MATRIX_CACHE (default
 `repro_torch_matrices` under the system temp directory; "off" disables);
@@ -31,7 +35,7 @@ import numpy as np
 from ..core.sparse.csr import CSRMatrix
 from . import generators as G
 
-TIERS = ("smoke", "bench", "large", "locality", "corpus")
+TIERS = ("smoke", "bench", "large", "locality", "corpus", "workload")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,14 +94,19 @@ def names(tier: Optional[str] = None) -> list:
 
 
 def get(name: str) -> CSRMatrix:
-    """Resolve a catalog name, synthetic or corpus://."""
+    """Resolve a catalog name: synthetic, corpus:// or workload://."""
     if name.startswith("corpus://"):
         from ..corpus import manifest as corpus_manifest
 
         return corpus_manifest.resolve(name)
+    if name.startswith("workload://"):
+        from ..workloads import sources as workload_sources
+
+        return workload_sources.representative(name)
     if name not in _CATALOG:
         raise KeyError(f"unknown matrix {name!r}; known: "
-                       f"{sorted(_CATALOG)[:10]}... (or a corpus:// name)")
+                       f"{sorted(_CATALOG)[:10]}... (or a corpus:// / "
+                       f"workload:// name)")
     return _cached(name, _CATALOG[name].thunk)
 
 
@@ -122,6 +131,14 @@ def corpus_names() -> list:
     from ..corpus import manifest as corpus_manifest
 
     return corpus_manifest.corpus_names()
+
+
+def workload_names() -> list:
+    """Canonical workload:// preset names (any parameterization of the
+    repro_torch.workloads name grammar resolves too)."""
+    from ..workloads import sources as workload_sources
+
+    return workload_sources.preset_names()
 
 
 # --------------------------------------------------------------------------

@@ -10,19 +10,22 @@ package's names (``plan``, ``plan.reorder``, ``plan.tune``, ``plan.probe``,
         ...
     events = buf.flush()
 
-Counters: ``obs.counter(name).inc()`` and ``obs.snapshot()``. Exporters:
+Metrics: ``obs.counter(name).inc()``, ``obs.gauge(name).set(v)``,
+``obs.histogram(name).observe(v)`` and ``obs.snapshot()``. Exporters:
 ``obs.write_trace("trace.json", events)`` writes Chrome-trace JSON (load it
 in Perfetto), ``validate_chrome_trace`` checks one.
 """
 from .spans import (Span, TraceBuffer, install_sink,  # noqa: F401
                     remove_sink, span, tracing)
-from .metrics import REGISTRY, Counter, counter, reset, snapshot  # noqa: F401
+from .metrics import (REGISTRY, Counter, Gauge, Histogram,  # noqa: F401
+                      counter, gauge, histogram, reset, snapshot)
 from .export import (to_chrome_trace, validate_chrome_trace,  # noqa: F401
                      write_chrome_trace, write_jsonl, write_trace)
 
 __all__ = [
     "span", "tracing", "install_sink", "remove_sink", "Span", "TraceBuffer",
-    "counter", "snapshot", "reset", "REGISTRY", "Counter",
+    "counter", "gauge", "histogram", "snapshot", "reset",
+    "REGISTRY", "Counter", "Gauge", "Histogram",
     "to_chrome_trace", "write_chrome_trace", "write_jsonl", "write_trace",
     "validate_chrome_trace",
 ]
