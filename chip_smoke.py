@@ -48,7 +48,10 @@ the run with a nonzero exit code (nothing is caught):
                   artifacts and records live in a temporary directory for
                   the run (no earlier run's entry is read);
 4c. schemes     — the paper's scheme axis: one spmv ExperimentSpec on
-                  loc_stencil2d_shuf (524,176 rows, 2,617,984 nnz) over
+                  stencil2d_shuf_256 (65,536 rows, 326,656 nnz; the
+                  generator of loc_stencil2d_shuf at 256 x 256, cut to
+                  keep the run inside its time; x and the matrix fit in
+                  L2 at this size) over
                   paper_schemes() (baseline, rcm, metis, louvain, patoh,
                   random) and metis_nnzbal x {auto, sell (K1), bcsr (K3)},
                   the full policy, each cell with its host reorder ms and
@@ -112,11 +115,36 @@ the run with a nonzero exit code (nothing is caught):
                   full size (16 arrivals with the value updates, the 0.5x
                   rate) through the Runner under torch.profiler, resumed
                   from its store;
+7p. sharded     — sharded plans on fig1_shuffled at its full size, p = 8,
+                  f32 (one card: every plan runs simulated): baseline and
+                  rcm over 1d_rows and rcm over 2d_panels, engine and
+                  partition auto, each printed with its decision (engine,
+                  partitioner, schedule, halo, li, cut volume, bytes a
+                  SpMV, h_pad), verified with its structure twin against
+                  the float64 product (1e-4), held to the single-device
+                  operator on its reordered matrix (1e-5), and its mesh
+                  path on [cuda:0] * 8 held to its simulated path (1e-6);
+                  the rcm 1d_rows plan also at k = 8 and through CG
+                  against the single-device operator, and the host ms of
+                  its partitioners, comm model, feature scan and layout;
+                  then a parallel campaign through the Runner
+                  (fig1_shuffled x {baseline, rcm} x {1d_rows:nnz_balanced,
+                  1d_rows:static, 2d_panels:nnz_balanced}, engine auto, and
+                  rcm x bell x 1d_rows:nnz_balanced, whose modelled time
+                  launches K4 on each panel, 40 calls a panel), one cell
+                  again from the plan store and the whole resumed from the
+                  result store; then K4 at the bell cell's own panel
+                  shapes (rectangular, h x 1,048,576): each panel's y
+                  from one counted K4 launch held to the plain Block-ELL
+                  product (1e-5) and the float64 product (1e-4), and
+                  each panel timed as in phase 6; and
+                  one sharded key in SpmvService (4 requests against the
+                  float64 product, update_values raising RoutedElsewhere);
 7w. workloads   — repro_torch.workloads.run_stream(verify=True) over the
                   drift scenario: MoE routing at Qwen3-30B-A3B's router
                   (128 experts, top 8, d 2048, 4096 tokens; sell, K2; the
                   dispatch buffer bit for bit the one-hot one's), a GNN
-                  of 1,048,576 rows (sell, K2; every step after the first
+                  of 262,144 rows (sell, K2; every step after the first
                   a StructureDelta, no replan) and block-sparse attention
                   at S = 8192 (bcsr 64 x 64, K3);
  8. lm prefill  — the SpMV tensors are freed; Zamba2-7B at full width and
@@ -156,15 +184,18 @@ the run with a nonzero exit code (nothing is caught):
 
 Every kernel launch counter is set to 0 just before the first campaign of
 phase 4, the campaign of phase 4c, each forced path of phase 5 (f32 and
-bf16) and of phase 6b, each service and workload path of phases 7s and 7w
-and the f32 prefill of phase 8, and read just after it; a forced path that
+bf16) and of phase 6b, each service and workload path of phases 7s and 7w,
+the parallel campaign of phase 7p and the f32 prefill of phase 8, and read
+just after it (and around each K4 panel check of phase 7p, which must
+show one K4 launch; those launches are not the path's); a bell cell of
+phase 7p that launched no K4, a forced path that
 did not launch its kernel, a cell whose plan (or forced engine) is a
 kernel engine that launched nothing in its own timed calls, a service or
 workload path that did not launch its kernels, or a prefill whose K5
 count is not its number of Mamba2 layers (81), fails the run. The kernels
 line reports, for each kernel, the launches of the path that feeds its
-row and, for K1-K3 in f32, those of the service and workload paths
-(`launches_paths`).
+row and, for K1-K4 in f32, those of the service, workload and parallel
+campaign paths (`launches_paths`).
 
 Verification is against the numpy float64 oracle at rel err <= 1e-4 (the
 error over the oracle's largest entry); a kernel against its plain version
@@ -632,7 +663,14 @@ def schedule_campaign(dev) -> None:
 
 
 # -- phase 4c: the paper's scheme axis -------------------------------------
-SCHEME_MATRIX = "loc_stencil2d_shuf"   # a shuffled 724 x 724 5-point grid
+# a shuffled 256 x 256 5-point grid: loc_stencil2d_shuf's generator at an
+# eighth of its 524,176 rows (its METIS, PaToH and Louvain orders and the
+# BCSR builds of the scattered orders took ~190 s of the run at full size).
+# At this size x (256 KB) and the matrix (~4 MB) stay in the card's 50 MB
+# L2, so the phase drives every scheme and engine through the Runner but
+# its IOS speedups do not measure x locality beyond the cache; the Fig. 1
+# cells of phase 4 do
+SCHEME_MATRIX = "stencil2d_shuf_256"
 SCHEME_ENGINES = ("auto", "sell", "bcsr")
 DUEL_FIELDS = ("seq_ios_gflops", "seq_yax_gflops", "cg_gflops")
 ONE_MATRIX = ("one matrix: a per-matrix answer, not the paper's counts "
@@ -641,7 +679,7 @@ ONE_MATRIX = ("one matrix: a per-matrix answer, not the paper's counts "
 
 def scheme_campaign(dev, iters: int) -> None:
     """Phase 4c: one spmv ExperimentSpec through the Runner on
-    loc_stencil2d_shuf: paper_schemes() and metis_nnzbal x {auto, sell (K1),
+    SCHEME_MATRIX: paper_schemes() and metis_nnzbal x {auto, sell (K1),
     bcsr (K3)}, verified on the matrix and its structure twin, IOS, YAX, CG,
     the modelled-parallel time and the metrics at p = 8. Each cell prints its
     reorder ms (host), IOS ms and speedup over baseline on the same engine;
@@ -649,8 +687,8 @@ def scheme_campaign(dev, iters: int) -> None:
     calls. Then the paper's views over the schemes: the RCM-vs-METIS duel
     under IOS, YAX and CG (Table 1's question), pairwise win rates (Fig. 7)
     and speedup buckets (Fig. 6). The plan store is off for these cells:
-    the bcsr operators of the shuffled orders hold 8.8 GB each (8 x 128
-    blocks of 2.6 M scattered nonzeros), which it would write to disk; the
+    the bcsr operators of the shuffled orders hold an 8 x 128 block for
+    almost every scattered nonzero, which it would write to disk; the
     reorder cache stays on, so each scheme reorders once."""
     import numpy as np
 
@@ -1877,11 +1915,435 @@ def serve_phase(dev, mats: dict) -> dict:
     return paths
 
 
+# -- phase 7p: sharded plans at the Fig. 1 size ----------------------------
+SHARDED_P = 8
+# the plans of the phase: (scheme, layout), engine auto, partition auto
+SHARDED_PLANS = (("baseline", "1d_rows"), ("rcm", "1d_rows"),
+                 ("rcm", "2d_panels"))
+SHARDED_VARIANTS = ("1d_rows:nnz_balanced", "1d_rows:static",
+                    "2d_panels:nnz_balanced")
+SHARDED_BELL_VARIANTS = ("1d_rows:nnz_balanced",)
+# the cell the plan-store rerun repeats (scheme, engine request, variant):
+# one of seven, to keep the run inside its time (each cell took 8-36 s,
+# mostly host work, in the first runs on the card)
+SHARDED_AGAIN = ("rcm", "auto", "1d_rows:nnz_balanced")
+SINGLE_TOL = 1e-5        # a sharded operator against the single-device one
+MESH_TOL = 1e-6          # the mesh path against the simulated path
+CG_ITERS = 50
+CG_RTOL = 1e-6           # CG stops at ||r|| <= CG_RTOL * ||b|| (the
+#                          diagonal, m, is ~1e5x the rest of a row: one step
+#                          leaves ~3e-6, so this asks for a second)
+CG_RES_TOL = 1e-6        # |r_sharded - r_single| <= CG_RES_TOL * ||b||
+SHARDED_ITERS = 6        # modelled-parallel iterations of each cell
+# the bell cell's: each is one event pair around one call, so its median
+# needs more of them to settle (6 gave 0.113-0.185 ms between runs)
+SHARDED_BELL_ITERS = 40
+
+
+def sharded_plan(dev, mat, scheme: str, layout: str):
+    from repro_torch.core.spmv.plan import SpmvProblem, plan
+    from repro_torch.core.spmv.topology import Topology
+
+    return plan(SpmvProblem(mat, hints={"seed": 0}), reorder=scheme,
+                topology=Topology(devices=SHARDED_P, layout=layout),
+                partition="auto", device=dev)
+
+
+def mesh_check(dev, op, x) -> dict:
+    """The mesh path on [dev] * p (one card: a check of the mesh path's
+    code, not of multi-card speed) against the simulated path."""
+    import torch
+
+    op.force_simulated = True
+    sim = op(x)
+    op.force_simulated = False
+    op.mesh_devices = [dev] * op.topology.devices
+    if op.simulated:
+        raise AssertionError("mesh_devices set, but the operator simulates")
+    mesh = op(x)
+    op.mesh_devices = None
+    err = scaled_err(mesh.cpu().numpy(), sim.cpu().numpy())
+    if not err <= MESH_TOL:
+        raise AssertionError(f"mesh path vs simulated path: rel err "
+                             f"{err:.3e} > {MESH_TOL:.0e}")
+    return {"mesh_rel_err": err, "mesh_bitwise": bool(torch.equal(mesh,
+                                                                  sim))}
+
+
+def sharded_cg(dev, op, single) -> None:
+    """CG (k = 1) through the sharded rcm operator and the single-device
+    one from the same b, both in the reordered space: the same iterations,
+    residuals within CG_RES_TOL * ||b||, solutions within SINGLE_TOL."""
+    import torch
+
+    from repro_torch.core.measure import cg
+
+    b = torch_randn((op.shape[0],), torch_generator(11), torch.float32, dev)
+    tol = CG_RTOL * float(torch.linalg.vector_norm(b))
+    t0 = time.perf_counter()
+    got = cg.cg_solve(op.unwrap(), b, max_iter=CG_ITERS, tol=tol)
+    got_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = cg.cg_solve(single, b, max_iter=CG_ITERS, tol=tol)
+    want_s = time.perf_counter() - t0
+    bn = float(torch.linalg.vector_norm(b))
+    dres = abs(float(got.residual) - float(want.residual))
+    xerr = scaled_err(got.x.cpu().numpy(), want.x.cpu().numpy())
+    if got.iters != want.iters or got.iters >= CG_ITERS \
+            or not dres <= CG_RES_TOL * bn or not xerr <= SINGLE_TOL:
+        raise AssertionError(
+            f"CG sharded vs single device: iters {got.iters} vs "
+            f"{want.iters} (max {CG_ITERS}), |dres| {dres:.3e} > "
+            f"{CG_RES_TOL * bn:.3e} or x rel err {xerr:.3e}")
+    phase("sharded cg rcm", time.perf_counter() - got_s - want_s,
+          iters=got.iters, residual=float(got.residual),
+          single_residual=float(want.residual), b_norm=bn,
+          x_rel_err=f"{xerr:.2e}", sharded_s=f"{got_s:.3f}",
+          single_s=f"{want_s:.3f}")
+
+
+def sharded_host_costs(pl) -> None:
+    """Where a sharded plan's host time goes, on the rcm order: each
+    partitioner, the comm model, the feature scan, the layout build."""
+    from repro_torch.core.sparse import partition
+    from repro_torch.core.spmv import topology, tune
+
+    rmat = pl.reordered_matrix()
+    topo = pl.topology
+    ms = {}
+    for name in ("static", "nnz_balanced"):
+        t0 = time.perf_counter()
+        starts = partition.resolve_partitioner(name)[1](
+            rmat, topo.row_devices, 0)[1]
+        ms[f"partition_{name}"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        topology.comm_model(rmat, starts, topo, 4, 1, (8, 128))
+        ms[f"comm_model_{name}"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    tune.matrix_features(rmat)
+    ms["features"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pl._sharded_layout(rmat)
+    ms["layout_build"] = (time.perf_counter() - t0) * 1e3
+    print(f"[sharded] host ms on {pl.label()}: "
+          f"{json.dumps({k: round(v, 1) for k, v in ms.items()})}",
+          flush=True)
+
+
+def sharded_plans(dev, mat) -> None:
+    """7p.1: each plan of SHARDED_PLANS on the card: its decision, its
+    operator and its structure twin's against the float64 product, the
+    operator against the single-device operator of the same scheme and
+    engine, and the mesh path against the simulated path; k = 8 and CG on
+    the rcm 1d_rows plan."""
+    import torch
+
+    from repro_torch.core.spmv.ops import make_engine
+    from repro_torch.launch import spmv_bench
+
+    twin = spmv_bench.structure_twin(mat, 0)
+    x = torch_randn((mat.n,), torch_generator(5), torch.float32, dev)
+    for scheme, layout in SHARDED_PLANS:
+        t0 = time.perf_counter()
+        pl = sharded_plan(dev, mat, scheme, layout)
+        plan_s = time.perf_counter() - t0
+        op = pl.build(device=dev)
+        info = op.build_info
+        err = spmv_bench.verify(op, mat, 1, torch.float32, dev, VERIFY_TOL)
+        twin_op = pl.build(device=dev, values=twin.vals)
+        twin_err = spmv_bench.verify(twin_op, twin, 1, torch.float32, dev,
+                                     VERIFY_TOL)
+        del twin_op
+        # the single-device operator of the same scheme and engine, on the
+        # plan's reordered matrix (the sharded one runs permuted beside it)
+        single = make_engine(pl.reordered_matrix(), pl.tune.engine,
+                             device=dev)
+        single_err = check_product(
+            f"sharded {pl.label()} vs single device",
+            op(x, permuted=True).cpu().numpy(), single(x).cpu().numpy(),
+            SINGLE_TOL)
+        mesh = mesh_check(dev, op, x)
+        comm = pl.comm
+        fields = {}
+        if scheme == "rcm" and layout == "1d_rows":
+            fields["verify_k8"] = "{:.2e}".format(spmv_bench.verify(
+                op, mat, 8, torch.float32, dev, VERIFY_TOL))
+            sharded_cg(dev, op, single)
+            sharded_host_costs(pl)
+        phase(f"sharded plan {scheme}/{layout}", t0, label=pl.label(),
+              engine=pl.tune.engine, partitioner=pl.partitioner,
+              schedule=comm["schedule"], halo=comm["halo"],
+              halo_width=comm["halo_width"], li=comm["li"],
+              cut_volume=comm["cut_volume"],
+              bytes_per_spmv=comm["bytes_per_spmv"],
+              gather_bytes=comm.get("gather_bytes"), h_pad=comm["h_pad"],
+              simulated=op.simulated, plan_s=f"{plan_s:.2f}",
+              reorder_ms=f"{pl.reorder_ms:.1f}",
+              tune_ms=f"{pl.tune_ms:.1f}",
+              build_ms=f"{info['build_ms']:.1f}",
+              verify=f"{err:.2e}", verify_twin=f"{twin_err:.2e}",
+              vs_single=f"{single_err:.2e}",
+              mesh_rel_err=f"{mesh['mesh_rel_err']:.2e}",
+              mesh_bitwise=mesh["mesh_bitwise"],
+              partition_costs=json.dumps(pl.partition_costs), **fields)
+        del op, single
+
+
+def sharded_spec(name: str, matrix: str, schemes: tuple, engine: str,
+                 variants: tuple, iters: int = SHARDED_ITERS):
+    from repro_torch.experiments import ExperimentSpec, MeasurePolicy
+
+    return ExperimentSpec(
+        name=name, kind="parallel", matrices=(matrix,),
+        schemes=schemes, engines=(engine,), ps=(SHARDED_P,),
+        variants=variants,
+        policy=MeasurePolicy(iters=iters, warmup=0, verify=True,
+                             verify_tol=VERIFY_TOL, with_yax=False,
+                             with_parallel=False, with_metrics=False))
+
+
+def sharded_campaign(dev, name: str, mat) -> dict:
+    """7p.2: the parallel campaign through the Runner: fig1_shuffled x
+    {baseline, rcm} x SHARDED_VARIANTS, engine auto, and an rcm cell
+    again with the bell engine (never on the shuffled order: its
+    Block-ELL would hold ~130 GB), whose modelled time launches K4 on
+    each panel; then the SHARDED_AGAIN cell from the plan store (a fresh
+    result store) and the specs resumed from the first result store.
+    Returns the launches of the first run and the bell cell's modelled
+    parallel ms."""
+    from repro_torch import kernels
+    from repro_torch.experiments import ResultStore, Runner
+
+    specs = (sharded_spec("sharded", name, ("baseline", "rcm"), "auto",
+                          SHARDED_VARIANTS),
+             sharded_spec("sharded_bell", name, ("rcm",), "bell",
+                          SHARDED_BELL_VARIANTS, SHARDED_BELL_ITERS))
+    results = os.environ["REPRO_TORCH_RESULT_STORE"]
+    get = {name: mat}.__getitem__
+
+    def run_specs(store: str, specs=specs):
+        return [Runner(spec, ResultStore(os.path.join(results, store)),
+                       get_matrix=get, device=dev).run() for spec in specs]
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    reps = run_specs("sharded")
+    launches = dict(kernels.LAUNCHES)
+    first_s = time.perf_counter() - t0
+    ncells = sum(len(s.cells()) for s in specs)
+    bell_ms = {}
+    for rep in reps:
+        if rep.failures or rep.measured != len(rep.records):
+            raise AssertionError(f"sharded campaign: {rep.failures}")
+        for rec in rep.records:
+            if rec["engine"] == "bell":
+                if dev.type == "cuda" and not rec["launches"]["bell_spmv"] > 0:
+                    raise AssertionError(f"{rec['variant']}: bell panels "
+                                         f"launched no K4: "
+                                         f"{rec['launches']}")
+                bell_ms[rec["variant"]] = rec["modelled_par_ms"]
+            phase(f"parallel cell {rec['scheme']}/{rec['engine']}/"
+                  f"{rec['variant']}",
+                  time.perf_counter() - rec["runner_wall_s"],
+                  partitioner=rec["partitioner"], engine=rec["engine"],
+                  schedule=rec["comm_schedule"], li=rec["li"],
+                  cut_volume=rec["cut_volume"],
+                  halo_width=rec["halo_width"], h_pad=rec["h_pad"],
+                  bytes_per_spmv=rec["comm_bytes_per_spmv"],
+                  modelled_par_ms=rec["modelled_par_ms"],
+                  gflops=f"{rec['gflops']:.2f}",
+                  verify=f"{rec['verify_rel_err']:.2e}",
+                  verify_twin=f"{rec['verify_twin_rel_err']:.2e}",
+                  simulated=rec["simulated"],
+                  reorder_ms=f"{rec['reorder_ms']:.1f}",
+                  tune_ms=f"{rec['tune_ms']:.1f}",
+                  build_ms=f"{rec['format_build_ms']:.1f}",
+                  launches=json.dumps(rec["launches"]))
+    phase("campaign sharded", t0, cells=ncells,
+          launches=json.dumps(launches))
+
+    t1 = time.perf_counter()
+    scheme, engine, variant = SHARDED_AGAIN
+    again, = run_specs("sharded_again", (sharded_spec(
+        "sharded", name, (scheme,), engine, (variant,)),))
+    for rec in again.records:
+        if not (rec["plan_store_hit"] and rec["op_cache_hit"]
+                and rec["tune_ms"] == 0.0 and rec["reorder_ms"] == 0.0):
+            raise AssertionError(
+                f"parallel {rec['variant']}: not served by the plan "
+                f"store: plan_store_hit={rec['plan_store_hit']} "
+                f"op_cache_hit={rec['op_cache_hit']}")
+        phase(f"parallel cell {scheme}/{rec['engine']}/{variant} from the "
+              f"plan store", time.perf_counter() - rec["runner_wall_s"],
+              load_ms=f"{rec['op_load_ms']:.1f}",
+              verify_twin=f"{rec['verify_twin_rel_err']:.2e}",
+              modelled_par_ms=rec["modelled_par_ms"])
+    phase("campaign sharded from the plan store", t1,
+          plan_store_hits=f"{len(again.records)}/1",
+          seconds=f"{time.perf_counter() - t1:.2f}",
+          first_run_seconds=f"{first_s:.2f}")
+
+    t1 = time.perf_counter()
+    resumed = run_specs("sharded")
+    hits = sum(r.reused for r in resumed)
+    if hits != ncells or any(r.measured for r in resumed):
+        raise AssertionError(f"sharded resume: {hits} of {ncells} hits")
+    phase("campaign sharded resumed", t1, result_store_hits=f"{hits}/"
+          f"{ncells}", seconds=f"{time.perf_counter() - t1:.2f}")
+    return launches, bell_ms
+
+
+def sharded_bell_panels(dev, mat, cell_ms: dict) -> None:
+    """7p.2b: K4 at the shapes the bell cells gave it. Each bell cell's
+    plan (a plan-store hit) is cut into its row panels as
+    modelled_parallel_ms cuts it (rectangular: h x n, h set by the
+    partitioner); each panel's Block-ELL operator runs K4 once on x, with
+    the launch counts reset just before and read just after (one K4
+    launch and nothing else), and its y is held against the plain
+    Block-ELL product on the same blocks (KERNEL_TOL) and the float64
+    product of the panel's rows (VERIFY_TOL), and so is the same panel of
+    the structure twin, where every term counts. Then each panel's call
+    op(x) and its bare K4 launch (x already padded, as phase 6 times K4)
+    are timed with one event pair per BATCH calls; the max over panels of
+    each, plus ALPHA_SYNC_MS, is printed beside the cell's own per-call
+    reading. These launches are not the path's: the campaign's counts
+    were read before."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.measure.parallel_model import (ALPHA_SYNC_MS,
+                                                         panel_submatrix)
+    from repro_torch.core.spmv.ops import make_engine
+    from repro_torch.core.spmv.plan import SpmvProblem, plan
+    from repro_torch.core.spmv.topology import Topology
+    from repro_torch.kernels.bcsr_spmv.ops import pad_x2d
+    from repro_torch.kernels.bell_spmv.kernel import (bell_spmv,
+                                                      bell_spmv_plain)
+    from repro_torch.launch import spmv_bench
+
+    x = torch_randn((mat.n,), torch_generator(17), torch.float32, dev)
+    xh = x.double().cpu().numpy()
+    for variant in SHARDED_BELL_VARIANTS:
+        t0 = time.perf_counter()
+        layout, part = variant.split(":")
+        pl = plan(SpmvProblem(mat, hints={"seed": 0}), reorder="rcm",
+                  engine="bell", partition=part, device=dev,
+                  topology=Topology(devices=SHARDED_P, layout=layout))
+        rmat = pl.reordered_matrix()
+        # the same panels with values U(-1, 1): the diagonal of rmat's
+        # rows (~1e5 x the rest) would hide wrong off-diagonal blocks
+        vtwin = spmv_bench.structure_twin(rmat, seed=1)
+        starts = pl.panel_starts
+        panels = []
+        for k in range(len(starts) - 1):
+            r0, r1 = int(starts[k]), int(starts[k + 1])
+            row = {"rows": r1 - r0}
+            for src, tag in ((vtwin, "twin_"), (rmat, "")):
+                sub = panel_submatrix(src, r0, r1)
+                op = make_engine(sub, "bell", device=dev)
+                name = f"K4 {'twin ' if tag else ''}panel {k}"
+                kernels.reset_launches()
+                y = op(x)
+                got = dict(kernels.LAUNCHES)
+                if dev.type == "cuda" and (got["bell_spmv"] != 1
+                                           or sum(got.values()) != 1):
+                    raise AssertionError(f"{name} ({r1 - r0} x {mat.n}): "
+                                         f"launches {got}, not one K4")
+                x2d = pad_x2d(x[:, None], op.ncb, op.block_shape[1])
+                plain = bell_spmv_plain(op.blocks, op.block_cols,
+                                        x2d).reshape(-1)[: r1 - r0]
+                row[f"{tag}max_abs_err"] = rel_err(y, plain)[0]
+                check_close(f"{name} vs plain Block-ELL", y, plain,
+                            torch.float32)
+                row[f"{tag}rel_err"] = check_product(
+                    f"{name} vs the float64 product", y.cpu().numpy(),
+                    device_product(sub, xh, dev))
+                del y, plain, x2d
+            # the path's panel (the plan's own values) is the one timed
+            row["ms"] = time_ms(lambda: op(x))
+            x2d = pad_x2d(x[:, None], op.ncb, op.block_shape[1])
+            row["k4_ms"] = time_ms(lambda: bell_spmv(op.blocks,
+                                                     op.block_cols, x2d))
+            del x2d
+            nbr, width = op.blocks.shape[:2]
+            row.update(nbr=int(nbr), K=int(width))
+            panels.append(row)
+            del op
+        resolved = max(p["ms"] for p in panels) + ALPHA_SYNC_MS
+        k4_par = max(p["k4_ms"] for p in panels) + ALPHA_SYNC_MS
+        phase(f"bell panels rcm/{variant}", t0, panels=len(panels),
+              max_abs_err=f"{max(p['max_abs_err'] for p in panels):.3e}",
+              max_rel_err=f"{max(p['rel_err'] for p in panels):.2e}",
+              twin_max_abs_err="{:.3e}".format(
+                  max(p["twin_max_abs_err"] for p in panels)),
+              twin_max_rel_err="{:.2e}".format(
+                  max(p["twin_rel_err"] for p in panels)),
+              batched_par_ms=f"{resolved:.4f}",
+              k4_par_ms=f"{k4_par:.4f}", cell_par_ms=cell_ms[variant],
+              panel_ms=json.dumps([round(p["ms"], 4) for p in panels]),
+              k4_panel_ms=json.dumps([round(p["k4_ms"], 4)
+                                      for p in panels]),
+              shapes=json.dumps([[p["rows"], mat.n, p["nbr"], p["K"]]
+                                 for p in panels]))
+
+
+def sharded_service(dev, mat) -> None:
+    """7p.3: one sharded key in SpmvService (rcm, 1d_rows, p = 8, the
+    plan store's operator): a few requests within VERIFY_TOL of the
+    float64 product, and update_values raising RoutedElsewhere."""
+    import numpy as np
+
+    from repro_torch.core.spmv.topology import Topology
+    from repro_torch.serving.errors import RoutedElsewhere
+    from repro_torch.serving.spmv_service import SpmvService
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(13)
+    xs = rng.standard_normal((mat.n, 4))
+    want = device_product(mat, xs, dev)
+    with SpmvService(engine="auto", reorder="rcm", max_batch=1,
+                     window_ms=2.0, device=dev,
+                     topology=Topology(devices=SHARDED_P),
+                     partition="auto") as svc:
+        svc.register("fig1/sharded", mat)
+        futs = [svc.submit("fig1/sharded", xs[:, j]) for j in range(4)]
+        errs = [check_product(f"sharded service request {j}",
+                              f.result(timeout=600), want[:, j])
+                for j, f in enumerate(futs)]
+        op = svc.operator("fig1/sharded")
+        try:
+            svc.update_values("fig1/sharded", mat.vals)
+        except RoutedElsewhere:
+            pass
+        else:
+            raise AssertionError("update_values on a sharded key did not "
+                                 "raise RoutedElsewhere")
+        stats = svc.stats()
+    if stats["errors"] or stats["results"] != 4:
+        raise AssertionError(f"sharded service: {stats['results']} results, "
+                             f"{stats['errors']} errors")
+    phase("sharded service", t0, requests=4, max_rel_err=f"{max(errs):.2e}",
+          reloads=stats["op_reloads"], simulated=op.simulated,
+          label=op.plan.label())
+
+
+def sharded_phase(dev, name: str, mat) -> dict:
+    """Phase 7p; returns the launches of the parallel campaign."""
+    t0 = time.perf_counter()
+    sharded_plans(dev, mat)
+    phase("sharded plans", t0)
+    launches, bell_ms = sharded_campaign(dev, name, mat)
+    sharded_bell_panels(dev, mat, bell_ms)
+    sharded_service(dev, mat)
+    return {"sharded/parallel campaign": launches}
+
+
 # -- phase 7w: the workload streams ----------------------------------------
 WORKLOAD_CELLS = (
     # name, engine, use_deltas, the kernel its products run
     ("workload://moe-e128-k8-t4096-d2048-n4", "sell", False, "sell_spmm"),
-    ("workload://gnn-m1048576-deg16-f64-n4-rw0.01", "sell", True,
+    # 262,144 rows: at 1,048,576 each delta took ~11 s of host work
+    ("workload://gnn-m262144-deg16-f64-n4-rw0.01", "sell", True,
      "sell_spmm"),
     ("workload://attn-s8192-b64-w2-g1-d128-n4", "bcsr", False, "bcsr_spmv"),
 )
@@ -2515,6 +2977,7 @@ def main(argv=None) -> int:
 
 
 def run(args, torch) -> int:
+    t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2578,8 +3041,11 @@ def run(args, torch) -> int:
 
     t0 = time.perf_counter()
     paths = serve_phase(dev, mats)
-    del mats
     phase("serve", t0)
+    t0 = time.perf_counter()
+    paths.update(sharded_phase(dev, args.shuffled, mats[args.shuffled]))
+    del mats
+    phase("sharded", t0)
     t0 = time.perf_counter()
     paths.update(workload_phase(dev))
     phase("workloads", t0)
@@ -2602,6 +3068,7 @@ def run(args, torch) -> int:
     t0 = time.perf_counter()
     ssd_control(f32_args)
     phase("ssd control", t0)
+    phase("total", t_run)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

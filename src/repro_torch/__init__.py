@@ -15,8 +15,9 @@ Every entry point takes `device=None`, meaning "cuda", and raises when no
 card is present unless the caller passes `device="cpu"`. The sell, bcsr
 and bell engines run hand-written CUDA kernels (repro_torch/csrc,
 repro_torch/kernels) on CUDA tensors and their plain torch versions on
-CPU tensors. This package imports neither jax nor `repro`.
+CPU tensors. `plan(..., topology=Topology(devices=8), partition="auto")`
+plans for a device mesh and builds a ShardedOperator. The package exports
+what `repro_torch.api` does; it imports neither jax nor `repro`.
 """
-from .core.spmv.plan import Operator, Plan, SpmvProblem, plan  # noqa: F401
-
-__all__ = ["SpmvProblem", "plan", "Plan", "Operator"]
+from .api import *  # noqa: F401,F403
+from .api import __all__  # noqa: F401

@@ -7,7 +7,8 @@ Both packages' operators speak the same state protocol: `state()` returns
 what the reference's `state()` returns, handed here as plain numpy and
 dicts, gives the port's operator computing the same thing, and a
 reference `Plan.to_json()` plus its permutation gives the port's Plan
-holding the same decision; a reference model's parameter pytree, as
+holding the same decision (a sharded plan's topology, partitioner, panel
+starts and comm model included); a reference model's parameter pytree, as
 nested dicts of numpy arrays, gives the port's parameters. Nothing here
 imports the reference package.
 """
@@ -22,6 +23,7 @@ from .core.spmv.plan import Plan
 
 
 def _operator_classes() -> dict:
+    from .core.spmv.distributed import ShardedOperator
     from .core.spmv.ops import DeviceCSR, DeviceDense, DeviceELL
     from .kernels.bcsr_spmv.ops import BcsrOperator
     from .kernels.bell_spmv.ops import BellOperator
@@ -29,41 +31,56 @@ def _operator_classes() -> dict:
 
     return {c.__name__: c for c in (DeviceCSR, DeviceELL, DeviceDense,
                                     SellOperator, BcsrOperator,
-                                    BellOperator)}
+                                    BellOperator, ShardedOperator)}
 
 
 def operator_from_reference(cls_name: str, meta: dict, arrays: dict,
-                            device=None, dtype=None):
+                            device=None, dtype=None, perm=None):
     """The port's operator for a reference operator's `state()`.
 
     cls_name is the reference class name (`type(op).__name__`); the value
     dtype is the stored arrays' unless `dtype` is given; `device=None` is
     the card. The reference's kernel choice ("pallas", "interpret", or
     "ref", which is what "auto" resolves to off a TPU) is an execution
-    setting of its own backend and becomes "auto" here.
+    setting of its own backend and becomes "auto" here. A ShardedOperator
+    also takes the plan's `perm` (its state holds the layout, not the
+    permutation), as the reference's `from_state` does.
     """
     classes = _operator_classes()
     if cls_name not in classes:
         raise KeyError(f"no port of operator class {cls_name!r}; known: "
                        f"{sorted(classes)}")
     meta = dict(meta, use_kernel="auto") if "use_kernel" in meta else meta
+    if cls_name == "ShardedOperator":
+        return classes[cls_name].from_state(
+            meta, arrays, dtype=dtype, device=device,
+            perm=None if perm is None else np.asarray(perm, np.int64))
+    if perm is not None:
+        raise ValueError(f"{cls_name} carries no permutation; perm= is for "
+                         f"a ShardedOperator")
     return classes[cls_name].from_state(meta, arrays, dtype=dtype,
                                         device=device)
 
 
 def plan_from_reference(plan_json: dict, perm: Optional[np.ndarray],
-                        mat: Optional[CSRMatrix] = None) -> Plan:
+                        mat: Optional[CSRMatrix] = None,
+                        panel_starts: Optional[np.ndarray] = None) -> Plan:
     """The port's Plan for a reference `Plan.to_json()` and its `perm`
     (None = identity). Attach `mat` (the problem matrix in the original
-    index space) to build it. Sharded plans are not ported and raise."""
-    if plan_json.get("topology") is not None:
-        raise NotImplementedError("topology-aware (sharded) plans are not "
-                                  "ported yet")
+    index space) to build it. A sharded plan (its json names a topology)
+    also needs the reference plan's `panel_starts`, which its json does
+    not hold; its topology, partitioner, comm model and partition costs
+    come from the json."""
+    if plan_json.get("topology") is not None and panel_starts is None:
+        raise ValueError("a sharded plan needs its panel_starts (the "
+                         "reference Plan's array, kept beside its json)")
     d = dict(plan_json)
     if d.get("use_kernel") not in ("auto", "cuda", "ref"):
         d["use_kernel"] = "auto"
-    return Plan.from_json(d, perm=None if perm is None
-                          else np.asarray(perm, np.int64), mat=mat)
+    return Plan.from_json(
+        d, perm=None if perm is None else np.asarray(perm, np.int64),
+        mat=mat, panel_starts=None if panel_starts is None
+        else np.asarray(panel_starts, np.int64))
 
 
 def params_from_reference(tree: dict, cfg, device=None, dtype=None) -> dict:

@@ -22,9 +22,10 @@ apply runs under a `plan.delta` span.
 
 Appended rows (`append_rows`) extend the permutation with identity tail
 positions — a new row has no structural history, so placing it last is
-the only choice consistent with the frozen perm. Sharded plans (not
-ported yet) accept same-shape deltas only; the check reads the plan's
-`topology`, which no plan of the port has.
+the only choice consistent with the frozen perm. Sharded plans accept
+same-shape deltas only (the panel split indexes a fixed row count); their
+apply reuses partitioner + panel_starts + collective schedule, so the
+"replan" left to pay is array repacking, never a new search.
 
 `delta_between(old, new)` recovers a delta from two matrices — what
 `WorkloadSession` uses when the caller hands it a whole new matrix
@@ -264,7 +265,7 @@ def apply_delta(plan, delta: StructureDelta, *,
     if mat is None:
         raise ValueError("plan has no attached matrix; pass mat= to "
                          "Plan.load before apply_delta")
-    if getattr(plan, "topology", None) is not None and delta.append_rows:
+    if plan.topology is not None and delta.append_rows:
         obs.counter("delta.fallbacks").inc()
         raise DeltaTooLarge(
             "sharded plans accept same-shape deltas only (the panel "

@@ -95,6 +95,46 @@ def operator_nbytes(op) -> int:
     return total
 
 
+def operator_nbytes_per_device(op) -> list:
+    """Per-device footprint, in bytes: a list of topology.devices entries
+    (a non-sharded operator is the single-device list
+    `[operator_nbytes(op)]`).
+
+    `operator_nbytes` counts a ShardedOperator as ONE blob, so a
+    service-global budget can be met while one device is over — the
+    per-device budget of a multi-shard router needs the split. As in the
+    JAX package, each device is charged its slice of the engine arrays
+    (the leading mesh axes of layout.arrays, floats priced at the plan's
+    compute dtype) PLUS the replicated gather/scatter index maps, which
+    every device holds a copy of (int32, as in the JAX package). The
+    engine arrays are priced from the host layout."""
+    lay = getattr(op, "layout", None)
+    if lay is None:
+        return [operator_nbytes(op)]
+    topo = lay.topology
+    ndev = int(topo.devices)
+    dtype_name = getattr(getattr(op, "plan", None), "dtype_name", None)
+    value_size = (torch.empty((), dtype=torch_dtype(dtype_name))
+                  .element_size() if dtype_name else None)
+    per = np.zeros(ndev, dtype=np.int64)
+    for a in lay.arrays.values():
+        a = np.asarray(a)
+        flat = a.reshape((ndev,) + a.shape[2 if topo.col_devices > 1
+                                           else 1:])
+        itemsize = (value_size if value_size is not None
+                    and np.issubdtype(a.dtype, np.floating)
+                    else a.dtype.itemsize)
+        per += np.asarray([flat[i].size * itemsize for i in range(ndev)],
+                          dtype=np.int64)
+    replicated = 0
+    for name in ("_in_idx", "_in_idx_r", "_out_idx", "_out_idx_r"):
+        t = getattr(op, name, None)
+        if t is not None:
+            replicated += t.numel() * t.element_size()
+    per += replicated
+    return [int(b) for b in per]
+
+
 def content_key(mat: CSRMatrix, engine: str, dtype_name: str,
                 block_shape=(8, 128), sell_sigma=None, probe=False,
                 k: int = 1) -> str:

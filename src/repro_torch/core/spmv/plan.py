@@ -31,8 +31,16 @@ index space. `permuted=True` (or `op.unwrap()`) runs in the reordered
 space — what the measurement harness times.
 
 `Plan.apply_delta` edits a plan's matrix by a StructureDelta under the
-frozen decision (core/spmv/delta.py). Not ported yet: topology-aware
-(sharded) plans.
+frozen decision (core/spmv/delta.py).
+
+The same facade covers a device mesh: `plan(problem,
+topology=Topology(...), partition=...)` widens the joint selection to
+(partition x scheme x engine x shape x k) with the communication-volume
+cost model (topology.py), and `build()` returns a ShardedOperator
+(distributed.py) carrying perm + panel starts + collective schedule —
+same store, same original-index-space contract. Topology and partition
+join the content key ONLY when non-trivial, so single-device caches never
+fork; the decisions are the JAX package's, bit for bit.
 """
 from __future__ import annotations
 
@@ -50,9 +58,12 @@ import torch
 from ... import obs
 from ...device import resolve_device, torch_dtype
 from .. import registry
+from ..sparse import partition as partition_mod
 from ..sparse.csr import CSRMatrix
 from . import opcache
+from . import topology as topology_mod
 from . import tune as tune_mod
+from .topology import Topology
 from .tune import TunePlan
 
 
@@ -131,14 +142,22 @@ def values_key(mat: CSRMatrix) -> str:
 
 
 def plan_key(problem: SpmvProblem, reorder: str, engine: str, probe,
-             seed: int, schemes=None) -> str:
+             seed: int, schemes=None, topology=None,
+             partition: str = "auto", partitioners=None) -> str:
     """sha1 over matrix content + the full plan request + the backend.
 
     As in the JAX package, k joins the key unless both engine and scheme
-    are fixed. The "torch" token keeps the port's keys apart from the JAX
+    are fixed (a sharded topology keeps it too: the compute/collective
+    trade-off moves with the batch width). Topology joins the key ONLY
+    when non-trivial — Topology(devices=1) hashes as no topology — and
+    sharded plans are model-based, so `probe` is normalized out of their
+    keys. The "torch" token keeps the port's keys apart from the JAX
     package's, so the two can never read each other's entries.
     """
-    k = problem.k if (engine == "auto" or reorder == "auto") else 1
+    topo = topology_mod.normalize(topology)
+    k = problem.k if (engine == "auto" or reorder == "auto"
+                      or topo is not None) else 1
+    probe = probe if topo is None else False
     hints = problem.hints
     h = hashlib.sha1()
     h.update(_mat_key(problem.mat).encode())
@@ -146,6 +165,9 @@ def plan_key(problem: SpmvProblem, reorder: str, engine: str, probe,
              f"{problem.dtype_name()}:"
              f"{tuple(hints.get('block_shape', (8, 128)))}:"
              f"{hints.get('sell_sigma')}:{probe}:{int(k)}".encode())
+    if topo is not None:
+        h.update(json.dumps(topo.key_dict(), sort_keys=True).encode())
+        h.update(f":{partition}:{tuple(partitioners or ())}".encode())
     return h.hexdigest()[:20]
 
 
@@ -239,6 +261,12 @@ class Plan:
     advisor_confidence: float = 0.0   # probe="learned": nearest-neighbor
     #                                   confidence of the advisor (else 0)
     perm: Optional[np.ndarray] = None  # None = identity
+    # -- topology-aware (sharded) plans ------------------------------------
+    topology: Optional[Topology] = None          # None = single device
+    partitioner: str = ""                        # resolved partitioner name
+    panel_starts: Optional[np.ndarray] = None    # [P+1] reordered-row split
+    comm: dict = dataclasses.field(default_factory=dict)   # collective model
+    partition_costs: dict = dataclasses.field(default_factory=dict)
     _mat: Optional[CSRMatrix] = dataclasses.field(
         default=None, repr=False, compare=False)
     _rmat: Optional[CSRMatrix] = dataclasses.field(
@@ -247,7 +275,11 @@ class Plan:
         default=None, repr=False, compare=False)
 
     def label(self) -> str:
-        return f"{self.scheme}+{self.tune.label()}"
+        base = f"{self.scheme}+{self.tune.label()}"
+        if self.topology is None:
+            return base
+        return (f"{base}+{self.partitioner}@{self.topology.layout}"
+                f"p{self.topology.devices}")
 
     # -- serialization (the JAX package's field names) ---------------------
     def to_json(self) -> dict:
@@ -262,11 +294,16 @@ class Plan:
             "reorder_ms": self.reorder_ms, "tune_ms": self.tune_ms,
             "plan_ms": self.plan_ms,
             "advisor_confidence": self.advisor_confidence,
+            "topology": None if self.topology is None
+            else self.topology.to_json(),
+            "partitioner": self.partitioner, "comm": self.comm,
+            "partition_costs": self.partition_costs,
         }
 
     @staticmethod
     def from_json(d: dict, perm: Optional[np.ndarray] = None,
-                  mat: Optional[CSRMatrix] = None) -> "Plan":
+                  mat: Optional[CSRMatrix] = None,
+                  panel_starts: Optional[np.ndarray] = None) -> "Plan":
         """From this class's or the JAX package's to_json() (the JAX
         package's `nnz_bucket`, a padding that only shares XLA
         compilations, is dropped)."""
@@ -281,6 +318,11 @@ class Plan:
                     tune_ms=d.get("tune_ms", 0.0),
                     plan_ms=d.get("plan_ms", 0.0),
                     advisor_confidence=d.get("advisor_confidence", 0.0),
+                    topology=Topology.from_json(d.get("topology")),
+                    partitioner=d.get("partitioner", ""),
+                    panel_starts=panel_starts,
+                    comm=d.get("comm", {}),
+                    partition_costs=d.get("partition_costs", {}),
                     perm=perm, _mat=mat)
 
     def save(self, op=None, path: Optional[str] = None) -> str:
@@ -294,6 +336,8 @@ class Plan:
         arrays: dict = {}
         if self.perm is not None:
             arrays["perm"] = np.asarray(self.perm, np.int64)
+        if self.panel_starts is not None:
+            arrays["panel_starts"] = np.asarray(self.panel_starts, np.int64)
         rec = {"backend": opcache.BACKEND, "plan": self.to_json(), "op": None}
         if op is None and self._op_state is not None:
             # re-prefix the loaded arrays so the entry round-trips
@@ -332,7 +376,10 @@ class Plan:
                 raise ValueError("not an entry of the port's plan store")
             z = np.load(zpath)
             perm = z["perm"] if "perm" in z.files else None
-            pl = Plan.from_json(rec["plan"], perm=perm, mat=mat)
+            starts = (z["panel_starts"] if "panel_starts" in z.files
+                      else None)
+            pl = Plan.from_json(rec["plan"], perm=perm, mat=mat,
+                                panel_starts=starts)
             if rec.get("op"):
                 op_arrays = {k[len("op__"):]: z[k] for k in z.files
                              if k.startswith("op__")}
@@ -379,11 +426,13 @@ class Plan:
         return op
 
     def build(self, device=None, values: Optional[np.ndarray] = None,
-              cache: bool = True) -> Operator:
-        """The permutation-carrying Operator on `device` (None = the card).
-        Store hit: the operator's arrays reload (load_ms); miss: permute +
-        format conversion (build_ms), and with the store on the complete
-        entry (plan + perm + operator arrays) is written. Never re-tunes.
+              cache: bool = True):
+        """The permutation-carrying Operator on `device` (None = the card),
+        or for a topology-aware plan a ShardedOperator (perm + panel starts
+        + collective schedule). Store hit: the operator's arrays reload
+        (load_ms); miss: permute + format conversion (build_ms), and with
+        the store on the complete entry (plan + perm + operator arrays) is
+        written. Never re-tunes.
 
         `values` (float[nnz], in the original matrix's CSR order) replaces
         the matrix's values for this build, as `rebuild` does: the decision
@@ -407,6 +456,10 @@ class Plan:
                     "load_ms": 0.0, "engine": self.tune.engine,
                     "plan": self.tune.to_json()}
             use_store = cache and store_enabled()
+            if self.topology is not None:
+                op = self._build_sharded(dt, dev, info, use_store)
+                sp.set(cache_hit=info["cache_hit"])
+                return op
             inner = None
             if use_store:
                 t0 = time.perf_counter()
@@ -432,13 +485,15 @@ class Plan:
             return Operator(inner, self.perm, self, dev, build_info=info)
 
     def rebuild(self, mat: CSRMatrix, use_kernel: Optional[str] = None,
-                device=None) -> Operator:
+                device=None):
         """Operator for a matrix with the SAME sparsity structure and
         (possibly) other values, under this plan's frozen decision: permute
         through the carried perm, convert with the chosen (engine, shape)
         — no re-tune, no re-plan and no store write (the store is
-        content-addressed over values). Raises ValueError on a structure
-        mismatch."""
+        content-addressed over values). Sharded plans rebuild too: the
+        frozen partition, panel split and collective schedule are reused
+        and only the per-device arrays are repacked. Raises ValueError on
+        a structure mismatch."""
         if tuple(mat.shape) != tuple(self.mat_shape) \
                 or mat.nnz != self.mat_nnz:
             raise ValueError(
@@ -447,9 +502,24 @@ class Plan:
                 f"({tuple(mat.shape)}, nnz={mat.nnz}) — replan instead")
         dev = resolve_device(device)
         with obs.span("plan.rebuild", key=self.key,
-                      engine=self.tune.engine, backend="torch"):
+                      engine=self.tune.engine, backend="torch",
+                      sharded=self.topology is not None):
             rmat = mat if self.perm is None else mat.permute(self.perm)
             t0 = time.perf_counter()
+            if self.topology is not None:
+                from . import distributed
+
+                layout = self._sharded_layout(rmat)
+                info = {"cache_hit": False, "key": self.key,
+                        "tune_ms": 0.0,
+                        "build_ms": (time.perf_counter() - t0) * 1e3,
+                        "load_ms": 0.0, "engine": self.tune.engine,
+                        "plan": self.tune.to_json(), "value_swap": True,
+                        "comm": dict(self.comm),
+                        "partitioner": self.partitioner}
+                return distributed.ShardedOperator(
+                    layout, self.perm, plan=self, build_info=info,
+                    device=dev, dtype=torch_dtype(self.dtype_name))
             inner = tune_mod.build_from_plan(
                 rmat, self.tune, dtype=torch_dtype(self.dtype_name),
                 use_kernel=(self.use_kernel if use_kernel is None
@@ -474,7 +544,10 @@ class Plan:
         `delta.applies`; appended rows extend the permutation with
         identity tail positions. Past either threshold the frozen
         decision is stale: DeltaTooLarge is raised (counting
-        `delta.fallbacks`) and the caller replans."""
+        `delta.fallbacks`) and the caller replans. Sharded plans accept
+        same-shape deltas only (the panel split indexes a fixed row count)
+        and reuse partitioner + panel_starts + schedule, so build() after
+        apply_delta repacks arrays without any new search."""
         from . import delta as delta_mod
 
         kw = {}
@@ -483,6 +556,54 @@ class Plan:
         if max_bw_growth is not None:
             kw["max_bw_growth"] = max_bw_growth
         return delta_mod.apply_delta(self, delta, **kw)
+
+    def _sharded_layout(self, rmat: CSRMatrix):
+        from . import distributed
+
+        return distributed.build_sharded_layout(
+            rmat, self.topology, self.panel_starts,
+            engine=self.tune.engine, block_shape=self.tune.block_shape,
+            schedule=self.comm.get("schedule", "all_gather"),
+            halo=int(self.comm.get("halo", 0)))
+
+    def _build_sharded(self, dt, dev, info: dict, use_store: bool):
+        """Topology-aware build: restore the ShardedOperator's layout
+        arrays from the plan store when possible, otherwise chop the
+        reordered matrix into per-device arrays and persist the entry."""
+        from . import distributed
+
+        info["comm"] = dict(self.comm)
+        info["partitioner"] = self.partitioner
+        if use_store:
+            t0 = time.perf_counter()
+            if self._op_state is None and self.cache_hit:
+                stored = Plan.load(self.key, mat=self._mat)
+                if stored is not None and stored._op_state is not None:
+                    self._op_state = stored._op_state
+            if self._op_state is not None:
+                op_rec, arrays = self._op_state
+                if op_rec.get("cls") == "ShardedOperator":
+                    try:
+                        op = distributed.ShardedOperator.from_state(
+                            op_rec["meta"], arrays, dtype=dt,
+                            perm=self.perm, plan=self, build_info=info,
+                            device=dev)
+                        info["load_ms"] = (time.perf_counter() - t0) * 1e3
+                        info["cache_hit"] = True
+                        return op
+                    except (KeyError, ValueError, TypeError, IndexError,
+                            OSError) as e:
+                        # an unreadable layout entry: count it, rebuild
+                        obs.counter("plan_store.restore_failures").inc()
+                        info["restore_error"] = repr(e)
+        t0 = time.perf_counter()
+        op = distributed.ShardedOperator(
+            self._sharded_layout(self.reordered_matrix()), self.perm,
+            plan=self, build_info=info, device=dev, dtype=dt)
+        info["build_ms"] = (time.perf_counter() - t0) * 1e3
+        if use_store:
+            self.save(op=op)
+        return op
 
 
 def _auto_schemes(hints: dict) -> list:
@@ -493,9 +614,23 @@ def _auto_schemes(hints: dict) -> list:
     return list(names)
 
 
+def _partition_candidates(partition) -> list:
+    """Resolve the partition request to a candidate-name list."""
+    if partition == "auto":
+        names = partition_mod.auto_partitioners()
+        if not names:
+            raise ValueError("no registered partitioner is auto_candidate")
+        return names
+    if isinstance(partition, str):
+        return [partition]
+    return list(partition)
+
+
 def plan(problem: SpmvProblem, reorder: str = "auto", engine: str = "auto",
-         probe=False, cache: bool = True, device=None) -> Plan:
-    """Decide (scheme, engine, shape) for the problem; see _plan_decide.
+         probe=False, cache: bool = True, device=None, topology=None,
+         partition="auto") -> Plan:
+    """Decide (scheme, engine, shape) for the problem — and, given a
+    non-trivial topology, the row partition; see _plan_decide.
 
     cache — consult and populate the plan store (and the reorder cache);
     a hit returns the stored plan with cache_hit=True and zero plan-time
@@ -505,14 +640,16 @@ def plan(problem: SpmvProblem, reorder: str = "auto", engine: str = "auto",
                   nnz=int(problem.mat.nnz), reorder=reorder,
                   engine=engine, probe=str(probe), k=int(problem.k),
                   backend="torch") as sp:
-        pl = _plan_decide(problem, reorder, engine, probe, cache, device)
+        pl = _plan_decide(problem, reorder, engine, probe, cache, device,
+                          topology, partition)
         sp.set(scheme=pl.scheme, engine_chosen=pl.tune.engine,
                cache_hit=bool(pl.cache_hit), key=pl.key)
         return pl
 
 
 def _plan_decide(problem: SpmvProblem, reorder: str, engine: str, probe,
-                 cache: bool, device) -> Plan:
+                 cache: bool, device, topology=None,
+                 partition="auto") -> Plan:
     """reorder — a registered scheme name, or "auto" to jointly search the
     auto-candidate schemes (hints["schemes"] overrides the set): each
     candidate is permuted, its features recomputed and every engine
@@ -520,7 +657,16 @@ def _plan_decide(problem: SpmvProblem, reorder: str, engine: str, probe,
     argmin of modelled bytes at the problem's k. engine — a registered
     engine name, or "auto" for the tuner. probe — tune.PROBE_MODES;
     auto-scheme selection stays model-based and the winning scheme is
-    re-tuned with the requested probe mode."""
+    re-tuned with the requested probe mode; sharded plans are model-based
+    only. topology — a Topology; devices=1/None plans single-device.
+    Non-trivial topologies extend the joint search to (partition x scheme
+    x engine) with the communication-volume cost model: per candidate the
+    modelled wall cost is max-device compute bytes (engine cost x load
+    imbalance / devices) + collective bytes (all-gather vs halo exchange
+    vs 2-D reduce — topology.comm_model); the panel engines are "bell" and
+    "csr". partition — a registered partitioner name (incl.
+    chunked_cyclic_c<chunk>), a list of names, or "auto" for the
+    auto-candidate partitioners."""
     from . import ops  # noqa: F401 — ensure built-in engines are registered
     from ..reorder import api as reorder_api
 
@@ -535,6 +681,7 @@ def _plan_decide(problem: SpmvProblem, reorder: str, engine: str, probe,
     block_shape = tuple(hints.get("block_shape", (8, 128)))
     sell_sigma = hints.get("sell_sigma")
     k = max(int(problem.k), 1)
+    topo = topology_mod.normalize(topology)
 
     if engine != "auto":
         registry.get_engine(engine)
@@ -544,8 +691,21 @@ def _plan_decide(problem: SpmvProblem, reorder: str, engine: str, probe,
                          "and no registered scheme is auto_candidate")
     for s in schemes:
         registry.get_scheme(s)
+    partitioners = None
+    if topo is not None:
+        if mat.m != mat.n:
+            raise ValueError(f"sharded plans need a square matrix "
+                             f"(conformal x partition), got {mat.shape}")
+        if engine not in ("auto", "bell", "csr"):
+            raise ValueError(f"sharded plans execute 'bell' or 'csr' "
+                             f"panel engines (or 'auto'), got {engine!r}")
+        partitioners = _partition_candidates(partition)
+        for name in partitioners:
+            partition_mod.resolve_partitioner(name)
     key = plan_key(problem, reorder, engine, probe, seed,
-                   schemes=schemes if reorder == "auto" else None)
+                   schemes=schemes if reorder == "auto" else None,
+                   topology=topo, partition=str(partition),
+                   partitioners=partitioners)
     if cache and store_enabled():
         hit = Plan.load(key, mat=mat)
         if hit is not None:
@@ -553,6 +713,10 @@ def _plan_decide(problem: SpmvProblem, reorder: str, engine: str, probe,
             # requesting caller's preference wins
             hit.use_kernel = use_kernel
             return hit
+    if topo is not None:
+        return _plan_sharded(problem, reorder, engine, cache, topo,
+                             partitioners, schemes, key, seed, use_kernel,
+                             block_shape, t_start)
 
     reorder_ms = tune_ms = 0.0
     best = None                       # (cost, scheme, perm, rmat, tuneplan)
@@ -607,6 +771,89 @@ def _plan_decide(problem: SpmvProblem, reorder: str, engine: str, probe,
                   (tp.advisor or {}).get("confidence", 0.0)),
               perm=None if perm is None else np.asarray(perm, np.int64),
               _mat=mat, _rmat=rmat)
+    if cache and store_enabled():
+        pl.save()
+    return pl
+
+
+def _plan_sharded(problem: SpmvProblem, reorder: str, engine: str,
+                  cache: bool, topo: Topology, partitioners: list,
+                  schemes: list, key: str, seed: int, use_kernel: str,
+                  block_shape: tuple, t_start: float) -> Plan:
+    """The topology-aware joint search: (partition x scheme x engine) argmin
+    of modelled wall bytes = max-device compute (engine cost x load
+    imbalance / devices) + collective bytes (topology.comm_model). The
+    winner's composed permutation (scheme ∘ partitioner grouping) and
+    panel split ride on the Plan, so build() needs no re-decision."""
+    from ..reorder import api as reorder_api
+
+    mat = problem.mat
+    k = max(int(problem.k), 1)
+    dtype_name = problem.dtype_name()
+    dsize = torch.empty((), dtype=torch_dtype(dtype_name)).element_size()
+    engines = ("bell", "csr") if engine == "auto" else (engine,)
+    reorder_ms = tune_ms = 0.0
+    best = None        # (cost, scheme, perm, rmat2, starts, pname, eng, ...)
+    scheme_costs: dict = {}
+    partition_costs: dict = {}
+    for s in schemes:
+        t0 = time.perf_counter()
+        perm = (None if s == "baseline"
+                else reorder_api.reorder(mat, s, seed, cache=cache))
+        rmat = mat if perm is None else mat.permute(perm)
+        reorder_ms += (time.perf_counter() - t0) * 1e3
+        best_s = None
+        feat_rmat = None     # non-reordering partitioners all score the
+        # scheme's own rmat: one feature scan serves them all
+        for pname in partitioners:
+            cname, pfn = partition_mod.resolve_partitioner(pname)
+            t0 = time.perf_counter()
+            perm2, starts = pfn(rmat, topo.row_devices, seed)
+            rmat2 = rmat if perm2 is None else rmat.permute(perm2)
+            if perm2 is None:
+                perm_total = perm
+            else:
+                perm_total = (np.asarray(perm2, np.int64) if perm is None
+                              else np.asarray(perm, np.int64)[perm2])
+            reorder_ms += (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            if rmat2 is rmat:
+                if feat_rmat is None:
+                    feat_rmat = tune_mod.matrix_features(rmat)
+                feat = feat_rmat
+            else:
+                feat = tune_mod.matrix_features(rmat2)
+            comm = topology_mod.comm_model(rmat2, starts, topo, dsize, k,
+                                           block_shape)
+            for eng in engines:
+                compute = tune_mod.candidate_cost(feat, eng, block_shape,
+                                                  None, None, k=k)
+                cost = (compute * comm["li"] / topo.devices
+                        + comm["bytes_per_spmv"])
+                partition_costs[f"{s}+{cname}+{eng}"] = float(cost)
+                if best is None or cost < best[0]:
+                    best = (cost, s, perm_total, rmat2, starts, cname, eng,
+                            float(compute), comm)
+                if best_s is None or cost < best_s:
+                    best_s = float(cost)
+            tune_ms += (time.perf_counter() - t0) * 1e3
+        scheme_costs[s] = best_s
+    _, scheme, perm_total, rmat2, starts, pname, eng, compute, comm = best
+    tp = TunePlan(engine=eng, block_shape=tuple(block_shape),
+                  sell_sigma=None, cost_bytes=compute, costs={},
+                  features={}, source="model", k=k)
+    pl = Plan(scheme=scheme, seed=seed, engine_request=engine, tune=tp,
+              k=k, dtype_name=dtype_name, probe=False,
+              use_kernel=use_kernel, mat_shape=tuple(mat.shape),
+              mat_nnz=mat.nnz, key=key, scheme_costs=scheme_costs,
+              reorder_ms=reorder_ms, tune_ms=tune_ms,
+              plan_ms=(time.perf_counter() - t_start) * 1e3,
+              topology=topo, partitioner=pname,
+              panel_starts=np.asarray(starts, np.int64), comm=comm,
+              partition_costs=partition_costs,
+              perm=(None if perm_total is None
+                    else np.asarray(perm_total, np.int64)),
+              _mat=mat, _rmat=rmat2)
     if cache and store_enabled():
         pl.save()
     return pl

@@ -21,6 +21,18 @@ CELL_KINDS. Built-ins, as in the JAX package:
                  variant names pick the policy — "static_default",
                  "static_c<chunk>" (strided chunked-cyclic panels, each
                  timed on its own gathered submatrix), "nnz_balanced".
+  * "parallel" — topology-aware cells (figs 4, 9–11 as campaigns): the
+                 variant is "<layout>:<partitioner>" (e.g.
+                 "1d_rows:nnz_balanced", "1d_rows:chunked_cyclic_c16",
+                 "2d_panels:metis_cut"); the cell plans through
+                 plan(topology=Topology(devices=p, layout=...)) and
+                 records the partition-quality metrics (LI, cut volume,
+                 halo width), the modelled collective bytes and schedule,
+                 the calibrated modelled-parallel time on the plan's own
+                 panels (their engine: bell launches K4) and, with verify
+                 on, the ShardedOperator's original-index-space check on
+                 the matrix and its structure twin, and whether it ran
+                 simulated (one card for a p-device plan).
   * "workload" — one workload:// stream (the variant is the scenario)
                  through a WorkloadSession: plan/reuse/rebuild counts,
                  plan cost share, sparse vs reference time.
@@ -30,8 +42,8 @@ CELL_KINDS. Built-ins, as in the JAX package:
 The workload and serve records carry `launches`, the kernel launches of
 their own run.
 
-The JAX package's "parallel" and "route" kinds are not ported yet;
-asking for one raises NotImplementedError naming what it waits for.
+The JAX package's "route" kind is not ported yet; asking for it raises
+NotImplementedError naming what it waits for.
 Third-party kinds register with @register_cell_kind.
 """
 from __future__ import annotations
@@ -47,9 +59,7 @@ CELL_KINDS: Dict[str, Callable] = {}
 
 # the JAX package's other kinds, and what each waits for (ROADMAP queue A)
 NOT_PORTED = {
-    "parallel": "sharded plans (core/spmv/topology.py, distributed.py; "
-                "queue A item 5)",
-    "route": "the router, which runs on sharded plans (queue A item 5)",
+    "route": "the multi-shard router over sharded plans (queue A item 5)",
 }
 
 
@@ -215,6 +225,105 @@ def measure_spmv_cell(cell, mat, device) -> dict:
         rec["avg_row_bandwidth"] = metrics.avg_row_bandwidth(rmat)
         rec["cut_volume"] = metrics.cut_volume(rmat, panels_s)
         rec["block_fill_8x128"] = metrics.block_fill_ratio(rmat, 8, 128)
+    return rec
+
+
+# --------------------------------------------------------------------------
+# topology-aware cells (figs 4, 9-11 as campaigns over sharded plans)
+# --------------------------------------------------------------------------
+def parallel_variant(layout: str, partitioner: str) -> str:
+    """The variants-axis encoding of one (layout, partitioner) point."""
+    return f"{layout}:{partitioner}"
+
+
+def _parse_parallel_variant(variant: str):
+    from ..core.spmv.topology import LAYOUTS
+
+    layout, _, part = (variant or "").partition(":")
+    if not part:
+        if layout in LAYOUTS:            # bare layout -> default partition
+            part = "nnz_balanced"
+        else:                            # bare partitioner -> default layout
+            layout, part = "1d_rows", layout or "nnz_balanced"
+    return layout, part
+
+
+@register_cell_kind("parallel")
+def measure_parallel_cell(cell, mat, device) -> dict:
+    """One (matrix, scheme, machine point, layout x partitioner) cell of a
+    distributed campaign, through the topology-aware facade."""
+    from .. import kernels
+    from ..core.measure import ios, parallel_model
+    from ..core.spmv.plan import SpmvProblem, plan
+    from ..core.spmv.topology import Topology
+    from ..launch import spmv_bench
+
+    pol = cell.policy_dict()
+    if cell.p < 2:
+        raise ValueError(
+            f"'parallel' cells need p >= 2 devices, got p={cell.p} "
+            f"(a 1-device topology is the single-device pipeline — "
+            f"use the 'spmv' kind)")
+    layout, part = _parse_parallel_variant(cell.variant)
+    topo = Topology(devices=cell.p, layout=layout)
+    dtype = torch_dtype(cell.dtype)
+    hints = {"seed": pol["seed"]}
+    pl = plan(SpmvProblem(mat, k=cell.k, dtype=cell.dtype, hints=hints),
+              reorder=cell.scheme, engine=cell.engine, topology=topo,
+              partition=part, device=device)
+    rmat = pl.reordered_matrix()
+    comm = pl.comm
+    rec = {
+        "m": int(mat.m), "n": int(mat.n), "nnz": int(rmat.nnz),
+        "devices": int(cell.p), "layout": layout,
+        "partitioner": pl.partitioner,
+        "resolved_scheme": pl.scheme,
+        "engine": pl.tune.engine,
+        "plan_label": pl.label(),
+        "reorder_ms": pl.reorder_ms,
+        "tune_ms": pl.tune_ms,
+        "plan_ms": pl.plan_ms,
+        "plan_store_hit": bool(pl.cache_hit),
+        # partition quality (the paper's parallel-execution story):
+        "li": comm.get("li"),
+        "cut_volume": comm.get("cut_volume"),
+        "halo_width": comm.get("halo_width"),
+        "comm_schedule": comm.get("schedule"),
+        "comm_bytes_per_spmv": comm.get("bytes_per_spmv"),
+        "gather_bytes": comm.get("gather_bytes"),
+        "halo_bytes": comm.get("halo_bytes"),
+        "h_pad": comm.get("h_pad"),
+    }
+    if pol["verify"]:
+        op = pl.build(device=device)
+        rec.update({
+            "op_cache_hit": op.build_info.get("cache_hit", False),
+            "op_load_ms": op.build_info.get("load_ms", 0.0),
+            "format_build_ms": op.build_info.get("build_ms", 0.0),
+            "simulated": bool(op.simulated),
+        })
+        tol = pol.get("verify_tol", 1e-4)
+        rec["verify_rel_err"] = spmv_bench.verify(
+            op, mat, cell.k, dtype, device, tol, pol["seed"])
+        del op
+        # the generators' dominant diagonal hides wrong off-diagonal
+        # terms; the structure twin, under the same plan, does not
+        twin = spmv_bench.structure_twin(mat, pol["seed"])
+        twin_op = pl.build(device=device, values=twin.vals)
+        rec["verify_twin_rel_err"] = spmv_bench.verify(
+            twin_op, twin, cell.k, dtype, device, tol, pol["seed"])
+        del twin_op
+    if pol["time_spmv"]:
+        # calibrated per-panel model on the plan's own panels and engine
+        # (the "schedule" kind's protocol, so figs 4/11 stay comparable)
+        before = dict(kernels.LAUNCHES)
+        ms = parallel_model.modelled_parallel_ms(
+            rmat, topo.row_devices, pl.tune.engine,
+            panels=pl.panel_starts, iters=pol["iters"],
+            rng_seed=pol["seed"], device=device)
+        rec["modelled_par_ms"] = ms
+        rec["gflops"] = float(ios.gflops(rmat.nnz, np.array([ms]))[0])
+        rec["launches"] = kernels.launches_since(before)
     return rec
 
 

@@ -7,6 +7,8 @@
         --serve-reorder rcm [--device cpu]
     python -m repro_torch.launch.spmv_bench --serve-traffic \
         --matrix smoke_powerlaw --rate 500 --keys 4 [--budget-mb M]
+    python -m repro_torch.launch.spmv_bench --matrix fig1_shuffled \
+        --scheme rcm --devices 8 --layout 1d_rows --partition auto
 
 The port's counterpart of the JAX package's `run_single`: one matrix, one
 reordering scheme ("auto" searches), one engine ("auto" tunes). It prints
@@ -31,7 +33,16 @@ the micro-batching SpmvService (serving/spmv_service.py) and checks every
 response against the numpy oracle; `--serve-traffic` drives one open-loop
 traffic scenario (serving/traffic.py) against it and checks the service's
 invariants. Both print one line and one JSON record, as a single cell
-does; `--devices > 1` (the router over sharded plans) is not ported.
+does; with `--devices > 1` they would serve through the multi-shard
+router, which is not ported.
+
+`--matrix M --devices N [--layout L] [--partition P]` is one sharded cell
+(`run_parallel`): a one-cell "parallel" ExperimentSpec through the
+Runner and its result store, so a repeat invocation is a store hit. The
+cell plans a Topology of N devices (partition x scheme x engine),
+verifies the ShardedOperator in the original index space and reports the
+modelled collective bytes of the chosen schedule beside the
+modelled-parallel time. On one card a p-device plan runs simulated.
 """
 from __future__ import annotations
 
@@ -396,6 +407,63 @@ def campaign_smoke(device=None, matrices=None) -> int:
     return failures
 
 
+def run_parallel(matrix: str, scheme: str = "baseline", engine: str = "auto",
+                 devices: int = 8, layout: str = "1d_rows",
+                 partition: str = "nnz_balanced", iters: int = 6, k: int = 1,
+                 device=None) -> dict:
+    """One (matrix, scheme, topology) cell through the Runner ("parallel"
+    kind), printed as one line and one JSON record."""
+    from ..experiments import (ExperimentSpec, MeasurePolicy, ResultStore,
+                               Runner)
+    from ..experiments.cells import parallel_variant
+
+    if devices < 2:
+        raise ValueError(f"--devices must be >= 2 in parallel mode, "
+                         f"got {devices}")
+    spec = ExperimentSpec(
+        name="spmv_parallel_single", matrices=(matrix,), schemes=(scheme,),
+        engines=(engine,), ps=(devices,), ks=(k,), kind="parallel",
+        variants=(parallel_variant(layout, partition),),
+        policy=MeasurePolicy(iters=iters, verify=True, with_yax=False,
+                             with_parallel=False, with_metrics=False))
+    runner = Runner(spec, store=ResultStore(), verbose=False, device=device)
+    rep = runner.run()
+    if rep.failures:
+        raise RuntimeError(f"parallel cell failed: "
+                           f"{rep.failures[0]['error']}")
+    cr = rep.records[0]
+    rec = {
+        "matrix": matrix, "scheme": scheme,
+        "resolved_scheme": cr["resolved_scheme"],
+        "engine": cr["engine"], "plan_label": cr["plan_label"],
+        "devices": devices, "layout": layout,
+        "partitioner": cr["partitioner"],
+        "store_hit": cr["store_reused"], "cell_key": cr["cell_key"],
+        "comm_schedule": cr["comm_schedule"],
+        "comm_bytes_per_spmv": cr["comm_bytes_per_spmv"],
+        "li": cr["li"], "cut_volume": cr["cut_volume"],
+        "halo_width": cr["halo_width"],
+        "reorder_ms": cr["reorder_ms"], "tune_ms": cr["tune_ms"],
+        "plan_store_hit": cr["plan_store_hit"],
+        "modelled_par_ms": cr["modelled_par_ms"],
+        "gflops": cr["gflops"],
+        "verify_rel_err": cr["verify_rel_err"],
+        "verify_twin_rel_err": cr["verify_twin_rel_err"],
+        "simulated": cr["simulated"], "launches": cr["launches"],
+        "device": device_kind(runner.device),
+    }
+    print(f"[spmv-parallel] {matrix}/{scheme} {layout} p={devices} "
+          f"partition={rec['partitioner']} engine={rec['engine']} "
+          f"sched={rec['comm_schedule']} "
+          f"comm={rec['comm_bytes_per_spmv']:.0f}B li={rec['li']:.3f} "
+          f"par_ms={rec['modelled_par_ms']:.3f} "
+          f"store_hit={rec['store_hit']} sim={rec['simulated']} "
+          f"err={rec['verify_rel_err']:.2e} "
+          f"twin_err={rec['verify_twin_rel_err']:.2e}", flush=True)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--matrix",
@@ -439,12 +507,23 @@ def main(argv=None):
     ap.add_argument("--overload", default="reject",
                     choices=["reject", "shed-oldest", "degrade-to-k1"])
     ap.add_argument("--devices", type=int, default=1,
-                    help="> 1 serves sharded keys through the router "
-                         "(not ported)")
+                    help="with --matrix: one sharded cell over a Topology "
+                         "of N devices (simulated on fewer cards); with "
+                         "--serve-*: the multi-shard router (not ported)")
+    ap.add_argument("--layout", default=None,
+                    choices=["1d_rows", "2d_panels"],
+                    help="sharded layout (with --devices; default 1d_rows)")
+    ap.add_argument("--partition", default=None,
+                    help="partitioner name or 'auto' (with --devices; "
+                         "default nnz_balanced)")
     args = ap.parse_args(argv)
-    if args.devices > 1:
-        raise NotImplementedError("not ported: router and sharded plans "
+    if args.devices > 1 and (args.serve_traffic or args.serve_sim):
+        raise NotImplementedError("not ported: the multi-shard router "
+                                  "that serves --devices > 1 "
                                   "(ROADMAP queue A item 5)")
+    if args.devices <= 1 and (args.layout or args.partition):
+        ap.error("--layout/--partition require --devices > 1 "
+                 "(sharded single-cell mode)")
     if args.serve_traffic:
         rec = run_serve_traffic(
             matrix=args.matrix or "smoke_powerlaw", arrival=args.arrival,
@@ -481,6 +560,12 @@ def main(argv=None):
         raise SystemExit(1 if campaign_smoke(args.device) else 0)
     if not args.matrix:
         ap.error("give --matrix or --campaign")
+    if args.devices > 1:
+        run_parallel(args.matrix, args.scheme, args.engine,
+                     devices=args.devices, layout=args.layout or "1d_rows",
+                     partition=args.partition or "nnz_balanced",
+                     iters=args.iters, k=args.spmm, device=args.device)
+        return
     run_single(args.matrix, args.scheme, args.engine, k=args.spmm,
                iters=args.iters, device=args.device)
 

@@ -72,8 +72,14 @@ dispatcher (`_run`), the background replanner (`_replan_loop`) and the
 caller of `update_values`, whose rebuild runs in its own thread. Each
 uses its current stream, the legacy default stream of the device, so an
 operator built on one thread is ordered before its first use on another.
-Sharded keys (a `topology`) and the multi-shard router are not ported yet
-(ROADMAP queue A item 5).
+
+Sharded keys. A key registered with a non-trivial `topology` (or a service
+built with one) plans through `plan(topology=..., partition=...)` and
+serves through a ShardedOperator, still in the original index space; on
+one card its panels run simulated (core/spmv/distributed.py). As in the
+JAX package, `update_values`/`update_structure` on a sharded key raise
+RoutedElsewhere: per-shard swaps and replans belong to the multi-shard
+router, which is not ported yet.
 """
 from __future__ import annotations
 
@@ -101,9 +107,6 @@ OVERLOAD_POLICIES = ("reject", "shed-oldest", "degrade-to-k1")
 
 _RESERVOIR_SIZE = 2048
 _SERVICE_IDS = itertools.count(1)
-
-SHARDED = ("sharded plans (a topology, and partitioners over it) are not "
-           "ported yet (ROADMAP queue A item 5)")
 
 # every legacy integer/float counter of SpmvService.stats(); each backs
 # onto a process-wide obs counter `service.<key>{service=<sid>}`
@@ -234,8 +237,6 @@ class SpmvService:
                  max_queue_bytes: Optional[int] = None,
                  max_staleness_s: Optional[float] = None,
                  reservoir_size: int = _RESERVOIR_SIZE, device=None):
-        if topology is not None or partition != "auto":
-            raise NotImplementedError(SHARDED)
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if max_queue < 1:
@@ -310,12 +311,12 @@ class SpmvService:
                  priority: int = 0) -> None:
         """Make `key` servable. Operator build is lazy (first batch).
 
-        reorder overrides the service-wide scheme for this key (a
-        `topology`, for a SHARDED key, raises NotImplementedError: not
-        ported yet), and priority is the key's QoS class: the dispatcher
-        serves higher classes first and the shed-oldest policy sheds from
-        the lowest class. Requests stay in the original index space either
-        way.
+        reorder overrides the service-wide scheme for this key, topology
+        (a Topology) overrides the service-wide topology (a SHARDED key
+        serves through a ShardedOperator), and priority is the key's QoS
+        class: the dispatcher serves higher classes first and the
+        shed-oldest policy sheds from the lowest class. Requests stay in
+        the original index space either way.
 
         Re-registering a key drops its memoized operator — but when the
         new matrix has the SAME structure hash, the kept plan makes the
@@ -323,8 +324,6 @@ class SpmvService:
         is REFUSED (KeyBusy) while the key has queued/in-flight requests
         or a structure replan in flight — a request validated against
         matrix A must never be answered from matrix B (flush() first)."""
-        if topology is not None:
-            raise NotImplementedError(SHARDED)
         with self._cv:
             if self._stop:
                 raise ServiceClosed("service is closed")
@@ -447,7 +446,9 @@ class SpmvService:
         When the key's values have diverged from the plan store (dirty)
         and the kept plan still matches the structure + scheme, rebuild
         under the frozen decision — plan() would otherwise replan from
-        scratch because its content key hashes the values."""
+        scratch because its content key hashes the values. Sharded plans
+        take the same shortcut: Plan.rebuild repacks the frozen layout
+        (partition, panel split, schedule all kept)."""
         if (dirty and hint is not None
                 and hint[0] == plan_mod.structure_key(mat)
                 and hint[1] == scheme):
@@ -458,7 +459,8 @@ class SpmvService:
             plan_mod.SpmvProblem(mat, k=self.max_batch, dtype=self._dtype,
                                  hints={"use_kernel": self.use_kernel}),
             reorder=scheme, engine=self.engine, probe=self.probe,
-            cache=self.cache, device=self.device)
+            cache=self.cache, device=self.device, topology=topology,
+            partition=self.partition)
         op = pl.build(device=self.device, cache=self.cache)
         return op, pl, op.build_info
 
@@ -477,7 +479,8 @@ class SpmvService:
             if key not in self._matrices:
                 raise UnregisteredKey(f"unregistered matrix key {key!r}")
             if (not self._allow_sharded_updates
-                    and self._topologies.get(key) is not None):
+                    and plan_mod.topology_mod.normalize(
+                        self._topologies.get(key)) is not None):
                 raise RoutedElsewhere(
                     f"update_values on sharded key {key!r}: per-shard "
                     f"swaps belong to the router")
@@ -542,7 +545,8 @@ class SpmvService:
             if key not in self._matrices:
                 raise UnregisteredKey(f"unregistered matrix key {key!r}")
             if (not self._allow_sharded_updates
-                    and self._topologies.get(key) is not None):
+                    and plan_mod.topology_mod.normalize(
+                        self._topologies.get(key)) is not None):
                 raise RoutedElsewhere(
                     f"update_structure on sharded key {key!r}: the "
                     f"per-shard replan lifecycle belongs to the router")

@@ -382,11 +382,12 @@ def test_cell_keys_carry_the_device_kind():
 
 
 def test_unported_kinds_raise():
-    for kind in ("parallel", "route"):
-        with pytest.raises(NotImplementedError,
-                           match="not ported yet.*sharded plans"):
-            cells.get_cell_kind(kind)
-    for kind in ("workload", "serve"):
+    # only "route" (the router) is left; "parallel" was ported
+    with pytest.raises(NotImplementedError,
+                       match="not ported yet.*router over sharded plans"):
+        cells.get_cell_kind("route")
+    assert cells.NOT_PORTED == {"route": cells.NOT_PORTED["route"]}
+    for kind in ("parallel", "workload", "serve"):
         assert cells.get_cell_kind(kind) is cells.CELL_KINDS[kind]
     with pytest.raises(KeyError, match="unknown cell kind"):
         cells.get_cell_kind("nope")

@@ -171,8 +171,10 @@ def test_operator_from_reference_round_trips_state(engine):
 
 
 def test_operator_from_reference_rejects_unknown_classes():
+    # ShardedOperator, the example here until it was ported, now converts
+    # (tests/test_torch_sharded.py)
     with pytest.raises(KeyError, match="no port"):
-        convert.operator_from_reference("ShardedOperator", {}, {},
+        convert.operator_from_reference("NoSuchOperator", {}, {},
                                         device="cpu")
 
 

@@ -6,7 +6,7 @@ CPU:
   same x within 1e-5 relative (f32; the reference runs its Pallas
   kernels in interpret mode);
 - the service raises without a card unless given device="cpu", and a
-  sharded key (a topology) raises NotImplementedError;
+  sharded key (a topology) serves through a ShardedOperator;
 - the reference's hardening cases (typed errors, the memory-budgeted LRU,
   admission control and QoS, dynamic matrices, observability, the
   producer stress) and its service cases of the SpMM suite, on the port.
@@ -120,13 +120,33 @@ def test_service_raises_without_a_card(monkeypatch):
 
 
 def test_sharded_keys_are_not_ported():
-    with pytest.raises(NotImplementedError, match="sharded plans"):
-        SpmvService(device="cpu", topology=object())
-    with pytest.raises(NotImplementedError, match="sharded plans"):
-        SpmvService(device="cpu", partition="static")
+    """Sharded keys are ported (the name is kept from when they raised):
+    a service-wide topology and a per-key one both serve through a
+    ShardedOperator in the original index space, and the router's share
+    — updates of a sharded key — raises RoutedElsewhere."""
+    from repro_torch.core.spmv.distributed import ShardedOperator
+    from repro_torch.core.spmv.topology import Topology
+
+    mat = _mats()["a"]
+    x = np.random.default_rng(2).standard_normal(mat.n)
+    with svc_cpu(engine="csr", cache=False, reorder="rcm",
+                 topology=Topology(devices=4),
+                 partition="static") as svc:
+        svc.register("a", mat)
+        assert _rel(svc.submit("a", x).result(timeout=30),
+                    mat.spmv(x)) <= 1e-5
+        assert isinstance(svc.operator("a"), ShardedOperator)
+        assert svc.operator("a").plan.partitioner == "static"
     with svc_cpu(engine="csr", cache=False) as svc:
-        with pytest.raises(NotImplementedError, match="sharded plans"):
-            svc.register("a", _mats()["a"], topology=object())
+        svc.register("a", mat, topology=Topology(devices=2,
+                                                 layout="2d_panels"))
+        svc.register("b", mat, topology=Topology(devices=1))
+        assert _rel(svc.submit("a", x).result(timeout=30),
+                    mat.spmv(x)) <= 1e-5
+        assert not isinstance(svc.operator("b"), ShardedOperator)
+        with pytest.raises(RoutedElsewhere, match="router"):
+            svc.update_values("a", mat.vals * 2)
+        svc.update_values("b", mat.vals * 2)     # a trivial topology
     assert issubclass(RoutedElsewhere, BadRequest)
 
 

@@ -247,7 +247,9 @@ def test_serve_traffic_cli_on_the_cpu(capsys):
                      "--device", "cpu"])
     out = capsys.readouterr().out
     assert "[serve-traffic] smoke_banded x2 keys" in out
-    with pytest.raises(NotImplementedError, match="router and sharded"):
+    # --devices > 1 plans sharded cells now (run_parallel); serving them
+    # needs the multi-shard router, which still raises
+    with pytest.raises(NotImplementedError, match="multi-shard router"):
         spmv_bench.main(["--serve-traffic", "--devices", "2",
                          "--device", "cpu"])
 
