@@ -98,11 +98,12 @@ the run with a nonzero exit code (nothing is caught):
                   response within 1e-4 of the float64 host product and
                   within 1e-5 of the unbatched op(x), fewer batches than
                   requests; where a dispatch's time goes; on one sell key
-                  a value swap (x 1.01, no replan), a 0.5% deletion delta
-                  (Plan.apply_delta: no reorder, no tune) and an
-                  over-churn delta (a full replan), each answered
-                  correctly, and the planted control (a response after the
-                  swap held against the old product must fail); then
+                  a value swap (x 1.01, no replan) and a 0.5% deletion
+                  delta (Plan.apply_delta: no reorder, no tune), each
+                  answered correctly, and the planted control (a response
+                  after the swap held against the old product must
+                  fail); an over-churn delta (a full replan) on a sell key
+                  of the TRAFFIC_ROWS cut; then
                   a profiled stretch of 64 dispatches; open-loop traffic
                   (spmv_bench.run_serve_traffic: 4 keys, Zipf 1.1,
                   poisson, 200 arrivals, 10% value updates, 2% structure
@@ -112,7 +113,7 @@ the run with a nonzero exit code (nothing is caught):
                   (every Future answered and none failed, budget kept,
                   counters balanced, operators reloaded, K2 launched,
                   rejects at 2x); one serve cell on fig1_shuffled at its
-                  full size (16 arrivals with the value updates, the 0.5x
+                  full size (8 arrivals with two value updates, the 0.5x
                   rate) through the Runner under torch.profiler, resumed
                   from its store;
 7p. sharded     — sharded plans on fig1_shuffled at its full size, p = 8,
@@ -129,7 +130,7 @@ the run with a nonzero exit code (nothing is caught):
                   its partitioners, comm model, feature scan and layout;
                   then a parallel campaign through the Runner
                   (fig1_shuffled x {baseline, rcm} x {1d_rows:nnz_balanced,
-                  1d_rows:static, 2d_panels:nnz_balanced}, engine auto, and
+                  2d_panels:nnz_balanced}, engine auto, and
                   rcm x bell x 1d_rows:nnz_balanced, whose modelled time
                   launches K4 on each panel, 40 calls a panel), one cell
                   again from the plan store and the whole resumed from the
@@ -140,6 +141,27 @@ the run with a nonzero exit code (nothing is caught):
                   each panel timed as in phase 6; and
                   one sharded key in SpmvService (4 requests against the
                   float64 product, update_values raising RoutedElsewhere);
+7r. router      — repro_torch.router on the one card (a mesh of d > 1
+                  devices runs its panels simulated; its per-device
+                  budget is the accounting over those d devices): the
+                  route campaign (spmv_bench.campaign_route on the
+                  TRAFFIC_ROWS cut: a bin_pack fleet of 2 meshes x 4
+                  devices at 4 MiB a device with value swaps and deltas,
+                  a comm_aware fleet, the sibling p99 and
+                  delta-against-replan checks, the resume); the Fig. 1
+                  pair (rcm) on meshes of Topology(devices=8): a budget
+                  of 1.5x one key's largest per-device share with
+                  requests alternating between the keys (evictions and
+                  plan-store reloads, every answer within 1e-4 of
+                  float64, every high-water mark within its budget), a
+                  sharded value swap, a 0.5% deletion delta applied in
+                  the background while the sibling key serves (its p99
+                  before and during, held to 5x + 50 ms), comm_aware
+                  placement over an 8- and a 2-device mesh; a fleet of
+                  two one-device meshes (nnz_balance, sell: K1 for lone
+                  requests, K2 for batches) on the cut; and routed
+                  --serve-traffic on the cut at half 7s.3's sustained
+                  rate;
 7w. workloads   — repro_torch.workloads.run_stream(verify=True) over the
                   drift scenario: MoE routing at Qwen3-30B-A3B's router
                   (128 experts, top 8, d 2048, 4096 tokens; sell, K2; the
@@ -185,7 +207,8 @@ the run with a nonzero exit code (nothing is caught):
 Every kernel launch counter is set to 0 just before the first campaign of
 phase 4, the campaign of phase 4c, each forced path of phase 5 (f32 and
 bf16) and of phase 6b, each service and workload path of phases 7s and 7w,
-the parallel campaign of phase 7p and the f32 prefill of phase 8, and read
+the parallel campaign of phase 7p, the one-device fleet of phase 7r and
+the f32 prefill of phase 8, and read
 just after it (and around each K4 panel check of phase 7p, which must
 show one K4 launch; those launches are not the path's); a bell cell of
 phase 7p that launched no K4, a forced path that
@@ -194,8 +217,8 @@ kernel engine that launched nothing in its own timed calls, a service or
 workload path that did not launch its kernels, or a prefill whose K5
 count is not its number of Mamba2 layers (81), fails the run. The kernels
 line reports, for each kernel, the launches of the path that feeds its
-row and, for K1-K4 in f32, those of the service, workload and parallel
-campaign paths (`launches_paths`).
+row and, for K1-K4 in f32, those of the service, router, workload and
+parallel campaign paths (`launches_paths`).
 
 Verification is against the numpy float64 oracle at rel err <= 1e-4 (the
 error over the oracle's largest entry); a kernel against its plain version
@@ -1445,9 +1468,10 @@ TRAFFIC_BUDGET_OPS = 2.5         # the memory budget, in operators
 # step are the steps two below and two above it. It starts at step
 # RAMP_START and walks up while runs are sustained, or down until one is.
 RAMP_BASE, RAMP_START, RAMP_STEPS = 10.0, 2, range(-4, 11)
-# the serve cell at the full size: the first 16 arrivals of the schedule
-# with the value updates of the mix (the cell kind has no structure deltas)
-SERVE_CELL = {"requests": 16, "update_frac": 0.1}
+# the serve cell at the full size: the first 8 arrivals of the schedule,
+# with both value updates of its first 16 (arrivals 3 and 7; the cell kind
+# has no structure deltas)
+SERVE_CELL = {"requests": 8, "update_frac": 0.1}
 OVER_CHURN = 0.16                # deletion fraction past delta.MAX_CHURN
 
 
@@ -1565,16 +1589,14 @@ def serve_sim(dev, mats: dict, engine: str, reqs: list, want: list) -> dict:
 
 def serve_dynamic(dev, svc, mat, key: str) -> None:
     """7s.2 on one sell key of the serve-sim service: a value swap (values
-    x 1.01), a 0.5% deletion delta (applied under the frozen plan) and an
-    over-churn delta (a full replan), each followed by a request held
-    against the new product; then the planted control: a response after
-    the swap, held against the product before it, must fail."""
+    x 1.01) and a 0.5% deletion delta (applied under the frozen plan),
+    each followed by a request held against the new product; then the
+    planted control: a response after the swap, held against the product
+    before it, must fail. The over-churn delta runs on the cut
+    (serve_over_churn)."""
     import dataclasses
 
     import numpy as np
-
-    from repro_torch import obs
-    from repro_torch.serving import traffic
 
     rng = np.random.default_rng(5)
     x = rng.standard_normal(mat.n)
@@ -1603,39 +1625,65 @@ def serve_dynamic(dev, svc, mat, key: str) -> None:
           f"product before it: rel err {stale:.3e} > {VERIFY_TOL:.0e}, "
           f"caught", flush=True)
 
-    for label, frac, counter in (("delta", 0.005, "delta.applies"),
-                                 ("over-churn delta", OVER_CHURN,
-                                  "delta.fallbacks")):
-        t0 = time.perf_counter()
-        c0 = obs.counter(counter).value
-        r0 = svc.stats()["replans"]
-        d = traffic._deletion_delta(cur, rng, frac)
-        churn = d.churn(cur)
-        fut = svc.update_structure(key, delta=d)
-        submit_s = time.perf_counter() - t0
-        fut.result(timeout=900)
-        landed_s = time.perf_counter() - t0
-        cur = d.apply_to(cur)
-        y = svc.submit(key, x).result(timeout=600)
-        err = check_product(label, y, device_product(cur, x, dev))
-        moved = obs.counter(counter).value - c0
-        info = svc._build_info[key]
-        pl = svc._plans[key][2]
-        if moved != 1 or svc.stats()["replans"] - r0 != 1:
-            raise AssertionError(f"{label}: {counter} +{moved}, replans "
-                                 f"+{svc.stats()['replans'] - r0}")
-        if counter == "delta.applies" and not (
-                info["tune_ms"] == 0.0 and pl.tune_ms == 0.0
-                and pl.reorder_ms == 0.0):
-            raise AssertionError(f"delta: the new operator was tuned or "
-                                 f"reordered: build tune_ms="
-                                 f"{info['tune_ms']} plan tune_ms="
-                                 f"{pl.tune_ms} reorder_ms={pl.reorder_ms}")
-        phase(f"serve {label}", t0, deleted=d.churn_nnz,
-              churn=f"{churn:.4f}", **{counter: moved},
-              submit_s=f"{submit_s:.2f}", landed_s=f"{landed_s:.2f}",
-              tune_ms=info["tune_ms"], reorder_ms=pl.reorder_ms,
-              plan_ms=f"{pl.plan_ms:.1f}", rel_err=f"{err:.2e}")
+    serve_delta(dev, svc, key, cur, x, rng, "delta", 0.005, "delta.applies")
+
+
+def serve_delta(dev, svc, key: str, cur, x, rng, label: str, frac: float,
+                counter: str) -> None:
+    """One deletion delta of `frac` on `key` (current matrix `cur`): the
+    replan lands, `counter` moves by one, a request is held against the
+    new product; a delta.applies path is neither tuned nor reordered."""
+    from repro_torch import obs
+    from repro_torch.serving import traffic
+
+    t0 = time.perf_counter()
+    c0 = obs.counter(counter).value
+    r0 = svc.stats()["replans"]
+    d = traffic._deletion_delta(cur, rng, frac)
+    churn = d.churn(cur)
+    fut = svc.update_structure(key, delta=d)
+    submit_s = time.perf_counter() - t0
+    fut.result(timeout=900)
+    landed_s = time.perf_counter() - t0
+    cur = d.apply_to(cur)
+    y = svc.submit(key, x).result(timeout=600)
+    err = check_product(label, y, device_product(cur, x, dev))
+    moved = obs.counter(counter).value - c0
+    info = svc._build_info[key]
+    pl = svc._plans[key][2]
+    if moved != 1 or svc.stats()["replans"] - r0 != 1:
+        raise AssertionError(f"{label}: {counter} +{moved}, replans "
+                             f"+{svc.stats()['replans'] - r0}")
+    if counter == "delta.applies" and not (
+            info["tune_ms"] == 0.0 and pl.tune_ms == 0.0
+            and pl.reorder_ms == 0.0):
+        raise AssertionError(f"delta: the new operator was tuned or "
+                             f"reordered: build tune_ms="
+                             f"{info['tune_ms']} plan tune_ms="
+                             f"{pl.tune_ms} reorder_ms={pl.reorder_ms}")
+    phase(f"serve {label}", t0, deleted=d.churn_nnz,
+          churn=f"{churn:.4f}", **{counter: moved},
+          submit_s=f"{submit_s:.2f}", landed_s=f"{landed_s:.2f}",
+          tune_ms=info["tune_ms"], reorder_ms=pl.reorder_ms,
+          plan_ms=f"{pl.plan_ms:.1f}", rel_err=f"{err:.2e}")
+
+
+def serve_over_churn(dev) -> None:
+    """7s.2 (end): an over-churn delta (a full replan through the
+    DeltaTooLarge fallback) on one sell key of TRAFFIC_MATRIX, served as
+    the serve-sim service serves."""
+    import numpy as np
+
+    from repro_torch.serving.spmv_service import SpmvService
+
+    mat = traffic_matrix()
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(mat.n)
+    with SpmvService(engine="sell", device=dev, **SERVE_KW) as svc:
+        svc.register(TRAFFIC_MATRIX, mat)
+        svc.operator(TRAFFIC_MATRIX)
+        serve_delta(dev, svc, TRAFFIC_MATRIX, mat, x, rng,
+                    "over-churn delta", OVER_CHURN, "delta.fallbacks")
 
 
 def ramp_rate(step: int) -> float:
@@ -1888,8 +1936,9 @@ def dispatch_breakdown(dev, svc, key: str) -> None:
           flush=True)
 
 
-def serve_phase(dev, mats: dict) -> dict:
-    """Phase 7s; returns the launches of its service paths by kernel."""
+def serve_phase(dev, mats: dict) -> tuple:
+    """Phase 7s; returns the launches of its service paths by kernel, and
+    the traffic ramp's rate at half the sustained one."""
     from repro_torch import kernels
     from repro_torch.core.spmv.opcache import operator_nbytes
 
@@ -1905,6 +1954,7 @@ def serve_phase(dev, mats: dict) -> dict:
             dispatch_breakdown(dev, svc, shuffled)
             dispatch_stretch(svc, shuffled)
             serve_dynamic(dev, svc, mats[shuffled], shuffled)
+            serve_over_churn(dev)
         svc.close()
     del svc, out
     traffic = serve_traffic(dev)
@@ -1912,7 +1962,7 @@ def serve_phase(dev, mats: dict) -> dict:
     kernels.reset_launches()
     serve_cell(dev, shuffled, mats[shuffled], traffic["rate"], op_bytes)
     paths["serve-cell"] = dict(kernels.LAUNCHES)
-    return paths
+    return paths, traffic["rate"]
 
 
 # -- phase 7p: sharded plans at the Fig. 1 size ----------------------------
@@ -1920,11 +1970,13 @@ SHARDED_P = 8
 # the plans of the phase: (scheme, layout), engine auto, partition auto
 SHARDED_PLANS = (("baseline", "1d_rows"), ("rcm", "1d_rows"),
                  ("rcm", "2d_panels"))
-SHARDED_VARIANTS = ("1d_rows:nnz_balanced", "1d_rows:static",
-                    "2d_panels:nnz_balanced")
+# (1d_rows:static left the campaign to make room for phase 7r: the auto
+# partition of 7p.1's 1d_rows plans resolves to static, so those plans
+# already verify that split)
+SHARDED_VARIANTS = ("1d_rows:nnz_balanced", "2d_panels:nnz_balanced")
 SHARDED_BELL_VARIANTS = ("1d_rows:nnz_balanced",)
 # the cell the plan-store rerun repeats (scheme, engine request, variant):
-# one of seven, to keep the run inside its time (each cell took 8-36 s,
+# one of five, to keep the run inside its time (each cell took 8-36 s,
 # mostly host work, in the first runs on the card)
 SHARDED_AGAIN = ("rcm", "auto", "1d_rows:nnz_balanced")
 SINGLE_TOL = 1e-5        # a sharded operator against the single-device one
@@ -2336,6 +2388,325 @@ def sharded_phase(dev, name: str, mat) -> dict:
     sharded_bell_panels(dev, mat, bell_ms)
     sharded_service(dev, mat)
     return {"sharded/parallel campaign": launches}
+
+
+# -- phase 7r: the multi-shard router --------------------------------------
+# every mesh of a fleet runs on the one card: a mesh of d > 1 devices is a
+# Topology whose panels run simulated, its per-device budget the
+# accounting of operator_nbytes_per_device over those d devices
+ROUTE_P = 8
+ROUTE_BUDGET_SHARE = 1.5         # 7r.2.1: one key's largest share, x1.5
+ROUTE_ALTERNATE = 3              # 7r.2.1: requests alternating two keys
+ROUTE_SIBLING_BASE = 40          # 7r.2.3: sibling requests before the delta
+ROUTE_DELTA_FRAC = 0.005         # 7r.2.3: the deletion delta's fraction
+ROUTE_KW = {"engine": "auto", "reorder": "rcm", "partition": "auto",
+            "max_batch": 1, "window_ms": 2.0}    # 7p's plans: k = 1
+ROUTE_ONE_DEVICE = {"engine": "sell", "reorder": "rcm", "max_batch": 8,
+                    "window_ms": 20.0}           # 7r.3: 7s.3's plans
+ROUTE_TRAFFIC_REQUESTS = 60      # 7r.4, at half 7s.3's sustained rate
+
+
+def route_campaign(dev) -> None:
+    """7r.1: spmv_bench.campaign_route on TRAFFIC_MATRIX (two route cells,
+    the sibling p99 and delta-against-replan checks, the resume)."""
+    from repro_torch.launch import spmv_bench
+
+    t0 = time.perf_counter()
+    traffic_matrix()
+    fails = spmv_bench.campaign_route(dev, matrices=(TRAFFIC_MATRIX,))
+    if fails:
+        raise AssertionError(f"route campaign: {fails} failures")
+    phase("route campaign", t0, matrix=TRAFFIC_MATRIX)
+
+
+def route_request(rt, key: str, x):
+    t0 = time.perf_counter()
+    y = rt.submit(key, x).result(timeout=900)
+    return y, time.perf_counter() - t0
+
+
+def route_budget(dev, mats: dict, share: int) -> None:
+    """7r.2.1-2: both Fig. 1 keys on one mesh whose per-device budget
+    holds one operator (ROUTE_BUDGET_SHARE x the largest share), requests
+    alternating between them (each evicts the other: reloads from the plan
+    store), then a sharded value swap to the structure twin's values."""
+    import numpy as np
+
+    from repro_torch.core.spmv.topology import Topology
+    from repro_torch.launch import spmv_bench
+    from repro_torch.router import MeshSpec, RoutedSpmvService
+
+    t0 = time.perf_counter()
+    budget = int(ROUTE_BUDGET_SHARE * share)
+    mesh = MeshSpec("m8", Topology(devices=ROUTE_P, layout="1d_rows"),
+                    budget_per_device=budget)
+    rng = np.random.default_rng(17)
+    names = list(mats)
+    xs = {n: rng.standard_normal(mats[n].n) for n in names}
+    want = {n: device_product(mats[n], xs[n], dev) for n in names}
+    with RoutedSpmvService([mesh], device=dev, **ROUTE_KW) as rt:
+        for n in names:
+            rt.register(n, mats[n])
+        secs, errs = [], []
+        for i in range(ROUTE_ALTERNATE):
+            n = names[i % 2]
+            y, s = route_request(rt, n, xs[n])
+            errs.append(check_product(f"route budget request {i} ({n})",
+                                      y, want[n]))
+            secs.append(s)
+        st = rt.stats()
+        svc = st["per_mesh"]["m8"]["service"]
+        if not (st["evictions"] >= 1 and svc["op_reloads"] >= 1):
+            raise AssertionError(f"route budget: evictions="
+                                 f"{st['evictions']} reloads="
+                                 f"{svc['op_reloads']} (want >= 1 each)")
+        if not (st["per_device_ok"]
+                and svc["resident_bytes_max"] <= svc["memory_budget_bytes"]):
+            raise AssertionError(
+                f"route budget: per_device_ok={st['per_device_ok']} "
+                f"resident_bytes_max={svc['resident_bytes_max']} > "
+                f"{svc['memory_budget_bytes']}")
+        phase("route budget", t0, budget_per_device=budget,
+              share=share, evictions=st["evictions"],
+              reloads=svc["op_reloads"], builds=svc["op_builds"],
+              request_s=json.dumps([round(s, 3) for s in secs]),
+              reload_s=f"{max(secs[2:]):.3f}",
+              resident_bytes_max=svc["resident_bytes_max"],
+              per_device_bytes=json.dumps(
+                  st["per_mesh"]["m8"]["per_device_bytes"]),
+              max_rel_err=f"{max(errs):.2e}")
+
+        t0 = time.perf_counter()
+        key = names[0]
+        twin = spmv_bench.structure_twin(mats[key], 19)
+        rt.update_values(key, twin.vals)
+        swap_s = time.perf_counter() - t0
+        y, s = route_request(rt, key, xs[key])
+        err = check_product("route value swap", y,
+                            device_product(twin, xs[key], dev))
+        stale = scaled_err(y, want[key])
+        if stale <= VERIFY_TOL:
+            raise AssertionError(f"route value swap: the answer passes "
+                                 f"against the old values ({stale:.3e})")
+        st = rt.stats()
+        if (st["value_swaps"], st["replans"]) != (1, 0):
+            raise AssertionError(f"route value swap: value_swaps="
+                                 f"{st['value_swaps']} replans="
+                                 f"{st['replans']} (want 1, 0)")
+        phase("route value swap", t0, swap_s=f"{swap_s:.3f}",
+              request_s=f"{s:.3f}", rel_err=f"{err:.2e}",
+              old_values_rel_err=f"{stale:.3e}",
+              per_device_ok=st["per_device_ok"])
+
+
+def route_delta(dev, rt, mats: dict) -> None:
+    """7r.2.3 on the unbudgeted fleet: a ROUTE_DELTA_FRAC deletion delta
+    on the first key while the second (its sibling on the same mesh)
+    serves lone requests; the sibling's p99 before and during the
+    background replan is held to the JAX package's criterion."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.launch import spmv_bench
+    from repro_torch.serving import traffic
+
+    hot, sib = list(mats)
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal(mats[sib].n)
+    want = device_product(mats[sib], x, dev)
+    base, errs = [], []
+    for _ in range(ROUTE_SIBLING_BASE):
+        y, s = route_request(rt, sib, x)
+        base.append(s * 1e3)
+        errs.append(check_product("route sibling", y, want))
+    d = traffic._deletion_delta(mats[hot], rng, ROUTE_DELTA_FRAC)
+    applies0 = obs.counter("delta.applies").value
+    fallbacks0 = obs.counter("delta.fallbacks").value
+    r0 = rt.stats()["replans"]
+    t0 = time.perf_counter()
+    fut = rt.update_structure(hot, delta=d)
+    submit_s = time.perf_counter() - t0
+    during = []
+    while not fut.done() or not during:
+        y, s = route_request(rt, sib, x)
+        during.append(s * 1e3)
+        errs.append(check_product("route sibling during the replan", y,
+                                  want))
+    fut.result(timeout=900)
+    landed_s = time.perf_counter() - t0
+    applies = obs.counter("delta.applies").value - applies0
+    fallbacks = obs.counter("delta.fallbacks").value - fallbacks0
+    replans = rt.stats()["replans"] - r0
+    if (applies, fallbacks, replans) != (1, 0, 1):
+        raise AssertionError(f"route delta: delta.applies +{applies}, "
+                             f"fallbacks +{fallbacks}, replans +{replans} "
+                             f"(want +1, +0, +1)")
+    new = d.apply_to(mats[hot])
+    xh = rng.standard_normal(new.n)
+    y, _ = route_request(rt, hot, xh)
+    err = check_product("route delta", y, device_product(new, xh, dev))
+    p_base, p_during = spmv_bench.p99(base), spmv_bench.p99(during)
+    print(f"[result] route sibling p99: {p_base:.2f} ms before, "
+          f"{p_during:.2f} ms during the replan ({len(during)} requests; "
+          f"criterion <= 5 x before + 50 ms)", flush=True)
+    if not spmv_bench.sibling_p99_flat(p_base, p_during):
+        raise AssertionError(f"route delta: sibling p99 {p_during:.2f} ms "
+                             f"during the replan vs {p_base:.2f} ms before")
+    phase("route delta", t0, deleted=d.churn_nnz,
+          submit_s=f"{submit_s:.3f}", replan_s=f"{landed_s:.3f}",
+          sibling_p99_before_ms=f"{p_base:.3f}",
+          sibling_p99_during_ms=f"{p_during:.3f}",
+          sibling_requests_during=len(during),
+          sibling_max_ms=f"{max(during):.3f}", rel_err=f"{err:.2e}",
+          sibling_max_rel_err=f"{max(errs):.2e}")
+
+
+def route_comm_aware(dev, mats: dict) -> None:
+    """7r.2.4: both keys registered under comm_aware on a fleet of one
+    8-device and one 2-device mesh (placement only: no operator is
+    built); the assignment and each mesh's modelled bytes a SpMV."""
+    from repro_torch.core.sparse.partition import static_partition
+    from repro_torch.core.spmv import topology as topo_mod
+    from repro_torch.core.spmv.topology import Topology
+    from repro_torch.router import MeshSpec, RoutedSpmvService
+
+    t0 = time.perf_counter()
+    meshes = [MeshSpec("m8", Topology(devices=ROUTE_P)),
+              MeshSpec("m2", Topology(devices=2))]
+    with RoutedSpmvService(meshes, policy="comm_aware", device=dev,
+                           **ROUTE_KW) as rt:
+        for n, m in mats.items():
+            rt.register(n, m)
+        register_s = time.perf_counter() - t0
+        assignments = rt.stats()["routing"]["assignments"]
+    modelled = {}
+    for n, m in mats.items():
+        for spec in meshes:
+            topo = spec.topology
+            model = topo_mod.comm_model(
+                m, static_partition(m, topo.row_devices), topo,
+                dtype_size=4, k=1, block_shape=(8, 128))
+            modelled[f"{n}@{spec.name}"] = {
+                "schedule": model["schedule"],
+                "bytes_per_spmv": int(model["bytes_per_spmv"])}
+    phase("route comm_aware", t0, register_s=f"{register_s:.3f}",
+          assignments=json.dumps(assignments),
+          modelled=json.dumps(modelled))
+
+
+def route_fleet(dev, mats: dict) -> None:
+    """7r.2: the Fig. 1 pair (rcm) on MeshSpecs of Topology(devices=8,
+    layout="1d_rows"), 7p's topology: each key's operator once on an
+    unbudgeted mesh (the shuffled one a plan-store hit), then the budget,
+    the value swap, the delta and comm_aware."""
+    from repro_torch.core.spmv import opcache
+    from repro_torch.core.spmv.topology import Topology
+    from repro_torch.router import MeshSpec, RoutedSpmvService
+
+    t0 = time.perf_counter()
+    mesh = MeshSpec("m8", Topology(devices=ROUTE_P, layout="1d_rows"))
+    with RoutedSpmvService([mesh], device=dev, **ROUTE_KW) as rt:
+        shares, hits = {}, {}
+        for n, m in mats.items():
+            t1 = time.perf_counter()
+            rt.register(n, m)
+            op = rt.operator(n)
+            shares[n] = max(opcache.operator_nbytes_per_device(op))
+            hits[n] = bool(op.build_info.get("cache_hit"))
+            print(f"[route] {n}: {op.plan.label()} plan_store_hit="
+                  f"{hits[n]} largest per-device share {shares[n]} B "
+                  f"({time.perf_counter() - t1:.2f} s)", flush=True)
+            del op
+        phase("route operators", t0, plan_store_hit=json.dumps(hits),
+              shares=json.dumps(shares))
+        route_budget(dev, mats, max(shares.values()))
+        route_delta(dev, rt, mats)
+    route_comm_aware(dev, mats)
+
+
+def route_one_device(dev) -> dict:
+    """7r.3: a fleet of two one-device meshes under nnz_balance, engine
+    sell, both keys TRAFFIC_MATRIX: the keys must land on both meshes;
+    lone requests (K1) and coalesced batches (K2) each within VERIFY_TOL
+    of the float64 product. Launch counts are set to 0 just before the
+    fleet and read just after it; returns them."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core.spmv.topology import Topology
+    from repro_torch.router import MeshSpec, RoutedSpmvService
+
+    t0 = time.perf_counter()
+    mat = traffic_matrix()
+    keys = [f"{TRAFFIC_MATRIX}#{i}" for i in range(2)]
+    nb = ROUTE_ONE_DEVICE["max_batch"]
+    rng = np.random.default_rng(29)
+    xs = rng.standard_normal((mat.n, nb))
+    want = device_product(mat, xs, dev)
+    meshes = [MeshSpec(f"d{i}", Topology(devices=1)) for i in range(2)]
+    kernels.reset_launches()
+    with RoutedSpmvService(meshes, policy="nnz_balance", device=dev,
+                           **ROUTE_ONE_DEVICE) as rt:
+        for k in keys:
+            rt.register(k, mat)
+        errs = []
+        for k in keys:
+            y = rt.submit(k, xs[:, 0]).result(timeout=600)
+            errs.append(check_product(f"one-device fleet lone {k}", y,
+                                      want[:, 0]))
+            futs = [rt.submit(k, xs[:, j]) for j in range(nb)]
+            for j, f in enumerate(futs):
+                errs.append(check_product(f"one-device fleet batch {k}",
+                                          f.result(timeout=600),
+                                          want[:, j]))
+        st = rt.stats()
+    launches = dict(kernels.LAUNCHES)
+    assignments = st["routing"]["assignments"]
+    batch_max = max(m["service"]["batch_size_max"]
+                    for m in st["per_mesh"].values())
+    if len(set(assignments.values())) != 2:
+        raise AssertionError(f"one-device fleet: nnz_balance did not "
+                             f"spread the keys: {assignments}")
+    if launches["sell_spmv"] == 0 or launches["sell_spmm"] == 0 \
+            or batch_max < 2:
+        raise AssertionError(f"one-device fleet: launches {launches}, "
+                             f"largest batch {batch_max}")
+    phase("route one-device fleet", t0, assignments=json.dumps(assignments),
+          batch_size_max=batch_max, max_rel_err=f"{max(errs):.2e}",
+          launches=json.dumps(launches))
+    return launches
+
+
+def route_traffic(dev, rate: float) -> None:
+    """7r.4: spmv_bench's routed --serve-traffic on TRAFFIC_MATRIX, 2 meshes
+    of 4 devices, at `rate` (half 7s.3's sustained rate); it exits
+    nonzero unless its `ok` holds."""
+    from repro_torch.launch import spmv_bench
+
+    t0 = time.perf_counter()
+    spmv_bench.main([
+        "--serve-traffic", "--devices", "4", "--meshes", "2",
+        "--matrix", TRAFFIC_MATRIX, "--rate", f"{rate:g}",
+        "--requests", str(ROUTE_TRAFFIC_REQUESTS),
+        "--keys", str(TRAFFIC["n_keys"]), "--zipf", str(TRAFFIC["zipf_s"]),
+        "--update-frac", str(TRAFFIC["update_frac"]),
+        "--structure-frac", str(TRAFFIC["structure_frac"]),
+        "--max-batch", str(TRAFFIC["max_batch"]),
+        "--window-ms", str(TRAFFIC["window_ms"]),
+        "--max-queue", str(TRAFFIC["max_queue"]),
+        "--serve-reorder", TRAFFIC["reorder"], "--device", str(dev)])
+    phase("route traffic", t0, rate_rps=rate)
+
+
+def route_phase(dev, mats: dict, rate: float) -> dict:
+    """Phase 7r; returns the launches of its one-device fleet."""
+    route_campaign(dev)
+    t0 = time.perf_counter()
+    route_fleet(dev, mats)
+    phase("route fleet", t0)
+    launches = route_one_device(dev)
+    route_traffic(dev, rate)
+    return {"route/one-device fleet": launches}
 
 
 # -- phase 7w: the workload streams ----------------------------------------
@@ -3040,12 +3411,15 @@ def run(args, torch) -> int:
     phase("controls", t0)
 
     t0 = time.perf_counter()
-    paths = serve_phase(dev, mats)
+    paths, half_rate = serve_phase(dev, mats)
     phase("serve", t0)
     t0 = time.perf_counter()
     paths.update(sharded_phase(dev, args.shuffled, mats[args.shuffled]))
-    del mats
     phase("sharded", t0)
+    t0 = time.perf_counter()
+    paths.update(route_phase(dev, mats, half_rate))
+    del mats
+    phase("route", t0)
     t0 = time.perf_counter()
     paths.update(workload_phase(dev))
     phase("workloads", t0)

@@ -15,7 +15,8 @@ Cells are content-addressed in the ResultStore (atomic write-then-rename
 JSON under benchmarks/results/store_torch/), so re-running a campaign
 measures nothing and extending an axis measures only the delta. Reports
 are strict: a missing cell raises MissingCellError instead of propagating
-NaN. The "spmv" and "schedule" kinds are ported; `Runner(...,
+NaN. Every kind of the JAX package is ported ("spmv", "schedule",
+"parallel", "workload", "serve", "route"; cells.py); `Runner(...,
 device="cpu")` runs on the CPU on purpose.
 """
 from .cells import CELL_KINDS, get_cell_kind, register_cell_kind

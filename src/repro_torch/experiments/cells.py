@@ -39,11 +39,17 @@ CELL_KINDS. Built-ins, as in the JAX package:
   * "serve"    — one open-loop traffic run (serve_variant encodes it)
                  against an SpmvService: SLO percentiles, outcome counts
                  and the hardening invariants.
-The workload and serve records carry `launches`, the kernel launches of
-their own run.
+  * "route"    — one traffic run against a RoutedSpmvService FLEET
+                 (repro_torch.router): the variant encodes load + fleet
+                 shape (`route_variant(...)` — meshes, devices per mesh,
+                 placement policy, per-device budget, structure-delta
+                 mix) and the record adds the router verdicts:
+                 per_device_ok, replans landed vs delta applies, and the
+                 key→mesh assignment. On one card a mesh's devices are
+                 simulated (router/service.py).
+The workload, serve and route records carry `launches`, the kernel
+launches of their own run.
 
-The JAX package's "route" kind is not ported yet; asking for it raises
-NotImplementedError naming what it waits for.
 Third-party kinds register with @register_cell_kind.
 """
 from __future__ import annotations
@@ -57,11 +63,6 @@ from ..device import torch_dtype
 
 CELL_KINDS: Dict[str, Callable] = {}
 
-# the JAX package's other kinds, and what each waits for (ROADMAP queue A)
-NOT_PORTED = {
-    "route": "the multi-shard router over sharded plans (queue A item 5)",
-}
-
 
 def register_cell_kind(name: str, override: bool = False) -> Callable:
     def deco(fn: Callable) -> Callable:
@@ -74,9 +75,6 @@ def register_cell_kind(name: str, override: bool = False) -> Callable:
 
 
 def get_cell_kind(name: str) -> Callable:
-    if name in NOT_PORTED and name not in CELL_KINDS:
-        raise NotImplementedError(f"cell kind {name!r} is not ported yet: "
-                                  f"it needs {NOT_PORTED[name]}")
     try:
         return CELL_KINDS[name]
     except KeyError:
@@ -595,6 +593,152 @@ def measure_serve_cell(cell, mat, device) -> dict:
         "budget_ok": bool(summary["budget_ok"]),
         # the no-silent-drops invariant, checked at quiescence: every
         # admitted request is accounted a result, a shed, or an error
+        "counters_balanced": bool(
+            stats["requests"] == stats["results"] + stats["sheds"]
+            + stats["errors"] and stats["pending"] == 0),
+        "launches": kernels.launches_since(before),
+    }
+
+
+# --------------------------------------------------------------------------
+# routed serving cells (multi-shard fleet traffic)
+# --------------------------------------------------------------------------
+_ROUTE_DEFAULTS = {
+    "arrival": "poisson", "rate_rps": 300.0, "requests": 200,
+    "n_keys": 2, "zipf_s": 1.1, "update_frac": 0.0,
+    "structure_frac": 0.0,
+    "devices": 2,                # devices per mesh
+    "meshes": 2,                 # fleet size
+    "layout": "1d_rows",
+    "policy": "bin_pack",        # placement policy
+    "budget_mb": 0.0,            # per-DEVICE budget (0 = unbudgeted)
+    "window_ms": 2.0,
+}
+
+
+def route_variant(arrival: str = "poisson", rate_rps: float = 300.0,
+                  requests: int = 200, n_keys: int = 2,
+                  zipf_s: float = 1.1, update_frac: float = 0.0,
+                  structure_frac: float = 0.0, devices: int = 2,
+                  meshes: int = 2, layout: str = "1d_rows",
+                  policy: str = "bin_pack", budget_mb: float = 0.0,
+                  window_ms: float = 2.0) -> str:
+    """Variants-axis encoding of one routed-fleet scenario (the serve
+    kind's convention: arrival first, then single-letter tokens with
+    defaults elided — r=rate_rps, n=requests, K=n_keys, z=zipf_s,
+    u=update_frac, s=structure_frac, d=devices per mesh, M=meshes,
+    L=layout, P=placement policy, m=per-device budget_mb, w=window_ms)."""
+    toks = [arrival]
+    for tag, name, val in (("r", "rate_rps", rate_rps),
+                           ("n", "requests", requests),
+                           ("K", "n_keys", n_keys),
+                           ("z", "zipf_s", zipf_s),
+                           ("u", "update_frac", update_frac),
+                           ("s", "structure_frac", structure_frac),
+                           ("d", "devices", devices),
+                           ("M", "meshes", meshes),
+                           ("L", "layout", layout),
+                           ("P", "policy", policy),
+                           ("m", "budget_mb", budget_mb),
+                           ("w", "window_ms", window_ms)):
+        if val != _ROUTE_DEFAULTS[name]:
+            toks.append(f"{tag}{val:g}" if isinstance(val, float)
+                        else f"{tag}{val}")
+    return ",".join(toks)
+
+
+def _parse_route_variant(variant: str) -> dict:
+    from ..serving.traffic import ARRIVALS
+
+    cfg = dict(_ROUTE_DEFAULTS)
+    toks = [t for t in (variant or "").split(",") if t]
+    if toks and toks[0] in ARRIVALS:
+        cfg["arrival"] = toks.pop(0)
+    casts = {"r": ("rate_rps", float), "n": ("requests", int),
+             "K": ("n_keys", int), "z": ("zipf_s", float),
+             "u": ("update_frac", float), "s": ("structure_frac", float),
+             "d": ("devices", int), "M": ("meshes", int),
+             "L": ("layout", str), "P": ("policy", str),
+             "m": ("budget_mb", float), "w": ("window_ms", float)}
+    for t in toks:
+        if t[0] not in casts:
+            raise ValueError(f"unknown route-variant token {t!r} in "
+                             f"{variant!r} (known: {sorted(casts)})")
+        name, cast = casts[t[0]]
+        cfg[name] = cast(t[1:])
+    return cfg
+
+
+@register_cell_kind("route")
+def measure_route_cell(cell, mat, device) -> dict:
+    """One open-loop traffic run against a RoutedSpmvService fleet: the
+    variant encodes load shape + fleet shape (`route_variant(...)`),
+    cell.k is each mesh service's max_batch. The matrix registers under
+    n_keys distinct keys routed across the meshes by the placement
+    policy; traffic mixes submits with value swaps and small deletion
+    StructureDeltas (the delta-apply shard-replan path). The record adds
+    the router's verdicts — per_device_ok, replans landed, the
+    key→mesh assignment — to the serve-kind SLO summary, and the kernel
+    launches of its own run."""
+    from .. import kernels
+    from ..core.spmv.topology import Topology
+    from ..router import MeshSpec, RoutedSpmvService
+    from ..serving import traffic
+
+    pol = cell.policy_dict()
+    cfg = _parse_route_variant(cell.variant)
+    pattern = traffic.TrafficPattern(
+        arrival=cfg["arrival"], rate_rps=cfg["rate_rps"],
+        requests=cfg["requests"], n_keys=cfg["n_keys"],
+        zipf_s=cfg["zipf_s"], update_frac=cfg["update_frac"],
+        structure_frac=cfg["structure_frac"], seed=pol["seed"])
+    budget = (None if cfg["budget_mb"] <= 0
+              else int(cfg["budget_mb"] * (1 << 20)))
+    meshes = [MeshSpec(f"mesh{i}",
+                       Topology(devices=cfg["devices"],
+                                layout=cfg["layout"]),
+                       budget_per_device=budget)
+              for i in range(cfg["meshes"])]
+    svc = RoutedSpmvService(
+        meshes, policy=cfg["policy"], engine=cell.engine,
+        max_batch=max(int(cell.k), 1), window_ms=cfg["window_ms"],
+        use_kernel=pol["use_kernel"], dtype=torch_dtype(cell.dtype),
+        reorder=cell.scheme, device=device)
+    before = dict(kernels.LAUNCHES)
+    try:
+        mats = {f"{cell.matrix}#{i}": mat for i in range(cfg["n_keys"])}
+        for k, m in mats.items():
+            svc.register(k, m)
+        summary = traffic.run_open_loop(svc, mats, pattern)
+        svc.flush()
+        stats = svc.stats()       # quiescent: counters fully balanced
+    finally:
+        svc.close()
+    return {
+        "m": int(mat.m), "n": int(mat.n), "nnz": int(mat.nnz),
+        "offered": summary["offered"], "submitted": summary["submitted"],
+        "ok": summary["ok"], "shed": summary["shed"],
+        "rejected": summary["rejected"], "errors": summary["errors"],
+        "unresolved": summary["unresolved"],
+        "updates": summary["updates"],
+        "update_conflicts": summary["update_conflicts"],
+        "structure_updates": summary["structure_updates"],
+        "structure_conflicts": summary["structure_conflicts"],
+        "replans_landed": summary["replans_landed"],
+        "replan_errors": summary["replan_errors"],
+        "replan_unresolved": summary["replan_unresolved"],
+        "offered_rps": float(summary["offered_rps"]),
+        "achieved_rps": float(summary["achieved_rps"]),
+        "wall_s": float(summary["wall_s"]),
+        "devices": int(cfg["devices"]), "meshes": int(cfg["meshes"]),
+        "layout": cfg["layout"], "placement": cfg["policy"],
+        "budget_per_device": int(budget or 0),
+        "per_device_ok": bool(stats["per_device_ok"]),
+        "budget_ok": bool(summary["budget_ok"]),
+        "replans": int(stats["replans"]),
+        "value_swaps": int(stats["value_swaps"]),
+        "evictions": int(stats["evictions"]),
+        "assignments": dict(stats["routing"]["assignments"]),
         "counters_balanced": bool(
             stats["requests"] == stats["results"] + stats["sheds"]
             + stats["errors"] and stats["pending"] == 0),

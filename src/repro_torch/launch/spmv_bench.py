@@ -9,6 +9,9 @@
         --matrix smoke_powerlaw --rate 500 --keys 4 [--budget-mb M]
     python -m repro_torch.launch.spmv_bench --matrix fig1_shuffled \
         --scheme rcm --devices 8 --layout 1d_rows --partition auto
+    python -m repro_torch.launch.spmv_bench --serve-traffic \
+        --devices 4 --meshes 2 --placement nnz_balance [--device cpu]
+    python -m repro_torch.launch.spmv_bench --campaign route [--device cpu]
 
 The port's counterpart of the JAX package's `run_single`: one matrix, one
 reordering scheme ("auto" searches), one engine ("auto" tunes). It prints
@@ -19,7 +22,8 @@ against the numpy float64 oracle `CSRMatrix.spmv` in the original index
 space, for the cell's operator and for its structure twin (the same
 structure with values U(-1, 1)). A single cell measures on every
 invocation; its plan and operator come from the plan store when they are
-there.
+there, unless `--fresh` asks for a new plan. `--probe` and `--learned`
+pass probe=True and probe="learned" to plan().
 
 `--campaign smoke` is the port's counterpart of the JAX package's
 `benchmarks/run.py --smoke`: the smoke matrices x {baseline, rcm} x the
@@ -33,8 +37,19 @@ the micro-batching SpmvService (serving/spmv_service.py) and checks every
 response against the numpy oracle; `--serve-traffic` drives one open-loop
 traffic scenario (serving/traffic.py) against it and checks the service's
 invariants. Both print one line and one JSON record, as a single cell
-does; with `--devices > 1` they would serve through the multi-shard
-router, which is not ported.
+does. `--serve-traffic --devices N` (N > 1) serves the keys sharded
+through the multi-shard router (router/service.py): a fleet of
+`--meshes` meshes of N devices, keys placed by `--placement`, the budget
+bounding every device; on one card each mesh's devices are simulated.
+
+`--campaign route` is the port's counterpart of the JAX package's
+`benchmarks/run.py --smoke-route`: two "route" cells (a budgeted
+bin_pack fleet with value swaps and structure deltas, a comm_aware
+fleet) through the Runner, held to the router's invariants; the sibling
+p99 check (a background shard replan must not stall its sibling key);
+Plan.apply_delta against a full replan; and the resume from the result
+store. It exits nonzero on any failure. `--trace PATH` records the run's
+spans (.jsonl: the raw events, else Chrome-trace JSON).
 
 `--matrix M --devices N [--layout L] [--partition P]` is one sharded cell
 (`run_parallel`): a one-cell "parallel" ExperimentSpec through the
@@ -43,6 +58,7 @@ cell plans a Topology of N devices (partition x scheme x engine),
 verifies the ShardedOperator in the original index space and reports the
 modelled collective bytes of the chosen schedule beside the
 modelled-parallel time. On one card a p-device plan runs simulated.
+`--fresh` deletes the cell's stored record first, so it measures again.
 """
 from __future__ import annotations
 
@@ -122,11 +138,15 @@ def measure(op, nnz: int, n: int, k: int = 1, dtype=None, device=None,
 
 def run_cell(mat: CSRMatrix, scheme: str = "baseline", engine: str = "auto",
              k: int = 1, iters: int = 20, cg_iters: int = 10, dtype=None,
-             device=None, seed: int = 0, tol: float = 1e-4) -> dict:
+             device=None, seed: int = 0, tol: float = 1e-4, probe=False,
+             use_store: bool = True) -> dict:
     """plan → build → verify → measure for one (matrix, scheme, engine, k)
     cell; returns the record, the operator and the plan's reordered
     matrix.
 
+    probe is plan()'s (False: the cost model; True: time the top
+    candidates; "learned": the advisor's shortlist); use_store=False
+    plans and builds without the plan store (nothing read or written).
     Verification checks the cell's operator and, built under the same
     plan, the operator of its structure twin (`structure_twin`), which no
     dominant diagonal can hide a wrong term in."""
@@ -135,8 +155,9 @@ def run_cell(mat: CSRMatrix, scheme: str = "baseline", engine: str = "auto",
     dev = resolve_device(device)
     before = dict(LAUNCHES)
     pl = plan(SpmvProblem(mat, k=k, dtype=dtype, hints={"seed": seed}),
-              reorder=scheme, engine=engine)
-    op = pl.build(device=dev)
+              reorder=scheme, engine=engine, probe=probe, cache=use_store,
+              device=dev)
+    op = pl.build(device=dev, cache=use_store)
     rmat = pl.reordered_matrix()
     rec = {
         "device": device_kind(dev), "m": int(mat.m), "n": int(mat.n),
@@ -144,6 +165,7 @@ def run_cell(mat: CSRMatrix, scheme: str = "baseline", engine: str = "auto",
         "resolved_scheme": pl.scheme, "engine": pl.tune.engine,
         "plan_label": pl.label(), "reorder_ms": pl.reorder_ms,
         "tune_ms": pl.tune_ms, "plan_ms": pl.plan_ms,
+        "plan_store_hit": bool(pl.cache_hit), "probe": str(probe),
         "build_ms": op.build_info["build_ms"],
         "verify_rel_err": verify(op, mat, k, dtype, dev, tol, seed),
     }
@@ -159,21 +181,23 @@ def run_cell(mat: CSRMatrix, scheme: str = "baseline", engine: str = "auto",
 
 
 def run_single(matrix: str, scheme: str = "baseline", engine: str = "auto",
-               k: int = 1, iters: int = 20, device=None) -> dict:
+               k: int = 1, iters: int = 20, device=None, probe=False,
+               use_store: bool = True) -> dict:
     """One suite matrix through run_cell, printed as one line and one JSON
-    record."""
+    record. use_store=False (`--fresh`) makes a new plan."""
     from ..matrices import suite
 
     t0 = time.perf_counter()
     mat = suite.get(matrix)
     rec, _, _ = run_cell(mat, scheme, engine, k=k, iters=iters,
-                         device=device)
+                         device=device, probe=probe, use_store=use_store)
     rec["matrix"] = matrix
     rec["load_s"] = time.perf_counter() - t0
     tag = "spmm" if k > 1 else "spmv"
     print(f"[{tag}-single] {matrix}/{scheme}->{rec['resolved_scheme']} "
           f"engine={rec['engine']} label={rec['plan_label']} k={k} "
           f"plan_ms={rec['plan_ms']:.1f} build_ms={rec['build_ms']:.1f} "
+          f"plan_store_hit={rec['plan_store_hit']} probe={rec['probe']} "
           f"verify={rec['verify_rel_err']:.2e} "
           f"verify_twin={rec['verify_twin_rel_err']:.2e} "
           f"ios_ms={rec['ios_ms']:.4f} gflops={rec['ios_gflops']:.2f} "
@@ -260,17 +284,25 @@ def run_serve_traffic(matrix: str = "smoke_powerlaw",
                       budget_mb: float = 0.0, max_batch: int = 8,
                       window_ms: float = 2.0, max_queue: int = 32,
                       overload: str = "reject", engine: str = "auto",
-                      reorder: str = "baseline", seed: int = 0,
+                      reorder: str = "baseline", devices: int = 1,
+                      layout: str = "1d_rows", meshes: int = 2,
+                      placement: str = "bin_pack", seed: int = 0,
                       device=None) -> dict:
     """Open-loop traffic run against the hardened service (one scenario).
     The matrix is registered under n_keys service keys with Zipf-skewed
     traffic; a budget_mb > 0 memory budget makes the operator LRU
     (eviction + zero-re-tune plan-store reload) part of the scenario,
     update_frac > 0 mixes in no-replan value swaps, structure_frac > 0
-    mixes in StructureDelta background replans. Reports outcome counts,
-    SLO percentiles, the kernel launches and the hardening invariants
-    (`ok` = every future — requests and replans — resolved, none failed,
-    no update raised, budget respected, counters balance)."""
+    mixes in StructureDelta background replans. devices > 1 serves the
+    keys SHARDED from a RoutedSpmvService fleet (`meshes` meshes of
+    `devices` devices each, keys placed by `placement`; budget_mb then
+    bounds every DEVICE, not the fleet), rolled up as the JAX package
+    does: the worst mesh's percentiles, summed builds and reloads.
+    Reports outcome counts, SLO percentiles, the kernel launches and the
+    hardening invariants (`ok` = every future — requests and replans —
+    resolved, none failed, no update raised, budget respected, counters
+    balance; for a fleet also every device within its budget and every
+    mesh's high-water mark within its own)."""
     from ..matrices import suite
     from ..serving import traffic
     from ..serving.spmv_service import SpmvService
@@ -282,18 +314,51 @@ def run_serve_traffic(matrix: str = "smoke_powerlaw",
         structure_frac=structure_frac, seed=seed)
     budget = None if budget_mb <= 0 else int(budget_mb * (1 << 20))
     keys = [f"{matrix}#{i}" for i in range(n_keys)]
+    routed = devices > 1
+    kw = dict(engine=engine, reorder=reorder, max_batch=max_batch,
+              window_ms=window_ms, max_queue=max_queue, overload=overload,
+              device=device)
+    if routed:
+        from ..core.spmv.topology import Topology
+        from ..router import MeshSpec, RoutedSpmvService
+
+        fleet = [MeshSpec(f"mesh{i}",
+                          Topology(devices=devices, layout=layout),
+                          budget_per_device=budget)
+                 for i in range(meshes)]
+        svc = RoutedSpmvService(fleet, policy=placement, **kw)
+    else:
+        svc = SpmvService(memory_budget_bytes=budget, **kw)
     before = dict(LAUNCHES)
-    with SpmvService(engine=engine, reorder=reorder, max_batch=max_batch,
-                     window_ms=window_ms, max_queue=max_queue,
-                     memory_budget_bytes=budget, overload=overload,
-                     device=device) as svc:
+    with svc:
         for k in keys:
             svc.register(k, mat)
         summary = traffic.run_open_loop(svc, {k: mat for k in keys},
                                         pattern)
         svc.flush()
         stats = svc.stats()
-    slo = stats["slo"]
+    if routed:
+        # fleet rollup: worst-mesh SLO (over meshes that answered),
+        # summed build/reload counters, the largest high-water mark
+        per = [m["service"] for m in stats["per_mesh"].values()]
+        served = [s for s in per if s["slo"]["latency_samples"]] or per
+        slo = {k: max(s["slo"][k] for s in served)
+               for k in ("p50_ms", "p95_ms", "p99_ms", "shed_rate",
+                         "eviction_rate")}
+        coalesce = max(s["coalesce_ratio"] for s in served)
+        op_builds = sum(s["op_builds"] for s in per)
+        op_reloads = sum(s["op_reloads"] for s in per)
+        resident_max = max(s["resident_bytes_max"] for s in per)
+        high_water_ok = all(s["memory_budget_bytes"] is None
+                            or s["resident_bytes_max"]
+                            <= s["memory_budget_bytes"] for s in per)
+    else:
+        slo = stats["slo"]
+        coalesce = stats["coalesce_ratio"]
+        op_builds = stats["op_builds"]
+        op_reloads = stats["op_reloads"]
+        resident_max = stats["resident_bytes_max"]
+        high_water_ok = True
     balanced = (stats["requests"] == stats["results"] + stats["sheds"]
                 + stats["errors"] and stats["pending"] == 0)
     rec = {
@@ -322,23 +387,33 @@ def run_serve_traffic(matrix: str = "smoke_powerlaw",
         "p50_ms": slo["p50_ms"], "p95_ms": slo["p95_ms"],
         "p99_ms": slo["p99_ms"], "shed_rate": slo["shed_rate"],
         "eviction_rate": slo["eviction_rate"],
-        "coalesce_ratio": stats["coalesce_ratio"],
-        "op_builds": stats["op_builds"], "op_reloads": stats["op_reloads"],
+        "coalesce_ratio": coalesce,
+        "op_builds": op_builds, "op_reloads": op_reloads,
         "evictions": stats["evictions"],
         "value_swaps": stats["value_swaps"],
-        "resident_bytes_max": stats["resident_bytes_max"],
-        "budget_ok": summary["budget_ok"],
+        "resident_bytes_max": resident_max,
+        "budget_ok": summary["budget_ok"] and high_water_ok,
         "counters_balanced": balanced,
         "launches": launches_since(before),
-        "ok": (summary["unresolved"] == 0
-               and summary["replan_unresolved"] == 0
-               and summary["errors"] == 0 and summary["replan_errors"] == 0
-               and summary["update_errors"] == 0
-               and summary["structure_errors"] == 0
-               and summary["budget_ok"] and balanced),
     }
+    if routed:
+        rec.update({
+            "devices": devices, "layout": layout, "meshes": meshes,
+            "placement": placement, "replans": stats["replans"],
+            "per_device_ok": bool(stats["per_device_ok"]),
+            "assignments": dict(stats["routing"]["assignments"]),
+        })
+    rec["ok"] = (summary["unresolved"] == 0
+                 and summary["replan_unresolved"] == 0
+                 and summary["errors"] == 0 and summary["replan_errors"] == 0
+                 and summary["update_errors"] == 0
+                 and summary["structure_errors"] == 0
+                 and rec["budget_ok"] and rec.get("per_device_ok", True)
+                 and balanced)
+    fleet_tag = (f" [{meshes}x{devices}dev {layout} {placement}]"
+                 if routed else "")
     print(f"[serve-traffic] {matrix} x{n_keys} keys {arrival}@"
-          f"{rate_rps:g}rps {overload}: ok={rec['ok_count']} "
+          f"{rate_rps:g}rps {overload}{fleet_tag}: ok={rec['ok_count']} "
           f"shed={rec['shed']} rejected={rec['rejected']} "
           f"errors={rec['errors']} unresolved={rec['unresolved']} | "
           f"p50={rec['p50_ms']:.2f}ms p99={rec['p99_ms']:.2f}ms "
@@ -407,12 +482,236 @@ def campaign_smoke(device=None, matrices=None) -> int:
     return failures
 
 
+# devices a mesh of the route campaign: the JAX package's
+# max(2, min(4, devices // 2)) for its 8 devices
+ROUTE_MESH_DEVICES = 4
+
+
+def smoke_route_spec(matrices=None):
+    """The JAX package's smoke_route spec: two fleet scenarios of 2
+    meshes of ROUTE_MESH_DEVICES devices — a budgeted bin_pack fleet with
+    a value-swap and structure-delta mix (the mid-soak shard replan
+    shape), and a comm_aware fleet."""
+    from ..experiments import ExperimentSpec, MeasurePolicy
+    from ..experiments.cells import route_variant
+
+    d = ROUTE_MESH_DEVICES
+    variants = (
+        route_variant(rate_rps=600, requests=120, n_keys=4,
+                      update_frac=0.1, structure_frac=0.08,
+                      devices=d, meshes=2, policy="bin_pack",
+                      budget_mb=4.0, window_ms=1.0),
+        route_variant(rate_rps=600, requests=80, n_keys=3,
+                      structure_frac=0.05, devices=d, meshes=2,
+                      policy="comm_aware", window_ms=1.0),
+    )
+    return ExperimentSpec(
+        name="smoke_route_torch",
+        matrices=tuple(matrices or ("smoke_banded",)),
+        schemes=("baseline",), engines=("auto",), ks=(4,), kind="route",
+        variants=variants,
+        policy=MeasurePolicy(iters=1, warmup=0, with_yax=False,
+                             with_parallel=False, with_metrics=False))
+
+
+def route_invariants(rec) -> list:
+    """What a "route" record breaks of the router's invariants (the JAX
+    package's smoke_route checks); empty when it holds them all."""
+    bad = []
+    if rec["unresolved"] or rec["replan_unresolved"]:
+        bad.append(f"unresolved futures: requests={rec['unresolved']} "
+                   f"replans={rec['replan_unresolved']}")
+    if rec["errors"] or rec["replan_errors"]:
+        bad.append(f"errors: requests={rec['errors']} "
+                   f"replans={rec['replan_errors']}")
+    if not rec["per_device_ok"] or not rec["budget_ok"]:
+        bad.append(f"per-device budget violated (per_device_ok="
+                   f"{rec['per_device_ok']} budget_ok={rec['budget_ok']})")
+    if not rec["counters_balanced"]:
+        bad.append("stats counters do not balance")
+    if rec["structure_updates"] \
+            and rec["replans_landed"] != rec["structure_updates"]:
+        bad.append(f"{rec['structure_updates']} structure updates but "
+                   f"{rec['replans_landed']} replans landed")
+    if rec["placement"] != "bin_pack" \
+            and len(set(rec["assignments"].values())) < 2:
+        # bin_pack is best-fit and legitimately packs one mesh; the
+        # load-spreading policies must actually spread
+        bad.append(f"placement degenerate: all keys on one mesh "
+                   f"({rec['assignments']})")
+    return bad
+
+
+def p99(samples) -> float:
+    """The JAX package's sibling-check percentile (index int(0.99 n))."""
+    s = sorted(samples)
+    return s[min(len(s) - 1, int(0.99 * len(s)))]
+
+
+def sibling_p99_flat(p_base: float, p_during: float) -> bool:
+    """The non-stalling criterion of the JAX package's smoke_route: a
+    sibling gated on a replan fails catastrophically, so p99 during the
+    replan <= 5 x baseline + 50 ms separates broken from noisy."""
+    return p_during <= 5.0 * p_base + 50.0
+
+
+def route_delta_vs_replan() -> int:
+    """Plan.apply_delta must be measurably cheaper than a full replan of
+    the edited matrix, pinned by the delta.applies counter. Returns the
+    failure count."""
+    from .. import obs
+    from ..core.spmv.delta import StructureDelta
+    from ..matrices import generators as G
+
+    mat = G.banded(4096, 24, seed=0)
+    pl = plan(SpmvProblem(mat), reorder="rcm", cache=False)
+    rows = np.repeat(np.arange(mat.shape[0], dtype=np.int64),
+                     np.diff(mat.rowptr.astype(np.int64)))
+    pick = np.arange(0, mat.nnz, max(mat.nnz // 64, 1))[:64]
+    delta = StructureDelta(del_rows=rows[pick],
+                           del_cols=mat.cols.astype(np.int64)[pick])
+    applies0 = obs.counter("delta.applies").value
+    t0 = time.perf_counter()
+    pl2 = pl.apply_delta(delta)
+    delta_ms = (time.perf_counter() - t0) * 1e3
+    applies1 = obs.counter("delta.applies").value
+    new_mat = delta.apply_to(mat)
+    t0 = time.perf_counter()
+    pl3 = plan(SpmvProblem(new_mat), reorder="rcm", cache=False)
+    replan_ms = (time.perf_counter() - t0) * 1e3
+    fails = 0
+    if applies1 != applies0 + 1:
+        fails += 1
+        print(f"DELTA COUNTER FAILED: delta.applies moved "
+              f"{applies1 - applies0}, want 1", flush=True)
+    if pl2.key == pl.key or tuple(pl2.mat_shape) != tuple(new_mat.shape) \
+            or pl2.mat_nnz != new_mat.nnz:
+        fails += 1
+        print("DELTA PLAN FAILED: apply_delta did not re-key the plan "
+              "onto the edited structure", flush=True)
+    if delta_ms >= replan_ms:
+        fails += 1
+        print(f"DELTA NOT CHEAPER: apply_delta {delta_ms:.2f} ms >= "
+              f"full replan {replan_ms:.2f} ms", flush=True)
+    print(f"# delta-vs-replan: apply_delta {delta_ms:.2f} ms vs "
+          f"plan() {replan_ms:.2f} ms ({replan_ms / max(delta_ms, 1e-9):.1f}x"
+          f"); replanned scheme={pl3.scheme}", flush=True)
+    return fails
+
+
+def route_sibling_p99(device=None) -> int:
+    """Soak one mesh with two keys; trigger a background shard replan on
+    one and hold the SIBLING key's p99 to sibling_p99_flat (the
+    non-stalling replan pillar). Returns the failure count."""
+    from ..core.spmv.topology import Topology
+    from ..matrices import generators as G
+    from ..router import MeshSpec, RoutedSpmvService
+    from ..serving.traffic import _deletion_delta
+
+    mesh = MeshSpec("m0", Topology(devices=ROUTE_MESH_DEVICES))
+    sib_mat = G.banded(1024, 16, seed=1)
+    hot_mat = G.banded(2048, 32, seed=2)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal(sib_mat.shape[1])
+
+    def lat_run(svc, n):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            svc.submit("sib", x).result(timeout=60)
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    fails = 0
+    with RoutedSpmvService([mesh], max_batch=4, window_ms=0.5,
+                           device=device) as rt:
+        rt.register("sib", sib_mat, mesh="m0")
+        rt.register("hot", hot_mat, mesh="m0")
+        rt.operator("sib")
+        rt.operator("hot")
+        base = lat_run(rt, 40)
+        fut = rt.update_structure(
+            "hot", delta=_deletion_delta(hot_mat, rng, frac=0.01))
+        during = lat_run(rt, 40)          # sibling serves while replanning
+        fut.result(timeout=120)
+        st = rt.stats()
+        if st["replans"] != 1 or st["replan_errors"]:
+            fails += 1
+            print(f"SIBLING REPLAN FAILED: replans={st['replans']} "
+                  f"errors={st['replan_errors']} (want exactly 1 clean "
+                  f"background replan)", flush=True)
+        p_base, p_during = p99(base), p99(during)
+        if not sibling_p99_flat(p_base, p_during):
+            fails += 1
+            print(f"SIBLING P99 NOT FLAT: {p_during:.2f} ms during replan "
+                  f"vs {p_base:.2f} ms baseline", flush=True)
+        print(f"# sibling p99: {p_base:.2f} ms baseline -> "
+              f"{p_during:.2f} ms during background replan", flush=True)
+    return fails
+
+
+def campaign_route(device=None, matrices=None) -> int:
+    """The router soak: the route cells of smoke_route_spec through the
+    Runner, each held to route_invariants; then the sibling p99 check,
+    the delta-against-replan check and the resume (the same spec again
+    must be 100% result-store hits). Returns the number of failures."""
+    from ..experiments import ResultStore, Runner
+
+    spec = smoke_route_spec(matrices)
+    store = ResultStore()
+    t0 = time.perf_counter()
+    runner = Runner(spec, store=store, verbose=False, on_error="record",
+                    device=device)
+    rep = runner.run()
+    first_s = time.perf_counter() - t0
+    failures = len(rep.failures)
+    for f in rep.failures:
+        print(f"{f['label']}: ERROR {f['error']}\n{f['traceback']}",
+              flush=True)
+    print("matrix,variant,placement,ok,unresolved,structure_updates,"
+          "replans_landed,value_swaps,evictions,per_device_ok,wall_s,"
+          "launches,assignments,store", flush=True)
+    for rec in rep.records:
+        print(f"{rec['matrix']},{rec['variant']},{rec['placement']},"
+              f"{rec['ok']},{rec['unresolved']},{rec['structure_updates']},"
+              f"{rec['replans_landed']},{rec['value_swaps']},"
+              f"{rec['evictions']},{int(rec['per_device_ok'])},"
+              f"{rec['wall_s']:.3f},\"{json.dumps(rec['launches'])}\","
+              f"\"{json.dumps(rec['assignments'])}\","
+              f"{'hit' if rec['store_reused'] else 'miss+measure'}",
+              flush=True)
+        bad = route_invariants(rec)
+        if bad:
+            failures += 1
+            print(f"ROUTE INVARIANT FAILED [{rec['variant']}]: "
+                  f"{'; '.join(bad)}", flush=True)
+    if not failures:
+        failures += route_sibling_p99(runner.device)
+        failures += route_delta_vs_replan()
+    if not failures:
+        t0 = time.perf_counter()
+        rep2 = Runner(spec, store=store, verbose=False,
+                      device=device).run()
+        ncells = len(rep2.records)
+        if rep2.measured != 0 or rep2.reused != ncells:
+            print(f"RESUME FAILED: second run measured={rep2.measured} "
+                  f"reused={rep2.reused} (want 0/{ncells})", flush=True)
+            failures += 1
+        else:
+            print(f"# resume: {rep2.reused}/{ncells} cells served from the "
+                  f"store ({time.perf_counter() - t0:.2f} s, first run "
+                  f"{first_s:.2f} s)", flush=True)
+    return failures
+
+
 def run_parallel(matrix: str, scheme: str = "baseline", engine: str = "auto",
                  devices: int = 8, layout: str = "1d_rows",
                  partition: str = "nnz_balanced", iters: int = 6, k: int = 1,
-                 device=None) -> dict:
+                 device=None, use_store: bool = True) -> dict:
     """One (matrix, scheme, topology) cell through the Runner ("parallel"
-    kind), printed as one line and one JSON record."""
+    kind), printed as one line and one JSON record. use_store=False
+    (`--fresh`) deletes the cell's stored record first, so it measures
+    again."""
     from ..experiments import (ExperimentSpec, MeasurePolicy, ResultStore,
                                Runner)
     from ..experiments.cells import parallel_variant
@@ -426,7 +725,10 @@ def run_parallel(matrix: str, scheme: str = "baseline", engine: str = "auto",
         variants=(parallel_variant(layout, partition),),
         policy=MeasurePolicy(iters=iters, verify=True, with_yax=False,
                              with_parallel=False, with_metrics=False))
-    runner = Runner(spec, store=ResultStore(), verbose=False, device=device)
+    store = ResultStore()
+    runner = Runner(spec, store=store, verbose=False, device=device)
+    if not use_store:
+        store.delete(spec.cells(device=device_kind(runner.device))[0].key())
     rep = runner.run()
     if rep.failures:
         raise RuntimeError(f"parallel cell failed: "
@@ -468,13 +770,21 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--matrix",
                     help="suite matrix name (repro_torch.matrices.suite)")
-    ap.add_argument("--campaign", choices=("smoke",),
+    ap.add_argument("--campaign", choices=("smoke", "route"),
                     help="run a campaign instead of one cell")
     ap.add_argument("--scheme", default="baseline")
     ap.add_argument("--engine", default="auto")
+    ap.add_argument("--probe", action="store_true",
+                    help="empirically probe top tuner candidates")
+    ap.add_argument("--learned", action="store_true",
+                    help="probe only the TuneAdvisor shortlist mined from "
+                         "prior campaign cells (plan(probe='learned'))")
     ap.add_argument("--spmm", type=int, default=1, metavar="K",
                     help="batch width: time K-RHS SpMM instead of SpMV")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--fresh", action="store_true",
+                    help="bypass the stores: a single cell plans anew, a "
+                         "sharded cell measures again")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu only on request)")
     ap.add_argument("--serve-sim", action="store_true",
@@ -501,30 +811,61 @@ def main(argv=None):
     ap.add_argument("--structure-frac", type=float, default=0.0,
                     help="fraction of arrivals that are StructureDelta "
                          "background replans")
+    ap.add_argument("--meshes", type=int, default=2,
+                    help="fleet size for routed --serve-traffic "
+                         "(--devices > 1: meshes x devices)")
+    ap.add_argument("--placement", default="bin_pack",
+                    help="router placement policy for routed "
+                         "--serve-traffic (bin_pack, nnz_balance, "
+                         "comm_aware, or any @register_placement name)")
     ap.add_argument("--budget-mb", type=float, default=0.0,
-                    help="operator memory budget in MiB (0 = unbudgeted)")
+                    help="operator memory budget in MiB (0 = unbudgeted; "
+                         "per device with --devices > 1)")
     ap.add_argument("--max-queue", type=int, default=32)
     ap.add_argument("--overload", default="reject",
                     choices=["reject", "shed-oldest", "degrade-to-k1"])
     ap.add_argument("--devices", type=int, default=1,
                     help="with --matrix: one sharded cell over a Topology "
                          "of N devices (simulated on fewer cards); with "
-                         "--serve-*: the multi-shard router (not ported)")
+                         "--serve-traffic: a routed fleet of --meshes "
+                         "meshes of N devices")
     ap.add_argument("--layout", default=None,
                     choices=["1d_rows", "2d_panels"],
                     help="sharded layout (with --devices; default 1d_rows)")
     ap.add_argument("--partition", default=None,
                     help="partitioner name or 'auto' (with --devices; "
                          "default nnz_balanced)")
+    ap.add_argument("--trace", default="", metavar="PATH",
+                    help="record the run's spans (repro_torch.obs): "
+                         ".jsonl -> raw event log, anything else -> "
+                         "Chrome-trace JSON (load in ui.perfetto.dev)")
     args = ap.parse_args(argv)
-    if args.devices > 1 and (args.serve_traffic or args.serve_sim):
-        raise NotImplementedError("not ported: the multi-shard router "
-                                  "that serves --devices > 1 "
-                                  "(ROADMAP queue A item 5)")
-    if args.devices <= 1 and (args.layout or args.partition):
-        ap.error("--layout/--partition require --devices > 1 "
-                 "(sharded single-cell mode)")
+    if not args.trace:
+        _dispatch(ap, args)
+        return
+    from .. import obs
+
+    try:
+        with obs.tracing() as buf:
+            _dispatch(ap, args)
+    finally:
+        events = buf.flush()
+        obs.write_trace(args.trace, events)
+        print(f"# trace: {len(events)} span events -> {args.trace}",
+              flush=True)
+
+
+def _dispatch(ap, args):
+    if args.probe and args.learned:
+        ap.error("--probe and --learned are mutually exclusive probe modes")
+    probe = "learned" if args.learned else args.probe
     if args.serve_traffic:
+        if args.spmm != 1 or probe:
+            ap.error("--serve-traffic does not combine with "
+                     "--spmm/--probe/--learned")
+        # --devices > 1 serves routed SHARDED keys from a
+        # RoutedSpmvService fleet (--meshes x --devices, --layout,
+        # --placement); budget_mb then bounds every device
         rec = run_serve_traffic(
             matrix=args.matrix or "smoke_powerlaw", arrival=args.arrival,
             rate_rps=args.rate, requests=args.requests, n_keys=args.keys,
@@ -533,6 +874,8 @@ def main(argv=None):
             max_batch=args.max_batch, window_ms=args.window_ms,
             max_queue=args.max_queue, overload=args.overload,
             engine=args.engine, reorder=args.serve_reorder,
+            devices=args.devices, layout=args.layout or "1d_rows",
+            meshes=args.meshes, placement=args.placement,
             device=args.device)
         if not rec["ok"]:
             raise SystemExit(
@@ -544,11 +887,16 @@ def main(argv=None):
                 f"update_errors={rec['update_errors']} "
                 f"structure_errors={rec['structure_errors']} "
                 f"budget_ok={rec['budget_ok']} "
+                f"per_device_ok={rec.get('per_device_ok', True)} "
                 f"counters_balanced={rec['counters_balanced']}")
         return
     if args.serve_sim:
-        if args.matrix or args.spmm != 1:
-            ap.error("--serve-sim does not combine with --matrix/--spmm")
+        if args.devices > 1:
+            ap.error("--serve-sim serves one device; for a routed fleet "
+                     "use --serve-traffic --devices N --meshes M")
+        if args.matrix or args.spmm != 1 or probe:
+            ap.error("--serve-sim does not combine with "
+                     "--matrix/--spmm/--probe/--learned")
         rec = run_serve_sim(requests=args.requests, max_batch=args.max_batch,
                             window_ms=args.window_ms, engine=args.engine,
                             reorder=args.serve_reorder, device=args.device)
@@ -557,17 +905,26 @@ def main(argv=None):
                              f"{rec['max_rel_err']:.2e}")
         return
     if args.campaign:
-        raise SystemExit(1 if campaign_smoke(args.device) else 0)
+        run = campaign_smoke if args.campaign == "smoke" else campaign_route
+        raise SystemExit(1 if run(args.device) else 0)
     if not args.matrix:
         ap.error("give --matrix or --campaign")
+    if args.devices <= 1 and (args.layout or args.partition):
+        ap.error("--layout/--partition require --devices > 1 "
+                 "(sharded single-cell mode)")
     if args.devices > 1:
+        if probe:
+            ap.error("--devices does not combine with --probe/--learned "
+                     "(sharded plans are model-based)")
         run_parallel(args.matrix, args.scheme, args.engine,
                      devices=args.devices, layout=args.layout or "1d_rows",
                      partition=args.partition or "nnz_balanced",
-                     iters=args.iters, k=args.spmm, device=args.device)
+                     iters=args.iters, k=args.spmm, device=args.device,
+                     use_store=not args.fresh)
         return
     run_single(args.matrix, args.scheme, args.engine, k=args.spmm,
-               iters=args.iters, device=args.device)
+               iters=args.iters, device=args.device, probe=probe,
+               use_store=not args.fresh)
 
 
 if __name__ == "__main__":

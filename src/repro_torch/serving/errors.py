@@ -72,7 +72,7 @@ class BadRequest(ServiceError, ValueError):
 class RoutedElsewhere(BadRequest):
     """update_values/update_structure on a SHARDED key of a plain
     SpmvService: the per-shard replan lifecycle (generation-tagged swap
-    per shard, siblings keep serving) lives in the multi-shard router.
-    The port has neither sharded keys nor the router yet, so nothing
-    raises it. Subclasses BadRequest, so `except ValueError` /
+    per shard, siblings keep serving) lives in the multi-shard router
+    (router/service.py), whose per-mesh service allows those updates.
+    Subclasses BadRequest, so `except ValueError` /
     `except BadRequest` call sites keep working unchanged."""

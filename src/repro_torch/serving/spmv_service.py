@@ -77,9 +77,10 @@ Sharded keys. A key registered with a non-trivial `topology` (or a service
 built with one) plans through `plan(topology=..., partition=...)` and
 serves through a ShardedOperator, still in the original index space; on
 one card its panels run simulated (core/spmv/distributed.py). As in the
-JAX package, `update_values`/`update_structure` on a sharded key raise
-RoutedElsewhere: per-shard swaps and replans belong to the multi-shard
-router, which is not ported yet.
+JAX package, `update_values`/`update_structure` on a sharded key of a
+plain service raise RoutedElsewhere: per-shard swaps and replans belong
+to the multi-shard router (router/service.py), whose per-mesh service
+allows them.
 """
 from __future__ import annotations
 
@@ -223,7 +224,8 @@ class SpmvService:
 
     # Sharded keys refuse update_values/update_structure on a PLAIN
     # service (RoutedElsewhere): the per-shard replan lifecycle belongs
-    # to the multi-shard router, whose per-mesh service flips this.
+    # to the multi-shard router, whose per-mesh service (router/
+    # service.py `_MeshService`) flips this.
     _allow_sharded_updates = False
 
     def __init__(self, engine: str = "auto", max_batch: int = 32,

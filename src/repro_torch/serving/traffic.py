@@ -280,6 +280,8 @@ def run_open_loop(svc, mats: Dict[str, CSRMatrix],
     budget = stats.get("memory_budget_bytes")
     budget_ok = (budget is None
                  or stats.get("resident_bytes_max", 0) <= budget)
+    if "per_device_ok" in stats:        # routed fleet: per-device verdict
+        budget_ok = budget_ok and bool(stats["per_device_ok"])
     return {
         "pattern": dataclasses.asdict(pattern),
         "offered": int(pattern.requests),

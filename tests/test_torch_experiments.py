@@ -382,13 +382,13 @@ def test_cell_keys_carry_the_device_kind():
 
 
 def test_unported_kinds_raise():
-    # only "route" (the router) is left; "parallel" was ported
-    with pytest.raises(NotImplementedError,
-                       match="not ported yet.*router over sharded plans"):
-        cells.get_cell_kind("route")
-    assert cells.NOT_PORTED == {"route": cells.NOT_PORTED["route"]}
-    for kind in ("parallel", "workload", "serve"):
+    # every kind of the JAX package is ported ("route" last, with the
+    # router): the NOT_PORTED refusal is gone, unknown kinds raise KeyError
+    assert not hasattr(cells, "NOT_PORTED")
+    assert set(cells.CELL_KINDS) >= set(rcells.CELL_KINDS)
+    for kind in ("parallel", "workload", "serve", "route"):
         assert cells.get_cell_kind(kind) is cells.CELL_KINDS[kind]
+    assert cells.get_cell_kind("route") is cells.measure_route_cell
     with pytest.raises(KeyError, match="unknown cell kind"):
         cells.get_cell_kind("nope")
 

@@ -19,7 +19,9 @@ from repro_torch.core.spmv.ops import make_engine
 from repro_torch.configs import registry
 from repro_torch.configs.base import smoke_config
 from repro_torch.experiments import ExperimentSpec, MeasurePolicy, Runner
+from repro_torch.core.spmv.topology import Topology
 from repro_torch.launch import spmv_bench
+from repro_torch.router import MeshSpec, RoutedSpmvService
 from repro_torch.models import model as lm
 from repro_torch.serving.decode import generate, prefill
 
@@ -113,6 +115,10 @@ def test_entry_points_default_to_the_card_and_raise_without_it(monkeypatch):
         Runner(ExperimentSpec(name="x", matrices=("m",)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         spmv_bench.campaign_smoke()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spmv_bench.campaign_route()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RoutedSpmvService([MeshSpec("m", Topology(devices=2))])
     cfg = smoke_config(registry.get("zamba2-7b"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.init_params(cfg)

@@ -910,5 +910,8 @@ def test_run_parallel_cli_hits_the_store_on_the_second_run(capsys):
     with pytest.raises(SystemExit):
         spmv_bench.main(["--matrix", "smoke_banded", "--layout", "1d_rows",
                          "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="multi-shard router"):
+    # --serve-sim serves one device: a fleet is --serve-traffic's
+    with pytest.raises(SystemExit) as e:
         spmv_bench.main(["--serve-sim", "--devices", "4", "--device", "cpu"])
+    assert e.value.code == 2
+    assert "--serve-traffic --devices N" in capsys.readouterr().err

@@ -9,6 +9,8 @@
   validation, run_open_loop accounting every arrival, and the serve cell
   through the Runner, resumed from its result store.
 """
+import json
+
 import jax.numpy as jnp  # noqa: F401 — keeps JAX on the CPU for both
 import numpy as np
 import pytest
@@ -247,11 +249,20 @@ def test_serve_traffic_cli_on_the_cpu(capsys):
                      "--device", "cpu"])
     out = capsys.readouterr().out
     assert "[serve-traffic] smoke_banded x2 keys" in out
-    # --devices > 1 plans sharded cells now (run_parallel); serving them
-    # needs the multi-shard router, which still raises
-    with pytest.raises(NotImplementedError, match="multi-shard router"):
-        spmv_bench.main(["--serve-traffic", "--devices", "2",
-                         "--device", "cpu"])
+    # --devices > 1 serves the keys sharded through the router's fleet
+    spmv_bench.main(["--serve-traffic", "--matrix", "smoke_banded",
+                     "--devices", "2", "--meshes", "2", "--requests", "40",
+                     "--rate", "2000", "--keys", "2", "--structure-frac",
+                     "0.05", "--device", "cpu"])
+    out = capsys.readouterr().out
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("[serve-traffic]"))
+    assert "[2x2dev 1d_rows bin_pack]" in line
+    rec = json.loads(out.splitlines()[-1])
+    assert rec["ok"] and rec["per_device_ok"] and rec["budget_ok"]
+    assert rec["devices"] == 2 and rec["meshes"] == 2
+    assert sorted(rec["assignments"]) == ["smoke_banded#0",
+                                          "smoke_banded#1"]
 
 
 def test_serve_traffic_fails_on_a_failed_dispatch(monkeypatch):
@@ -276,3 +287,27 @@ def test_serve_traffic_fails_on_a_failed_dispatch(monkeypatch):
                          "2", "--update-frac", "0", "--engine", "csr",
                          "--device", "cpu"])
     assert "invariants FAILED" in str(exc.value)
+
+
+def test_budget_ok_folds_in_a_fleets_per_device_verdict():
+    """A routed fleet's stats() carries per_device_ok; run_open_loop's
+    budget_ok must be False when it is, as the JAX package's is."""
+    from repro_torch.serving.spmv_service import SpmvService
+
+    class Fleet(SpmvService):
+        per_device_ok = True
+
+        def stats(self):
+            return {**super().stats(), "per_device_ok": self.per_device_ok}
+
+    mat = _port(RG.banded(128, 4, seed=0))
+    pattern = TrafficPattern(rate_rps=2000.0, requests=8, n_keys=1, seed=0)
+    with Fleet(engine="csr", max_batch=4, window_ms=1.0,
+               device="cpu") as svc:
+        svc.register("k", mat)
+        assert run_open_loop(svc, {"k": mat}, pattern)["budget_ok"]
+        svc.per_device_ok = False
+        got = run_open_loop(svc, {"k": mat}, pattern)
+        assert got["budget_ok"] is False
+        assert got["unresolved"] == got["errors"] == 0
+        assert got["stats"]["memory_budget_bytes"] is None
