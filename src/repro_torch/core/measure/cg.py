@@ -1,6 +1,6 @@
 """Conjugate Gradient — the paper's "real application" yardstick (Listing 3).
 
-Three forms:
+Four forms:
   * cg_solve       — standard CG as a torch loop.
   * block_cg_solve — k right-hand sides at once; one SpMM (operator.matmul)
                      per iteration instead of k SpMVs.
@@ -8,6 +8,8 @@ Three forms:
                      from the vector updates, like the paper's instrumented
                      Listing 3 (per-iteration SpMV time; CUDA events on the
                      card, see ios.time_call).
+  * solve_problem  — plan, build and solve through the pipeline facade, in
+                     the original index space.
 
 The loops read the residual norm on the host every iteration to decide
 whether to stop (one device sync per iteration), where the JAX package
@@ -77,6 +79,49 @@ def block_cg_solve(matmul: Callable, b: torch.Tensor, max_iter: int = 100,
         rs = torch.where(live, rs_new, rs)
         k += 1
     return CGResult(x=x, iters=k, residual=torch.sqrt(rs))
+
+
+def solve_problem(problem, b: torch.Tensor, reorder: str = "auto",
+                  engine: str = "auto", max_iter: int = 100,
+                  tol: float = 1e-8, probe: bool = False,
+                  cache: bool = True, topology=None, partition="auto",
+                  device=None):
+    """Plan, build, and CG-solve A x = b through the pipeline facade.
+
+    `problem` is an SpmvProblem or a bare CSRMatrix. b of shape [n] runs
+    cg_solve; [n, k] runs block_cg_solve (one SpMM per iteration). Both b
+    and the returned solution live in the ORIGINAL index space — the
+    reordering the planner picks (e.g. reorder="auto" choosing rcm for
+    locality) happens inside the permutation-carrying operator, so there
+    is no hand-carried permutation between caller and solver.
+
+    topology/partition (core/spmv/topology.py) run the same solve on a
+    sharded plan: every per-iteration SpMV is the ShardedOperator's
+    collective step, b and x still in the original index space.
+
+    The operator is built on `device` (None: the card, which raises
+    without one; "cpu" on request) and b is moved there in the operator's
+    dtype. Returns (CGResult, Operator); the operator's `.plan` records
+    what the pipeline decided (scheme, engine, partition, costs).
+    """
+    from ...device import resolve_device, torch_dtype
+    from ..spmv.plan import SpmvProblem, plan as make_plan
+
+    dev = resolve_device(device)
+    b = torch.as_tensor(b)
+    k = int(b.shape[1]) if b.ndim == 2 else 1
+    if not isinstance(problem, SpmvProblem):
+        problem = SpmvProblem(problem, k=k)
+    pl = make_plan(problem, reorder=reorder, engine=engine, probe=probe,
+                   cache=cache, topology=topology, partition=partition,
+                   device=dev)
+    op = pl.build(device=dev, cache=cache)
+    b = b.to(dev, torch_dtype(problem.dtype))
+    if k > 1:
+        res = block_cg_solve(op.matmul, b, max_iter=max_iter, tol=tol)
+    else:
+        res = cg_solve(op, b, max_iter=max_iter, tol=tol)
+    return res, op
 
 
 def cg_measured(matvec: Callable, b: torch.Tensor, iters: int = 20,

@@ -87,3 +87,12 @@ def run_ios_batched(op, n: int, k: int, iters: int = 20, warmup: int = 3,
 def gflops(nnz: int, ms: np.ndarray) -> np.ndarray:
     """2 flops per nonzero (mul + add), paper's convention."""
     return 2.0 * nnz / (ms * 1e-3) / 1e9
+
+
+def summarize(ms: np.ndarray) -> dict:
+    return {
+        "median_ms": float(np.median(ms)),
+        "mean_ms": float(np.mean(ms)),
+        "min_ms": float(np.min(ms)),
+        "p95_ms": float(np.percentile(ms, 95)),
+    }

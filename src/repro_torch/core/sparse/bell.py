@@ -96,6 +96,19 @@ def to_block_ell(mat: CSRMatrix, bm: int = 8, bn: int = 128, k: int | None = Non
                     shape=(m, n), block_shape=(bm, bn))
 
 
+def bell_to_dense(b: BlockELL) -> np.ndarray:
+    """Debug/test helper: densify a Block-ELL matrix."""
+    bm, bn = b.block_shape
+    m, n = b.shape
+    nbc = (n + bn - 1) // bn
+    out = np.zeros((b.num_block_rows * bm, nbc * bn), dtype=b.blocks.dtype)
+    for i in range(b.num_block_rows):
+        for kk in range(int(b.nblocks[i])):
+            c = b.block_cols[i, kk]
+            out[i * bm:(i + 1) * bm, c * bn:(c + 1) * bn] += b.blocks[i, kk]
+    return out[:m, :n]
+
+
 def to_bcsr(mat: CSRMatrix, bm: int = 8, bn: int = 128) -> BCSR:
     m, n = mat.shape
     nbr = (m + bm - 1) // bm

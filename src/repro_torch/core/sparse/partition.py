@@ -13,8 +13,8 @@ Each strategy is also registered as a PARTITIONER plugin
 
     fn(mat, p, seed=0, **kw) -> (perm | None, panel_starts[p + 1])
 
-for the sharded plans that the JAX package's planner searches (not ported
-yet). Partitioners that regroup rows (chunked_cyclic) return the grouping
+that the topology-aware planner (core/spmv/plan.py, `plan(topology=)`)
+searches for sharded plans. Partitioners that regroup rows (chunked_cyclic) return the grouping
 permutation instead of emitting non-contiguous panels — contiguous panels
 of the permuted matrix ARE the strided assignment.
 

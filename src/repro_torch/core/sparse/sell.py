@@ -181,3 +181,16 @@ def to_sell(mat: CSRMatrix, c: int = 8, sigma: int = 64, w: int = 128) -> SellCS
                   chunk_slice=chunk_slice, slice_width=slice_width,
                   row_perm=perm, inv_perm=inv_perm[:m][...],
                   shape=(m, n), c=c, sigma=sigma, w=w)
+
+
+def sell_to_dense(s: SellCS) -> np.ndarray:
+    """Debug/test helper: densify (inverse of to_sell up to explicit zeros)."""
+    m, n = s.shape
+    out = np.zeros((m, n), dtype=s.chunk_vals.dtype)
+    t, c, w = s.chunk_vals.shape
+    ch, lane, ww = np.nonzero(s.chunk_vals)
+    pos = s.chunk_slice[ch].astype(np.int64) * c + lane
+    rows = s.row_perm[pos]
+    cols = s.chunk_cols[ch, lane, ww]
+    out[rows, cols] = s.chunk_vals[ch, lane, ww]
+    return out

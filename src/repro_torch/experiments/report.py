@@ -25,10 +25,12 @@ from typing import Iterable, Optional
 import numpy as np
 
 from ..core.measure import profiles as profile_stats
+from .store import result_path
 
 BENCH_SCHEMA_VERSION = 1
-# the port's bench summary; the JAX package writes its own elsewhere
-SUMMARY_PATH = os.path.join("benchmarks", "results", "BENCH_spmv_torch.json")
+# the port's bench summary, under store.results_dir(); the JAX package
+# writes its own elsewhere
+SUMMARY_NAME = "BENCH_spmv_torch.json"
 
 
 class MissingCellError(KeyError):
@@ -337,11 +339,13 @@ class Report:
                 out[f"median_{label}"] = round(float(np.median(vals)), 4)
         return out
 
-    def write_bench_summary(self, path: str = SUMMARY_PATH,
+    def write_bench_summary(self, path: Optional[str] = None,
                             field: str = "seq_ios_gflops") -> dict:
-        """Write the summary (default: the port's SUMMARY_PATH under the
-        working directory). The JAX package's BENCH_spmv.json is never
-        written."""
+        """Write the summary (default: SUMMARY_NAME under the drivers'
+        results directory, store.results_dir()). The JAX package's
+        BENCH_spmv.json is never written."""
+        if path is None:
+            path = result_path(SUMMARY_NAME)
         if os.path.basename(path) == "BENCH_spmv.json":
             raise ValueError("BENCH_spmv.json is the JAX package's summary; "
                              "write the port's elsewhere")

@@ -31,6 +31,21 @@ STORE_SCHEMA_VERSION = 1
 
 _OFF = ("off", "0", "none", "")
 
+# where the figure drivers, `spmv_bench --matrix` and the bench summary
+# write: repro_torch/bench/results/, or REPRO_TORCH_RESULTS_DIR
+RESULTS_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "bench",
+    "results")
+
+
+def results_dir() -> str:
+    """REPRO_TORCH_RESULTS_DIR, else RESULTS_DIR."""
+    return os.environ.get("REPRO_TORCH_RESULTS_DIR") or RESULTS_DIR
+
+
+def result_path(name: str) -> str:
+    return os.path.join(results_dir(), name)
+
 
 def default_root(results_dir: Optional[str] = None) -> str:
     """Store root resolution: REPRO_TORCH_RESULT_STORE wins; otherwise a

@@ -2,7 +2,6 @@
 
     python -m repro_torch.launch.spmv_bench --matrix fig1_shuffled \\
         --scheme rcm --engine auto [--spmm K] [--iters N] [--device cuda]
-    python -m repro_torch.launch.spmv_bench --campaign smoke [--device cpu]
     python -m repro_torch.launch.spmv_bench --serve-sim \
         --serve-reorder rcm [--device cpu]
     python -m repro_torch.launch.spmv_bench --serve-traffic \
@@ -14,23 +13,21 @@
     python -m repro_torch.launch.spmv_bench --campaign route [--device cpu]
 
 The port's counterpart of the JAX package's `run_single`: one matrix, one
-reordering scheme ("auto" searches), one engine ("auto" tunes). It prints
-the resolved scheme and engine, the host plan and build times, the IOS
-median and GFLOP/s (2 flops per nonzero per right-hand side), and the
-launches of each hand-written kernel during the cell. Verification is
+reordering scheme ("auto" searches), one engine ("auto" tunes), as a
+one-cell ExperimentSpec through the Runner into the figure drivers'
+result store (under experiments/store.py results_dir()). It prints the resolved scheme
+and engine, the host plan and build times, the IOS median and GFLOP/s
+(2 flops per nonzero per right-hand side), and the launches of each
+hand-written kernel during the cell's timed calls. Verification is
 against the numpy float64 oracle `CSRMatrix.spmv` in the original index
 space, for the cell's operator and for its structure twin (the same
-structure with values U(-1, 1)). A single cell measures on every
-invocation; its plan and operator come from the plan store when they are
-there, unless `--fresh` asks for a new plan. `--probe` and `--learned`
-pass probe=True and probe="learned" to plan().
-
-`--campaign smoke` is the port's counterpart of the JAX package's
-`benchmarks/run.py --smoke`: the smoke matrices x {baseline, rcm} x the
-auto engine through the experiments Runner (verify on, probe on), then the
-same campaign again, which must be served entirely from the result store;
-it writes the port's bench summary (experiments/report.py SUMMARY_PATH)
-and exits nonzero on any failure.
+structure with values U(-1, 1)). A repeat invocation is a result-store
+hit (`store_hit=True`) that measures nothing; `--fresh` deletes the
+cell's record first, so it measures again. The record is written to
+spmv_single_<matrix>_<scheme>[_k<k>].json beside the drivers' CSVs.
+`--probe` and `--learned` pass probe=True and probe="learned" to plan().
+`run_cell` is the same chain on a matrix in memory, with no store of
+records.
 
 `--serve-sim` sends a burst of requests over the smoke matrices through
 the micro-batching SpmvService (serving/spmv_service.py) and checks every
@@ -65,6 +62,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
@@ -138,15 +136,11 @@ def measure(op, nnz: int, n: int, k: int = 1, dtype=None, device=None,
 
 def run_cell(mat: CSRMatrix, scheme: str = "baseline", engine: str = "auto",
              k: int = 1, iters: int = 20, cg_iters: int = 10, dtype=None,
-             device=None, seed: int = 0, tol: float = 1e-4, probe=False,
-             use_store: bool = True) -> dict:
+             device=None, seed: int = 0, tol: float = 1e-4) -> dict:
     """plan → build → verify → measure for one (matrix, scheme, engine, k)
-    cell; returns the record, the operator and the plan's reordered
-    matrix.
+    cell of a matrix in memory, with no store of records; returns the
+    record, the operator and the plan's reordered matrix.
 
-    probe is plan()'s (False: the cost model; True: time the top
-    candidates; "learned": the advisor's shortlist); use_store=False
-    plans and builds without the plan store (nothing read or written).
     Verification checks the cell's operator and, built under the same
     plan, the operator of its structure twin (`structure_twin`), which no
     dominant diagonal can hide a wrong term in."""
@@ -155,9 +149,8 @@ def run_cell(mat: CSRMatrix, scheme: str = "baseline", engine: str = "auto",
     dev = resolve_device(device)
     before = dict(LAUNCHES)
     pl = plan(SpmvProblem(mat, k=k, dtype=dtype, hints={"seed": seed}),
-              reorder=scheme, engine=engine, probe=probe, cache=use_store,
-              device=dev)
-    op = pl.build(device=dev, cache=use_store)
+              reorder=scheme, engine=engine, device=dev)
+    op = pl.build(device=dev)
     rmat = pl.reordered_matrix()
     rec = {
         "device": device_kind(dev), "m": int(mat.m), "n": int(mat.n),
@@ -165,7 +158,7 @@ def run_cell(mat: CSRMatrix, scheme: str = "baseline", engine: str = "auto",
         "resolved_scheme": pl.scheme, "engine": pl.tune.engine,
         "plan_label": pl.label(), "reorder_ms": pl.reorder_ms,
         "tune_ms": pl.tune_ms, "plan_ms": pl.plan_ms,
-        "plan_store_hit": bool(pl.cache_hit), "probe": str(probe),
+        "plan_store_hit": bool(pl.cache_hit),
         "build_ms": op.build_info["build_ms"],
         "verify_rel_err": verify(op, mat, k, dtype, dev, tol, seed),
     }
@@ -180,28 +173,91 @@ def run_cell(mat: CSRMatrix, scheme: str = "baseline", engine: str = "auto",
     return rec, op, rmat
 
 
-def run_single(matrix: str, scheme: str = "baseline", engine: str = "auto",
-               k: int = 1, iters: int = 20, device=None, probe=False,
-               use_store: bool = True) -> dict:
-    """One suite matrix through run_cell, printed as one line and one JSON
-    record. use_store=False (`--fresh`) makes a new plan."""
-    from ..matrices import suite
+def _fname(name: str) -> str:
+    """Filesystem-safe matrix tag: corpus://group/name -> corpus_group_name
+    (corpus names carry URL-ish separators that would split the path)."""
+    import re
 
-    t0 = time.perf_counter()
-    mat = suite.get(matrix)
-    rec, _, _ = run_cell(mat, scheme, engine, k=k, iters=iters,
-                         device=device, probe=probe, use_store=use_store)
-    rec["matrix"] = matrix
-    rec["load_s"] = time.perf_counter() - t0
+    return re.sub(r"[:/]+", "_", name).strip("_")
+
+
+def run_single(matrix: str, scheme: str = "baseline", engine: str = "auto",
+               k: int = 1, iters: int = 12, device=None, probe=False,
+               use_store: bool = True, write_results: bool = True) -> dict:
+    """Single-device tuned SpMV/SpMM benchmark for one (matrix, scheme)
+    cell, printed as one line and one JSON record.
+
+    One one-cell "spmv" ExperimentSpec through the Runner, measured into
+    the figure drivers' result store (the store under results_dir()):
+    the first invocation pays reorder + tune + format conversion (the
+    plan store persists those) and the measurement itself, verified on
+    the matrix and its structure twin; a repeat invocation is served
+    entirely from the result store (`store_hit=True`, no new
+    measurement). use_store=False (`--fresh`) deletes the cell's record
+    first, so it measures again. Plan time and run time are reported
+    apart (paper §3 methodology).
+
+    scheme may be "auto" (the planner selects scheme and engine jointly;
+    the choice is `resolved_scheme`); k > 1 (--spmm) times the k-RHS
+    SpMM `op.matmul(X[n, k])` and reports the per-vector time; probe is
+    plan()'s (False, True, "learned", "exhaustive"). The record has the
+    JAX package's keys plus `verify_twin_rel_err` and `launches`, and is
+    written to spmv_single_<matrix>_<scheme>[_k<k>].json under the
+    drivers' results directory when write_results is set."""
+    from ..experiments import ExperimentSpec, MeasurePolicy, Runner
+    from ..experiments.store import ResultStore, result_path, results_dir
+
+    if k < 1:
+        raise ValueError(f"--spmm batch width must be >= 1, got {k}")
+    spec = ExperimentSpec(
+        name="spmv_single", matrices=(matrix,), schemes=(scheme,),
+        engines=(engine,), ks=(k,),
+        policy=MeasurePolicy(iters=iters, probe=probe, verify=True,
+                             with_yax=False, with_parallel=False,
+                             with_metrics=False))
+    store = ResultStore(results_dir=results_dir())
+    runner = Runner(spec, store=store, verbose=False, device=device)
+    if not use_store:                       # --fresh: force a re-measure
+        store.delete(spec.cells(device=device_kind(runner.device))[0].key())
+    cr = runner.run().records[0]
+    rec = {
+        "matrix": matrix,
+        "scheme": scheme,
+        "resolved_scheme": cr["resolved_scheme"],
+        "engine": cr["engine"],
+        "plan_label": cr["plan_label"],
+        "cache_hit": cr["op_cache_hit"],
+        "store_hit": cr["store_reused"],
+        "cell_key": cr["cell_key"],
+        "k": k,
+        "reorder_ms": cr["reorder_ms"],
+        "tune_ms": cr["tune_ms"],
+        "build_ms": cr["format_build_ms"],
+        "load_ms": cr["op_load_ms"],
+        "spmv_ios_ms": cr["spmm_ms"],
+        "per_vector_ms": cr["per_vector_ms"],
+        "spmv_ios_gflops": cr.get("spmm_gflops", cr.get("seq_ios_gflops")),
+        "verify_twin_rel_err": cr["verify_twin_rel_err"],
+        "launches": cr["launches"],
+    }
     tag = "spmm" if k > 1 else "spmv"
     print(f"[{tag}-single] {matrix}/{scheme}->{rec['resolved_scheme']} "
           f"engine={rec['engine']} label={rec['plan_label']} k={k} "
-          f"plan_ms={rec['plan_ms']:.1f} build_ms={rec['build_ms']:.1f} "
-          f"plan_store_hit={rec['plan_store_hit']} probe={rec['probe']} "
-          f"verify={rec['verify_rel_err']:.2e} "
+          f"store_hit={rec['store_hit']} cache_hit={rec['cache_hit']} "
+          f"plan_ms={rec['tune_ms'] + rec['build_ms'] + rec['load_ms']:.1f} "
+          f"{tag}_ms={rec['spmv_ios_ms']:.4f} "
+          f"per_vec_ms={rec['per_vector_ms']:.4f} "
+          f"gflops={rec['spmv_ios_gflops']:.2f} probe={probe} "
+          f"verify={cr['verify_rel_err']:.2e} "
           f"verify_twin={rec['verify_twin_rel_err']:.2e} "
-          f"ios_ms={rec['ios_ms']:.4f} gflops={rec['ios_gflops']:.2f} "
-          f"launches={rec['launches']} device={rec['device']}", flush=True)
+          f"launches={rec['launches']} device={cr['device']}", flush=True)
+    if write_results:
+        suffix = f"_k{k}" if k > 1 else ""      # SpMM never clobbers SpMV
+        path = result_path(
+            f"spmv_single_{_fname(matrix)}_{scheme}{suffix}.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(rec, f, indent=1)
     print(json.dumps(rec), flush=True)
     return rec
 
@@ -424,62 +480,6 @@ def run_serve_traffic(matrix: str = "smoke_powerlaw",
           f"launches={rec['launches']}", flush=True)
     print(json.dumps(rec), flush=True)
     return rec
-
-
-def smoke_spec(matrices=None):
-    from ..experiments import ExperimentSpec, MeasurePolicy
-    from ..matrices import suite
-
-    return ExperimentSpec(
-        name="smoke_torch", matrices=tuple(matrices or suite.smoke_names()),
-        schemes=("baseline", "rcm"), engines=("auto",),
-        policy=MeasurePolicy(iters=3, warmup=1, with_yax=False,
-                             with_parallel=False, with_metrics=False,
-                             verify=True, probe=True))
-
-
-def campaign_smoke(device=None, matrices=None) -> int:
-    """The smoke campaign, then the resume check. Returns the number of
-    failures (failed cells, or a second run that measured anything)."""
-    from ..experiments import ResultStore, Runner
-    from ..experiments.report import SUMMARY_PATH
-
-    spec = smoke_spec(matrices)
-    store = ResultStore()
-    t0 = time.perf_counter()
-    rep = Runner(spec, store=store, verbose=False, on_error="record",
-                 device=device).run()
-    first_s = time.perf_counter() - t0
-    print("matrix,scheme,engine,plan_label,seq_ios_ms,verify_rel_err,"
-          "verify_twin_rel_err,store", flush=True)
-    for r in rep.records:
-        print(f"{r['matrix']},{r['scheme']},{r.get('engine', '?')},"
-              f"{r.get('plan_label', '?')},{r.get('seq_ios_ms', -1):.4f},"
-              f"{r.get('verify_rel_err', -1):.2e},"
-              f"{r.get('verify_twin_rel_err', -1):.2e},"
-              f"{'hit' if r['store_reused'] else 'miss+measure'}",
-              flush=True)
-    failures = len(rep.failures)
-    for f in rep.failures:
-        print(f"{f['label']}: ERROR {f['error']}\n{f['traceback']}",
-              flush=True)
-    if not failures:
-        t0 = time.perf_counter()
-        rep2 = Runner(spec, store=store, verbose=False,
-                      device=device).run()
-        ncells = len(rep2.records)
-        if rep2.measured != 0 or rep2.reused != ncells:
-            print(f"RESUME FAILED: second run measured={rep2.measured} "
-                  f"reused={rep2.reused} (want 0/{ncells})", flush=True)
-            failures += 1
-        else:
-            print(f"# resume: {rep2.reused}/{ncells} cells served from the "
-                  f"store ({time.perf_counter() - t0:.2f} s, first run "
-                  f"{first_s:.2f} s)", flush=True)
-    summary = rep.write_bench_summary()
-    print(f"# {SUMMARY_PATH}: geomean={summary['geomean']} "
-          f"speedup={summary.get('speedup_vs_baseline', {})}", flush=True)
-    return failures
 
 
 # devices a mesh of the route campaign: the JAX package's
@@ -770,8 +770,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--matrix",
                     help="suite matrix name (repro_torch.matrices.suite)")
-    ap.add_argument("--campaign", choices=("smoke", "route"),
-                    help="run a campaign instead of one cell")
+    ap.add_argument("--campaign", choices=("route",),
+                    help="run the route campaign instead of one cell "
+                         "(the smoke campaign is repro_torch.bench.run "
+                         "--smoke)")
     ap.add_argument("--scheme", default="baseline")
     ap.add_argument("--engine", default="auto")
     ap.add_argument("--probe", action="store_true",
@@ -781,10 +783,10 @@ def main(argv=None):
                          "prior campaign cells (plan(probe='learned'))")
     ap.add_argument("--spmm", type=int, default=1, metavar="K",
                     help="batch width: time K-RHS SpMM instead of SpMV")
-    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--iters", type=int, default=12)
     ap.add_argument("--fresh", action="store_true",
-                    help="bypass the stores: a single cell plans anew, a "
-                         "sharded cell measures again")
+                    help="delete the cell's stored record first, so it "
+                         "measures again")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu only on request)")
     ap.add_argument("--serve-sim", action="store_true",
@@ -905,8 +907,7 @@ def _dispatch(ap, args):
                              f"{rec['max_rel_err']:.2e}")
         return
     if args.campaign:
-        run = campaign_smoke if args.campaign == "smoke" else campaign_route
-        raise SystemExit(1 if run(args.device) else 0)
+        raise SystemExit(1 if campaign_route(args.device) else 0)
     if not args.matrix:
         ap.error("give --matrix or --campaign")
     if args.devices <= 1 and (args.layout or args.partition):

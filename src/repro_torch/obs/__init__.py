@@ -15,7 +15,7 @@ Metrics: ``obs.counter(name).inc()``, ``obs.gauge(name).set(v)``,
 ``obs.write_trace("trace.json", events)`` writes Chrome-trace JSON (load it
 in Perfetto), ``validate_chrome_trace`` checks one.
 """
-from .spans import (Span, TraceBuffer, install_sink,  # noqa: F401
+from .spans import (Span, TraceBuffer, enabled, install_sink,  # noqa: F401
                     remove_sink, span, tracing)
 from .metrics import (REGISTRY, Counter, Gauge, Histogram,  # noqa: F401
                       counter, gauge, histogram, reset, snapshot)
@@ -23,7 +23,8 @@ from .export import (to_chrome_trace, validate_chrome_trace,  # noqa: F401
                      write_chrome_trace, write_jsonl, write_trace)
 
 __all__ = [
-    "span", "tracing", "install_sink", "remove_sink", "Span", "TraceBuffer",
+    "span", "tracing", "enabled", "install_sink", "remove_sink", "Span",
+    "TraceBuffer",
     "counter", "gauge", "histogram", "snapshot", "reset",
     "REGISTRY", "Counter", "Gauge", "Histogram",
     "to_chrome_trace", "write_chrome_trace", "write_jsonl", "write_trace",

@@ -133,6 +133,10 @@ def span(name: str, **attrs):
     return Span(name, attrs)
 
 
+def enabled() -> bool:
+    return _enabled
+
+
 class TraceBuffer:
     """The default sink: collects events; flush() orders deterministically."""
 

@@ -16,10 +16,11 @@ call sites (and tests) keep working unchanged:
       KeyBusy       (RuntimeError)    register() on a key with pending work
       UnregisteredKey (KeyError)      submit()/update on an unknown key
       BadRequest    (ValueError)      malformed x / vals / matrix argument
-        RoutedElsewhere (BadRequest)  a sharded-key update on a PLAIN
-                                      SpmvService — the multi-shard
-                                      router owns that lifecycle (neither
-                                      is ported yet, so it never fires)
+        RoutedElsewhere (BadRequest)  update_values/update_structure on
+                                      a sharded key (topology=) of a
+                                      PLAIN SpmvService — the multi-shard
+                                      router (repro_torch.router) owns
+                                      that lifecycle
 
 Retry discipline: `isinstance(e, QueueFull)` (which covers RequestShed)
 means "back off retry_after_ms and resend the same request"; everything

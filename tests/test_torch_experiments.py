@@ -345,11 +345,11 @@ def test_report_gives_the_references_views():
 
 
 def test_bench_summary_goes_to_the_ports_own_path(tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("REPRO_TORCH_RESULTS_DIR", str(tmp_path / "res"))
     spec = E.ExperimentSpec(name="syn", matrices=("m1",))
     rep = report.Report(spec, _synthetic_entries(E.Cell, spec, "cpu"))
     out = rep.write_bench_summary()
-    assert (tmp_path / report.SUMMARY_PATH).exists()
+    assert (tmp_path / "res" / report.SUMMARY_NAME).exists()
     assert out["cells"] == 18
     with pytest.raises(ValueError, match="JAX package"):
         rep.write_bench_summary(str(tmp_path / "BENCH_spmv.json"))
@@ -475,26 +475,26 @@ def test_campaign_resumes_from_both_stores(stores):
 
 def test_campaign_smoke_resumes_and_writes_its_summary(stores, monkeypatch,
                                                       capsys):
-    from repro_torch.launch import spmv_bench
+    from repro_torch.bench import run
 
     monkeypatch.chdir(stores)
-    assert spmv_bench.campaign_smoke(device="cpu",
-                                     matrices=["smoke_banded"]) == 0
+    monkeypatch.setenv("REPRO_TORCH_RESULTS_DIR", str(stores / "res"))
+    assert run.smoke(device="cpu", matrices=["smoke_banded"]) == 0
     out = capsys.readouterr().out
     assert out.count("miss+measure") == 2 and "ERROR" not in out
     assert "# resume: 2/2 cells served from the store" in out
-    summary = json.loads((stores / report.SUMMARY_PATH).read_text())
-    assert not (stores / "benchmarks" / "results" / "BENCH_spmv.json").exists()
-    assert summary["campaign"] == "smoke_torch"
+    summary = json.loads((stores / "res" / report.SUMMARY_NAME).read_text())
+    assert not list(stores.rglob("BENCH_spmv.json"))
+    assert summary["campaign"] == "smoke"
+    # as the reference's, the summary is the resumed run's: all reused
     assert (summary["cells"], summary["measured"], summary["failures"]) \
-        == (2, 2, 0)
+        == (2, 0, 0)
     assert set(summary["geomean"]) == {"baseline", "rcm"}
     assert min(summary["geomean"].values()) > 0
     assert set(summary["speedup_vs_baseline"]) == {"rcm"}
     # the second run is served from the result store: nothing measured
-    assert spmv_bench.campaign_smoke(device="cpu",
-                                     matrices=["smoke_banded"]) == 0
-    assert capsys.readouterr().out.count(",hit") == 2
+    assert run.smoke(device="cpu", matrices=["smoke_banded"]) == 0
+    assert capsys.readouterr().out.count('"store": "hit"') == 2
 
 
 def test_export_matches_the_references_trace():

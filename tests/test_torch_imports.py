@@ -114,8 +114,6 @@ def test_entry_points_default_to_the_card_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Runner(ExperimentSpec(name="x", matrices=("m",)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        spmv_bench.campaign_smoke()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
         spmv_bench.campaign_route()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RoutedSpmvService([MeshSpec("m", Topology(devices=2))])
@@ -154,3 +152,55 @@ def test_runner_runs_on_the_cpu_only_on_request():
                  device="cpu").run()
     (rec,) = rep.records
     assert rec["device"] == "cpu" and rec["verify_twin_rel_err"] < 1e-6
+
+
+# -- the figure drivers and the examples --------------------------------------
+REFERENCE_ROOTS = {"jax", "jaxlib", "repro", "benchmarks", "examples"}
+DRIVER_MODULES = [(p, n) for p, n in _modules()
+                  if n.split(".")[1:2] in (["bench"], ["examples"])]
+
+
+@pytest.mark.parametrize("path", [p for p, _ in DRIVER_MODULES],
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_drivers_and_examples_import_no_reference(path):
+    """repro_torch.bench and repro_torch.examples keep their own copies:
+    no import of jax, the JAX package, its benchmarks/ or its examples/."""
+    roots = set(_imported_roots(ast.parse(path.read_text())))
+    assert not roots & REFERENCE_ROOTS, path
+
+
+def test_importing_the_drivers_leaves_the_reference_out():
+    names = [name for _, name in DRIVER_MODULES]
+    assert {"repro_torch.bench.run", "repro_torch.bench.common",
+            "repro_torch.examples.cg_solver"} <= set(names)
+    code = ("import importlib, sys\n"
+            f"for name in {names!r}:\n"
+            "    importlib.import_module(name)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            f"             {sorted(REFERENCE_ROOTS)!r})\n"
+            "sys.exit('loaded: ' + ', '.join(bad) if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300,
+                          cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+
+
+def test_drivers_default_to_the_card_and_raise_without_it(monkeypatch):
+    from repro_torch.bench import (fig01_banded_shuffle, fig03_ios_yax,
+                                   run as bench_run, spmm_batch,
+                                   summarize_repro)
+    from repro_torch.core.measure import cg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: fig01_banded_shuffle.run(),
+                 lambda: fig03_ios_yax.run(matrices=("smoke_banded",)),
+                 lambda: summarize_repro.run(matrices=("smoke_banded",)),
+                 lambda: spmm_batch.run(smoke=True),
+                 lambda: bench_run.smoke(),
+                 lambda: bench_run.smoke_parallel(),
+                 lambda: spmv_bench.run_single("smoke_banded"),
+                 lambda: cg.solve_problem(_mat(), torch.ones(8))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

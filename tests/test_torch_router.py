@@ -57,7 +57,8 @@ def stores(tmp_path, monkeypatch):
                      ("REPRO_PLAN_CACHE", "ref_plans"),
                      ("REPRO_OPERATOR_CACHE", "ref_opcache"),
                      ("REPRO_REORDER_CACHE", "ref_reorder"),
-                     ("REPRO_RESULT_STORE", "ref_results")):
+                     ("REPRO_RESULT_STORE", "ref_results"),
+                     ("REPRO_TORCH_RESULTS_DIR", "bench_results")):
         monkeypatch.setenv(var, str(tmp_path / sub))
     return tmp_path
 
@@ -662,13 +663,15 @@ def test_cli_fresh_measures_again(capsys):
         spmv_bench.main(argv)
     lines = _lines(capsys.readouterr().out, "[spmv-parallel]")
     assert ["store_hit=True" in ln for ln in lines] == [False, True, False]
+    # a single cell is a Runner cell: the repeat is a result-store hit,
+    # --fresh deletes the record and measures again (the reference's
+    # run_single contract)
     one = ["--matrix", "smoke_banded", "--scheme", "rcm", "--iters", "2",
            "--device", "cpu"]
     for argv in (one, one, one + ["--fresh"]):
         spmv_bench.main(argv)
     lines = _lines(capsys.readouterr().out, "[spmv-single]")
-    assert ["plan_store_hit=True" in ln for ln in lines] == \
-        [False, True, False]
+    assert ["store_hit=True" in ln for ln in lines] == [False, True, False]
 
 
 def test_cli_probe_and_learned_reach_plan(capsys, monkeypatch):
@@ -682,7 +685,8 @@ def test_cli_probe_and_learned_reach_plan(capsys, monkeypatch):
         seen.append(kw.get("probe"))
         return real(*a, **kw)
 
-    monkeypatch.setattr(spmv_bench, "plan", spy)
+    # the single cell plans inside the spmv cell kind, from plan_mod
+    monkeypatch.setattr(plan_mod, "plan", spy)
     base = ["--matrix", "smoke_banded", "--iters", "2", "--device", "cpu"]
     spmv_bench.main(base + ["--probe"])
     spmv_bench.main(base + ["--learned"])
