@@ -78,9 +78,26 @@ the run with a nonzero exit code (nothing is caught):
                   twin (L2-resident, as in phase 4: smoke readings, not
                   Figs. 4 and 8's answers); spmm_batch at its quick shapes (K1 and K2 must
                   launch); bell_formats on the same pair; run.py --smoke
-                  twice, the second writing no record. Every CSV's header
-                  is held to the reference driver's; each driver prints
-                  the cells it measured and those it reused;
+                  twice, the second writing no record; then, each a path
+                  of the kernels line with its seconds, the engines it
+                  built and its launches by kernel: run.py --smoke-serve
+                  (reject, shed-oldest and bursty degrade-to-k1 on
+                  smoke_banded past a 0.02 MB budget: every record held
+                  to serve_invariants, the campaign to overload, LRU
+                  evictions and reloads and value swaps without a
+                  replan, then the resume), run.py --smoke-workloads
+                  (the MoE, attention and GNN streams under the
+                  amortization invariants, then the resume),
+                  workloads.run and moe_dispatch.run at their quick
+                  sizes (every stream verified, no static stream
+                  replanned, sorted and one-hot dispatch agree), and the
+                  regress CLI on the fresh BENCH_spmv_torch.json (itself:
+                  exit 0, every GFLOP/s halved: 1, a changed scale
+                  stamp: 2).
+                  Every CSV's header is held to the reference driver's;
+                  each driver prints the cells it measured and those it
+                  reused; a path that built a kernel engine must launch
+                  its kernel;
  5. forced      — the kernel engines through make_engine on the structure
                   twin of the RCM-reordered fig1_shuffled (its sparsity
                   pattern, values U(-1, 1) from a seed; the order comes
@@ -165,8 +182,9 @@ the run with a nonzero exit code (nothing is caught):
 7r. router      — repro_torch.router on the one card (a mesh of d > 1
                   devices runs its panels simulated; its per-device
                   budget is the accounting over those d devices): the
-                  route campaign (spmv_bench.campaign_route on the
-                  TRAFFIC_ROWS cut: a bin_pack fleet of 2 meshes x 4
+                  router soak (bench.run.smoke_route, run.py
+                  --smoke-route, on the TRAFFIC_ROWS cut: a bin_pack
+                  fleet of 2 meshes x 4
                   devices at 4 MiB a device with value swaps and deltas,
                   a comm_aware fleet, the sibling p99 and
                   delta-against-replan checks, the resume); the Fig. 1
@@ -227,10 +245,10 @@ the run with a nonzero exit code (nothing is caught):
 
 Every kernel launch counter is set to 0 just before the first campaign of
 phase 4, the campaign of phase 4c, the drivers of phase 4f (its fig. 1
-cells, then the others), each forced path of phase 5 (f32 and bf16) and
-of phase 6b, each service and workload path of phases 7s and 7w,
-the parallel campaign of phase 7p, the one-device fleet of phase 7r and
-the f32 prefill of phase 8, and read
+cells, then the others, then each soak and workload driver), each forced
+path of phase 5 (f32 and bf16) and of phase 6b, each service and
+workload path of phases 7s and 7w, the parallel campaign of phase 7p,
+the one-device fleet of phase 7r and the f32 prefill of phase 8, and read
 just after it (and around each K4 panel check of phase 7p, which must
 show one K4 launch; those launches are not the path's); a bell cell of
 phase 7p that launched no K4, a forced path that
@@ -239,9 +257,10 @@ kernel engine that launched nothing in its own timed calls, a service or
 workload path that did not launch its kernels, or a prefill whose K5
 count is not its number of Mamba2 layers (81), fails the run. The kernels
 line reports, for each kernel, the launches of the path that feeds its
-row and, for K1-K4 in f32, those of the bench, service, router, workload
-and parallel campaign paths (`launches_paths`); spmm_batch in phase 4f
-must launch K1 and K2.
+row and, for K1-K4 in f32, those of the bench paths of phase 4f (the
+figure drivers, and each of its soaks and workload drivers), the
+service, router, workload and parallel campaign paths
+(`launches_paths`); spmm_batch in phase 4f must launch K1 and K2.
 
 Verification is against the numpy float64 oracle at rel err <= 1e-4 (the
 error over the oracle's largest entry); a kernel against its plain version
@@ -1054,10 +1073,120 @@ def bench_phase(dev, mats: dict) -> dict:
               csv_rows=rows)
     for name, n in kernels.LAUNCHES.items():
         launches[name] += n
+    paths = {"bench": launches}
+    paths.update(bench_soaks(dev))
     phase("bench", t_phase, launches=json.dumps(launches),
           measured=obs.counter("bench.cells_measured").value - measured,
           reused=obs.counter("bench.cells_reused").value - reused)
-    return {"bench": launches}
+    return paths
+
+
+def built_engines(events) -> list:
+    """The engines of the operators a traced run built (plan.build and
+    plan.rebuild spans)."""
+    return sorted({e["args"]["engine"] for e in events
+                   if e["name"] in ("plan.build", "plan.rebuild")})
+
+
+def bench_path(name: str, fn):
+    """One driver of 4f's second half as a path of its own: the launch
+    counts set to 0 and its plan builds traced around `fn()`; an engine
+    it built that has a kernel must have launched it. Prints its seconds,
+    the engines it built and its launches by kernel; returns fn()'s
+    result and the launches."""
+    from repro_torch import kernels, obs
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    with obs.tracing() as buf:
+        out = fn()
+    launches = dict(kernels.LAUNCHES)
+    engines = built_engines(buf.flush())
+    for eng in engines:
+        kns = KERNEL_OF.get(eng, ())
+        if kns and not any(launches[kn] for kn in kns):
+            raise AssertionError(f"{name}: built {eng} operators but no "
+                                 f"kernel of it launched: {launches}")
+    phase(f"bench {name}", t0, engines=json.dumps(engines),
+          launches=json.dumps(launches))
+    return out, launches
+
+
+def bench_failures(name: str, failures: int) -> None:
+    if failures:
+        raise AssertionError(f"{name}: {failures} failures")
+
+
+def regress_control() -> None:
+    """The regress CLI on the fresh BENCH_spmv_torch.json of run.py
+    --smoke: against itself it must exit 0, with every GFLOP/s halved 1,
+    with a changed scale stamp 2."""
+    import copy
+
+    from repro_torch.bench import common, regress
+    from repro_torch.experiments.report import SUMMARY_NAME
+
+    t0 = time.perf_counter()
+    fresh = common.result_path(SUMMARY_NAME)
+    with open(fresh) as f:
+        summary = json.load(f)
+    halved = copy.deepcopy(summary)
+    halved["geomean"] = {k: v / 2 for k, v in halved["geomean"].items()}
+    rescaled = copy.deepcopy(summary)
+    rescaled["scale"]["iters"] += 1
+    codes = {}
+    for label, obj, want in (("itself", summary, 0), ("halved", halved, 1),
+                             ("rescaled", rescaled, 2)):
+        path = common.result_path(f"regress_control_{label}.json")
+        with open(path, "w") as f:
+            json.dump(obj, f)
+        codes[label] = regress.main(["--baseline", fresh, "--current", path])
+        if codes[label] != want:
+            raise AssertionError(f"regress control {label}: exit "
+                                 f"{codes[label]}, want {want}")
+    phase("bench regress control", t0, exit_codes=json.dumps(codes))
+
+
+def bench_soaks(dev) -> dict:
+    """4f's second half: run.py --smoke-serve and --smoke-workloads (each
+    with its invariants and its resume), workloads.run and
+    moe_dispatch.run at their quick sizes (sorted and one-hot dispatch
+    must agree), and the regress control. Each driver is a path of the
+    kernels line; every CSV's header is the reference driver's. Returns
+    the launches by path. (corpus_scale.smoke is not run here: on the
+    card its 1.05x pick-quality gate fails by chance, see PERF.md.)"""
+    from repro_torch.bench import (common, moe_dispatch, run as bench_run,
+                                   workloads)
+
+    paths = {}
+    fails, paths["bench/smoke-serve"] = bench_path(
+        "smoke-serve", lambda: bench_run.smoke_serve(device=dev))
+    bench_failures("run.py --smoke-serve", fails)
+    csv_rows(common.result_path(bench_run.SMOKE_SERVE_CSV),
+             bench_run.SMOKE_SERVE_HEADER)
+    fails, paths["bench/smoke-workloads"] = bench_path(
+        "smoke-workloads", lambda: workloads.smoke(device=dev))
+    bench_failures("run.py --smoke-workloads", fails)
+    csv_rows(common.result_path(workloads.SMOKE_CSV), workloads.CSV_HEADER)
+    out, paths["bench/workloads"] = bench_path(
+        "workloads", lambda: workloads.run(quick=True, device=dev))
+    rows = csv_rows(common.result_path(workloads.CSV), workloads.CSV_HEADER)
+    print(f"[bench] workloads ({rows} rows): {json.dumps(out)}", flush=True)
+    if not out["verify_ok_all"] or out["static_replans_total"]:
+        raise AssertionError(f"workloads: a stream failed its check or a "
+                             f"static stream replanned: {out}")
+    out, paths["bench/moe_dispatch"] = bench_path(
+        "moe_dispatch", lambda: moe_dispatch.run(quick=True, device=dev))
+    rows = csv_rows(common.result_path(moe_dispatch.CSV), moe_dispatch.HEADER)
+    print(f"[bench] moe_dispatch ({rows} rows): {json.dumps(out)}",
+          flush=True)
+    if not (out["e16_k2_dispatch_agree"] and out["e64_k8_dispatch_agree"]):
+        raise AssertionError(f"moe_dispatch: sorted and one-hot dispatch "
+                             f"disagree: {out}")
+    regress_control()
+    return paths
+
+
 
 
 def forced_paths(dev, rmat, iters: int) -> tuple:
@@ -2590,16 +2719,20 @@ ROUTE_TRAFFIC_REQUESTS = 60      # 7r.4, at half 7s.3's sustained rate
 
 
 def route_campaign(dev) -> None:
-    """7r.1: spmv_bench.campaign_route on TRAFFIC_MATRIX (two route cells,
-    the sibling p99 and delta-against-replan checks, the resume)."""
-    from repro_torch.launch import spmv_bench
+    """7r.1: the router soak, bench.run.smoke_route, on TRAFFIC_MATRIX (two
+    route cells on meshes of 4 devices, the sibling p99 and
+    delta-against-replan checks, the resume); its CSV's header is the
+    reference's."""
+    from repro_torch.bench import run as bench_run
 
     t0 = time.perf_counter()
     traffic_matrix()
-    fails = spmv_bench.campaign_route(dev, matrices=(TRAFFIC_MATRIX,))
+    fails = bench_run.smoke_route(matrices=(TRAFFIC_MATRIX,), device=dev)
     if fails:
-        raise AssertionError(f"route campaign: {fails} failures")
-    phase("route campaign", t0, matrix=TRAFFIC_MATRIX)
+        raise AssertionError(f"route soak: {fails} failures")
+    rows = csv_rows(bench_run.common.result_path(bench_run.SMOKE_ROUTE_CSV),
+                    bench_run.SMOKE_ROUTE_HEADER)
+    phase("route campaign", t0, matrix=TRAFFIC_MATRIX, csv_rows=rows)
 
 
 def route_request(rt, key: str, x):
@@ -2690,7 +2823,7 @@ def route_delta(dev, rt, mats: dict) -> None:
     import numpy as np
 
     from repro_torch import obs
-    from repro_torch.launch import spmv_bench
+    from repro_torch.bench import run as bench_run
     from repro_torch.serving import traffic
 
     hot, sib = list(mats)
@@ -2728,11 +2861,11 @@ def route_delta(dev, rt, mats: dict) -> None:
     xh = rng.standard_normal(new.n)
     y, _ = route_request(rt, hot, xh)
     err = check_product("route delta", y, device_product(new, xh, dev))
-    p_base, p_during = spmv_bench.p99(base), spmv_bench.p99(during)
+    p_base, p_during = bench_run.p99(base), bench_run.p99(during)
     print(f"[result] route sibling p99: {p_base:.2f} ms before, "
           f"{p_during:.2f} ms during the replan ({len(during)} requests; "
           f"criterion <= 5 x before + 50 ms)", flush=True)
-    if not spmv_bench.sibling_p99_flat(p_base, p_during):
+    if not bench_run.sibling_p99_flat(p_base, p_during):
         raise AssertionError(f"route delta: sibling p99 {p_during:.2f} ms "
                              f"during the replan vs {p_base:.2f} ms before")
     phase("route delta", t0, deleted=d.churn_nnz,

@@ -10,7 +10,6 @@
         --scheme rcm --devices 8 --layout 1d_rows --partition auto
     python -m repro_torch.launch.spmv_bench --serve-traffic \
         --devices 4 --meshes 2 --placement nnz_balance [--device cpu]
-    python -m repro_torch.launch.spmv_bench --campaign route [--device cpu]
 
 The port's counterpart of the JAX package's `run_single`: one matrix, one
 reordering scheme ("auto" searches), one engine ("auto" tunes), as a
@@ -39,14 +38,9 @@ through the multi-shard router (router/service.py): a fleet of
 `--meshes` meshes of N devices, keys placed by `--placement`, the budget
 bounding every device; on one card each mesh's devices are simulated.
 
-`--campaign route` is the port's counterpart of the JAX package's
-`benchmarks/run.py --smoke-route`: two "route" cells (a budgeted
-bin_pack fleet with value swaps and structure deltas, a comm_aware
-fleet) through the Runner, held to the router's invariants; the sibling
-p99 check (a background shard replan must not stall its sibling key);
-Plan.apply_delta against a full replan; and the resume from the result
-store. It exits nonzero on any failure. `--trace PATH` records the run's
-spans (.jsonl: the raw events, else Chrome-trace JSON).
+`--trace PATH` records the run's spans (.jsonl: the raw events, else
+Chrome-trace JSON). The router soak is `repro_torch.bench.run
+--smoke-route`.
 
 `--matrix M --devices N [--layout L] [--partition P]` is one sharded cell
 (`run_parallel`): a one-cell "parallel" ExperimentSpec through the
@@ -482,228 +476,6 @@ def run_serve_traffic(matrix: str = "smoke_powerlaw",
     return rec
 
 
-# devices a mesh of the route campaign: the JAX package's
-# max(2, min(4, devices // 2)) for its 8 devices
-ROUTE_MESH_DEVICES = 4
-
-
-def smoke_route_spec(matrices=None):
-    """The JAX package's smoke_route spec: two fleet scenarios of 2
-    meshes of ROUTE_MESH_DEVICES devices — a budgeted bin_pack fleet with
-    a value-swap and structure-delta mix (the mid-soak shard replan
-    shape), and a comm_aware fleet."""
-    from ..experiments import ExperimentSpec, MeasurePolicy
-    from ..experiments.cells import route_variant
-
-    d = ROUTE_MESH_DEVICES
-    variants = (
-        route_variant(rate_rps=600, requests=120, n_keys=4,
-                      update_frac=0.1, structure_frac=0.08,
-                      devices=d, meshes=2, policy="bin_pack",
-                      budget_mb=4.0, window_ms=1.0),
-        route_variant(rate_rps=600, requests=80, n_keys=3,
-                      structure_frac=0.05, devices=d, meshes=2,
-                      policy="comm_aware", window_ms=1.0),
-    )
-    return ExperimentSpec(
-        name="smoke_route_torch",
-        matrices=tuple(matrices or ("smoke_banded",)),
-        schemes=("baseline",), engines=("auto",), ks=(4,), kind="route",
-        variants=variants,
-        policy=MeasurePolicy(iters=1, warmup=0, with_yax=False,
-                             with_parallel=False, with_metrics=False))
-
-
-def route_invariants(rec) -> list:
-    """What a "route" record breaks of the router's invariants (the JAX
-    package's smoke_route checks); empty when it holds them all."""
-    bad = []
-    if rec["unresolved"] or rec["replan_unresolved"]:
-        bad.append(f"unresolved futures: requests={rec['unresolved']} "
-                   f"replans={rec['replan_unresolved']}")
-    if rec["errors"] or rec["replan_errors"]:
-        bad.append(f"errors: requests={rec['errors']} "
-                   f"replans={rec['replan_errors']}")
-    if not rec["per_device_ok"] or not rec["budget_ok"]:
-        bad.append(f"per-device budget violated (per_device_ok="
-                   f"{rec['per_device_ok']} budget_ok={rec['budget_ok']})")
-    if not rec["counters_balanced"]:
-        bad.append("stats counters do not balance")
-    if rec["structure_updates"] \
-            and rec["replans_landed"] != rec["structure_updates"]:
-        bad.append(f"{rec['structure_updates']} structure updates but "
-                   f"{rec['replans_landed']} replans landed")
-    if rec["placement"] != "bin_pack" \
-            and len(set(rec["assignments"].values())) < 2:
-        # bin_pack is best-fit and legitimately packs one mesh; the
-        # load-spreading policies must actually spread
-        bad.append(f"placement degenerate: all keys on one mesh "
-                   f"({rec['assignments']})")
-    return bad
-
-
-def p99(samples) -> float:
-    """The JAX package's sibling-check percentile (index int(0.99 n))."""
-    s = sorted(samples)
-    return s[min(len(s) - 1, int(0.99 * len(s)))]
-
-
-def sibling_p99_flat(p_base: float, p_during: float) -> bool:
-    """The non-stalling criterion of the JAX package's smoke_route: a
-    sibling gated on a replan fails catastrophically, so p99 during the
-    replan <= 5 x baseline + 50 ms separates broken from noisy."""
-    return p_during <= 5.0 * p_base + 50.0
-
-
-def route_delta_vs_replan() -> int:
-    """Plan.apply_delta must be measurably cheaper than a full replan of
-    the edited matrix, pinned by the delta.applies counter. Returns the
-    failure count."""
-    from .. import obs
-    from ..core.spmv.delta import StructureDelta
-    from ..matrices import generators as G
-
-    mat = G.banded(4096, 24, seed=0)
-    pl = plan(SpmvProblem(mat), reorder="rcm", cache=False)
-    rows = np.repeat(np.arange(mat.shape[0], dtype=np.int64),
-                     np.diff(mat.rowptr.astype(np.int64)))
-    pick = np.arange(0, mat.nnz, max(mat.nnz // 64, 1))[:64]
-    delta = StructureDelta(del_rows=rows[pick],
-                           del_cols=mat.cols.astype(np.int64)[pick])
-    applies0 = obs.counter("delta.applies").value
-    t0 = time.perf_counter()
-    pl2 = pl.apply_delta(delta)
-    delta_ms = (time.perf_counter() - t0) * 1e3
-    applies1 = obs.counter("delta.applies").value
-    new_mat = delta.apply_to(mat)
-    t0 = time.perf_counter()
-    pl3 = plan(SpmvProblem(new_mat), reorder="rcm", cache=False)
-    replan_ms = (time.perf_counter() - t0) * 1e3
-    fails = 0
-    if applies1 != applies0 + 1:
-        fails += 1
-        print(f"DELTA COUNTER FAILED: delta.applies moved "
-              f"{applies1 - applies0}, want 1", flush=True)
-    if pl2.key == pl.key or tuple(pl2.mat_shape) != tuple(new_mat.shape) \
-            or pl2.mat_nnz != new_mat.nnz:
-        fails += 1
-        print("DELTA PLAN FAILED: apply_delta did not re-key the plan "
-              "onto the edited structure", flush=True)
-    if delta_ms >= replan_ms:
-        fails += 1
-        print(f"DELTA NOT CHEAPER: apply_delta {delta_ms:.2f} ms >= "
-              f"full replan {replan_ms:.2f} ms", flush=True)
-    print(f"# delta-vs-replan: apply_delta {delta_ms:.2f} ms vs "
-          f"plan() {replan_ms:.2f} ms ({replan_ms / max(delta_ms, 1e-9):.1f}x"
-          f"); replanned scheme={pl3.scheme}", flush=True)
-    return fails
-
-
-def route_sibling_p99(device=None) -> int:
-    """Soak one mesh with two keys; trigger a background shard replan on
-    one and hold the SIBLING key's p99 to sibling_p99_flat (the
-    non-stalling replan pillar). Returns the failure count."""
-    from ..core.spmv.topology import Topology
-    from ..matrices import generators as G
-    from ..router import MeshSpec, RoutedSpmvService
-    from ..serving.traffic import _deletion_delta
-
-    mesh = MeshSpec("m0", Topology(devices=ROUTE_MESH_DEVICES))
-    sib_mat = G.banded(1024, 16, seed=1)
-    hot_mat = G.banded(2048, 32, seed=2)
-    rng = np.random.default_rng(3)
-    x = rng.standard_normal(sib_mat.shape[1])
-
-    def lat_run(svc, n):
-        out = []
-        for _ in range(n):
-            t0 = time.perf_counter()
-            svc.submit("sib", x).result(timeout=60)
-            out.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    fails = 0
-    with RoutedSpmvService([mesh], max_batch=4, window_ms=0.5,
-                           device=device) as rt:
-        rt.register("sib", sib_mat, mesh="m0")
-        rt.register("hot", hot_mat, mesh="m0")
-        rt.operator("sib")
-        rt.operator("hot")
-        base = lat_run(rt, 40)
-        fut = rt.update_structure(
-            "hot", delta=_deletion_delta(hot_mat, rng, frac=0.01))
-        during = lat_run(rt, 40)          # sibling serves while replanning
-        fut.result(timeout=120)
-        st = rt.stats()
-        if st["replans"] != 1 or st["replan_errors"]:
-            fails += 1
-            print(f"SIBLING REPLAN FAILED: replans={st['replans']} "
-                  f"errors={st['replan_errors']} (want exactly 1 clean "
-                  f"background replan)", flush=True)
-        p_base, p_during = p99(base), p99(during)
-        if not sibling_p99_flat(p_base, p_during):
-            fails += 1
-            print(f"SIBLING P99 NOT FLAT: {p_during:.2f} ms during replan "
-                  f"vs {p_base:.2f} ms baseline", flush=True)
-        print(f"# sibling p99: {p_base:.2f} ms baseline -> "
-              f"{p_during:.2f} ms during background replan", flush=True)
-    return fails
-
-
-def campaign_route(device=None, matrices=None) -> int:
-    """The router soak: the route cells of smoke_route_spec through the
-    Runner, each held to route_invariants; then the sibling p99 check,
-    the delta-against-replan check and the resume (the same spec again
-    must be 100% result-store hits). Returns the number of failures."""
-    from ..experiments import ResultStore, Runner
-
-    spec = smoke_route_spec(matrices)
-    store = ResultStore()
-    t0 = time.perf_counter()
-    runner = Runner(spec, store=store, verbose=False, on_error="record",
-                    device=device)
-    rep = runner.run()
-    first_s = time.perf_counter() - t0
-    failures = len(rep.failures)
-    for f in rep.failures:
-        print(f"{f['label']}: ERROR {f['error']}\n{f['traceback']}",
-              flush=True)
-    print("matrix,variant,placement,ok,unresolved,structure_updates,"
-          "replans_landed,value_swaps,evictions,per_device_ok,wall_s,"
-          "launches,assignments,store", flush=True)
-    for rec in rep.records:
-        print(f"{rec['matrix']},{rec['variant']},{rec['placement']},"
-              f"{rec['ok']},{rec['unresolved']},{rec['structure_updates']},"
-              f"{rec['replans_landed']},{rec['value_swaps']},"
-              f"{rec['evictions']},{int(rec['per_device_ok'])},"
-              f"{rec['wall_s']:.3f},\"{json.dumps(rec['launches'])}\","
-              f"\"{json.dumps(rec['assignments'])}\","
-              f"{'hit' if rec['store_reused'] else 'miss+measure'}",
-              flush=True)
-        bad = route_invariants(rec)
-        if bad:
-            failures += 1
-            print(f"ROUTE INVARIANT FAILED [{rec['variant']}]: "
-                  f"{'; '.join(bad)}", flush=True)
-    if not failures:
-        failures += route_sibling_p99(runner.device)
-        failures += route_delta_vs_replan()
-    if not failures:
-        t0 = time.perf_counter()
-        rep2 = Runner(spec, store=store, verbose=False,
-                      device=device).run()
-        ncells = len(rep2.records)
-        if rep2.measured != 0 or rep2.reused != ncells:
-            print(f"RESUME FAILED: second run measured={rep2.measured} "
-                  f"reused={rep2.reused} (want 0/{ncells})", flush=True)
-            failures += 1
-        else:
-            print(f"# resume: {rep2.reused}/{ncells} cells served from the "
-                  f"store ({time.perf_counter() - t0:.2f} s, first run "
-                  f"{first_s:.2f} s)", flush=True)
-    return failures
-
-
 def run_parallel(matrix: str, scheme: str = "baseline", engine: str = "auto",
                  devices: int = 8, layout: str = "1d_rows",
                  partition: str = "nnz_balanced", iters: int = 6, k: int = 1,
@@ -770,10 +542,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--matrix",
                     help="suite matrix name (repro_torch.matrices.suite)")
-    ap.add_argument("--campaign", choices=("route",),
-                    help="run the route campaign instead of one cell "
-                         "(the smoke campaign is repro_torch.bench.run "
-                         "--smoke)")
     ap.add_argument("--scheme", default="baseline")
     ap.add_argument("--engine", default="auto")
     ap.add_argument("--probe", action="store_true",
@@ -842,19 +610,10 @@ def main(argv=None):
                          ".jsonl -> raw event log, anything else -> "
                          "Chrome-trace JSON (load in ui.perfetto.dev)")
     args = ap.parse_args(argv)
-    if not args.trace:
-        _dispatch(ap, args)
-        return
     from .. import obs
 
-    try:
-        with obs.tracing() as buf:
-            _dispatch(ap, args)
-    finally:
-        events = buf.flush()
-        obs.write_trace(args.trace, events)
-        print(f"# trace: {len(events)} span events -> {args.trace}",
-              flush=True)
+    with obs.trace_to(args.trace):
+        _dispatch(ap, args)
 
 
 def _dispatch(ap, args):
@@ -906,10 +665,9 @@ def _dispatch(ap, args):
             raise SystemExit(f"serve-sim verification FAILED: max_rel_err="
                              f"{rec['max_rel_err']:.2e}")
         return
-    if args.campaign:
-        raise SystemExit(1 if campaign_route(args.device) else 0)
     if not args.matrix:
-        ap.error("give --matrix or --campaign")
+        ap.error("give --matrix (the campaigns are repro_torch.bench.run "
+                 "--smoke, --smoke-route, ...)")
     if args.devices <= 1 and (args.layout or args.partition):
         ap.error("--layout/--partition require --devices > 1 "
                  "(sharded single-cell mode)")

@@ -19,8 +19,9 @@ from .spans import (Span, TraceBuffer, enabled, install_sink,  # noqa: F401
                     remove_sink, span, tracing)
 from .metrics import (REGISTRY, Counter, Gauge, Histogram,  # noqa: F401
                       counter, gauge, histogram, reset, snapshot)
-from .export import (to_chrome_trace, validate_chrome_trace,  # noqa: F401
-                     write_chrome_trace, write_jsonl, write_trace)
+from .export import (to_chrome_trace, trace_to,  # noqa: F401
+                     validate_chrome_trace, write_chrome_trace, write_jsonl,
+                     write_trace)
 
 __all__ = [
     "span", "tracing", "enabled", "install_sink", "remove_sink", "Span",
@@ -28,5 +29,5 @@ __all__ = [
     "counter", "gauge", "histogram", "snapshot", "reset",
     "REGISTRY", "Counter", "Gauge", "Histogram",
     "to_chrome_trace", "write_chrome_trace", "write_jsonl", "write_trace",
-    "validate_chrome_trace",
+    "trace_to", "validate_chrome_trace",
 ]

@@ -18,6 +18,7 @@ Run as a module to check a trace file:
 from __future__ import annotations
 
 import json
+from contextlib import contextmanager
 
 
 def to_chrome_trace(events: list) -> dict:
@@ -86,6 +87,25 @@ def write_trace(path: str, events: list) -> None:
         write_jsonl(path, events)
     else:
         write_chrome_trace(path, events)
+
+
+@contextmanager
+def trace_to(path: str):
+    """The CLIs' `--trace PATH`: record the spans of the scope inside and
+    write them to `path` with write_trace, even when the scope raises or
+    exits; prints how many. Records nothing when `path` is empty."""
+    if not path:
+        yield
+        return
+    from .spans import tracing
+
+    try:
+        with tracing() as buf:
+            yield
+    finally:
+        events = buf.flush()
+        write_trace(path, events)
+        print(f"# trace: {len(events)} span events -> {path}", flush=True)
 
 
 def validate_chrome_trace(trace) -> list:

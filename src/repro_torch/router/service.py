@@ -31,7 +31,7 @@ and device d's true residency Sum_op per_dev(op)[d] is bounded by the
 left side — so NO device ever exceeds budget_per_device, and because
 `_install_locked` evicts BEFORE installing, the bound holds even
 transiently (each mesh service's `resident_bytes_max` high-water mark
-stays within its budget). `spmv_bench --campaign route` checks it.
+stays within its budget). `bench.run --smoke-route` checks it.
 
 The device. Every mesh service runs on the router's one device (`device=`,
 the card by default; it raises without one unless the caller passes

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.bench import run as bench_run
 from repro_torch.core.measure import ios
 from repro_torch.core.sparse.csr import CSRMatrix
 from repro_torch.core.spmv import plan as tplan
@@ -34,7 +35,8 @@ PKG = ROOT / "src" / "repro_torch"
 @pytest.fixture(autouse=True)
 def _hermetic_stores(tmp_path, monkeypatch):
     for var in ("REPRO_TORCH_PLAN_CACHE", "REPRO_TORCH_REORDER_CACHE",
-                "REPRO_TORCH_RESULT_STORE"):
+                "REPRO_TORCH_RESULT_STORE", "REPRO_TORCH_RESULTS_DIR",
+                "REPRO_TORCH_CORPUS_CACHE"):
         monkeypatch.setenv(var, str(tmp_path / var))
 
 
@@ -114,7 +116,7 @@ def test_entry_points_default_to_the_card_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Runner(ExperimentSpec(name="x", matrices=("m",)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        spmv_bench.campaign_route()
+        bench_run.smoke_route()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RoutedSpmvService([MeshSpec("m", Topology(devices=2))])
     cfg = smoke_config(registry.get("zamba2-7b"))
@@ -172,6 +174,8 @@ def test_drivers_and_examples_import_no_reference(path):
 def test_importing_the_drivers_leaves_the_reference_out():
     names = [name for _, name in DRIVER_MODULES]
     assert {"repro_torch.bench.run", "repro_torch.bench.common",
+            "repro_torch.bench.workloads", "repro_torch.bench.moe_dispatch",
+            "repro_torch.bench.corpus_scale", "repro_torch.bench.regress",
             "repro_torch.examples.cg_solver"} <= set(names)
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
@@ -188,9 +192,9 @@ def test_importing_the_drivers_leaves_the_reference_out():
 
 
 def test_drivers_default_to_the_card_and_raise_without_it(monkeypatch):
-    from repro_torch.bench import (fig01_banded_shuffle, fig03_ios_yax,
-                                   run as bench_run, spmm_batch,
-                                   summarize_repro)
+    from repro_torch.bench import (corpus_scale, fig01_banded_shuffle,
+                                   fig03_ios_yax, moe_dispatch, spmm_batch,
+                                   summarize_repro, workloads)
     from repro_torch.core.measure import cg
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -200,6 +204,13 @@ def test_drivers_default_to_the_card_and_raise_without_it(monkeypatch):
                  lambda: spmm_batch.run(smoke=True),
                  lambda: bench_run.smoke(),
                  lambda: bench_run.smoke_parallel(),
+                 lambda: bench_run.smoke_serve(),
+                 lambda: bench_run.smoke_route(),
+                 lambda: workloads.run(quick=True),
+                 lambda: workloads.smoke(),
+                 lambda: moe_dispatch.run(quick=True),
+                 lambda: corpus_scale.run(quick=True),
+                 lambda: corpus_scale.smoke(),
                  lambda: spmv_bench.run_single("smoke_banded"),
                  lambda: cg.solve_problem(_mat(), torch.ones(8))):
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -609,8 +609,8 @@ def test_route_cell_through_the_runner_and_its_store():
     assert rec["counters_balanced"]
     assert rec["replans_landed"] == rec["structure_updates"]
     assert set(rec["launches"]) >= {"sell_spmv", "sell_spmm"}
-    from repro_torch.launch import spmv_bench
-    assert spmv_bench.route_invariants(rec) == []
+    from repro_torch.bench import run as bench_run
+    assert bench_run.route_invariants(rec) == []
     # every key of the reference's record, beside the port's launches
     want = {"m", "n", "nnz", "offered", "submitted", "ok", "shed",
             "rejected", "errors", "unresolved", "updates",
@@ -626,27 +626,27 @@ def test_route_cell_through_the_runner_and_its_store():
 
 
 def test_route_invariants_catch_each_fault():
-    from repro_torch.launch import spmv_bench
+    from repro_torch.bench import run as bench_run
 
     good = {"unresolved": 0, "replan_unresolved": 0, "errors": 0,
             "replan_errors": 0, "per_device_ok": True, "budget_ok": True,
             "counters_balanced": True, "structure_updates": 2,
             "replans_landed": 2, "placement": "comm_aware",
             "assignments": {"a": "m0", "b": "m1"}}
-    assert spmv_bench.route_invariants(good) == []
+    assert bench_run.route_invariants(good) == []
     for fault in ({"unresolved": 1}, {"replan_errors": 1},
                   {"per_device_ok": False}, {"budget_ok": False},
                   {"counters_balanced": False}, {"replans_landed": 1},
                   {"assignments": {"a": "m0", "b": "m0"}}):
-        assert len(spmv_bench.route_invariants({**good, **fault})) == 1
+        assert len(bench_run.route_invariants({**good, **fault})) == 1
     # bin_pack may pack one mesh
-    assert spmv_bench.route_invariants(
+    assert bench_run.route_invariants(
         {**good, "placement": "bin_pack",
          "assignments": {"a": "m0", "b": "m0"}}) == []
-    assert spmv_bench.sibling_p99_flat(10.0, 100.0)
-    assert not spmv_bench.sibling_p99_flat(10.0, 100.5)
-    assert spmv_bench.p99(list(range(100))) == 99
-    assert spmv_bench.p99([3.0, 1.0, 2.0]) == 3.0
+    assert bench_run.sibling_p99_flat(10.0, 100.0)
+    assert not bench_run.sibling_p99_flat(10.0, 100.5)
+    assert bench_run.p99(list(range(100))) == 99
+    assert bench_run.p99([3.0, 1.0, 2.0]) == 3.0
 
 
 # -- the CLI ----------------------------------------------------------------
@@ -725,21 +725,35 @@ def test_cli_trace_writes_a_valid_trace(tmp_path, capsys, suffix):
 
 
 def test_cli_campaign_route_passes_and_resumes(capsys):
-    from repro_torch.launch import spmv_bench
+    """bench.run --smoke-route (the router soak) passes and resumes, and
+    writes the reference's CSV header and summary keys."""
+    import csv
+    import json
+    import os
+
+    from repro_torch.bench import run as bench_run
 
     with pytest.raises(SystemExit) as e:
-        spmv_bench.main(["--campaign", "route", "--device", "cpu"])
+        bench_run.main(["--smoke-route", "--device", "cpu"])
     out = capsys.readouterr().out
     assert e.value.code == 0, out
     assert "ROUTE INVARIANT FAILED" not in out
     assert "# sibling p99:" in out and "# delta-vs-replan:" in out
     assert "# resume: 2/2 cells served from the store" in out
+    res = os.environ["REPRO_TORCH_RESULTS_DIR"]
+    with open(os.path.join(res, bench_run.SMOKE_ROUTE_CSV)) as f:
+        rows = list(csv.reader(f))
+    assert rows[0] == bench_run.SMOKE_ROUTE_HEADER and len(rows) == 3
+    with open(os.path.join(res, bench_run.ROUTE_SUMMARY_NAME)) as f:
+        summary = json.load(f)
+    assert set(summary) == {"failures", "cells", "records"}
+    assert summary["failures"] == 0 and summary["cells"] == 2
 
 
 def test_campaign_route_counts_a_broken_invariant(monkeypatch, capsys):
-    """A fleet that reports a device over its budget fails the campaign
+    """A fleet that reports a device over its budget fails the soak
     (and stops it before the resume)."""
-    from repro_torch.launch import spmv_bench
+    from repro_torch.bench import run as bench_run
     from repro_torch.router import service
 
     real = service.RoutedSpmvService.stats
@@ -748,7 +762,7 @@ def test_campaign_route_counts_a_broken_invariant(monkeypatch, capsys):
         return {**real(self), "per_device_ok": False}
 
     monkeypatch.setattr(service.RoutedSpmvService, "stats", over)
-    assert spmv_bench.campaign_route("cpu") == 2
+    assert bench_run.smoke_route(device="cpu") == 2
     out = capsys.readouterr().out
     assert out.count("ROUTE INVARIANT FAILED") == 2
     assert "# resume" not in out
