@@ -2,7 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
     python3 chip_smoke.py            # Fig. 1 pair (1,048,576 rows), then
-                                     # Zamba2-7B at full width and depth
+                                     # Zamba2-7B at full width and depth,
+                                     # then the dense, gemma2 and MoE LMs
+                                     # at full width (qwen2-7b and
+                                     # minicpm-2b at full depth)
 
 Phases, in order, one line each with its seconds; the first failure ends
 the run with a nonzero exit code (nothing is caught):
@@ -241,7 +244,47 @@ the run with a nonzero exit code (nothing is caught):
                   (the second, with the state the first left);
 11. ssd controls — K5 given xw with its last time step zeroed, and K5's
                   chain with the carried state zeroed between chunks, must
-                  each fail the check against the intact plain result.
+                  each fail the check against the intact plain result;
+12. lm families — the Zamba2 tensors are freed; then, one at a time (each
+                  freed before the next), six architectures at their
+                  published widths with random f32 parameters from a seeded
+                  generator on the card, cut in depth as LM_FAMILY_CELLS
+                  says (the f32 draw under ~42 GB): 12a qwen2-7b (28
+                  layers, GQA 28/4, QKV bias) and 12b minicpm-2b (40
+                  layers, MHA 36 x 64) at full depth, 12c
+                  command-r-plus-104b at 4 of 64 layers, 12d gemma2-27b at
+                  16 of 46 (8 local/global pairs), 12e qwen3-moe-30b-a3b
+                  at 16 of 48 (128 experts, top 8), 12f phi3.5-moe at 8 of
+                  32 (16 experts, top 2). Each: decode through an f32
+                  cache against an f32 prefill over the same tokens (17;
+                  8 for MoE, which then cannot drop, drop_frac == 0
+                  asserted on both sides) within 1e-3 of the largest
+                  logit, at full depth for 12a and 12b and at 2 layers
+                  for the others (on a miss the gap at every depth is
+                  printed before the run fails); then the parameters cast
+                  to bf16 and a bf16 prefill (qwen2-7b, minicpm-2b and
+                  the MoE models B = 2 x S = 4096, command-r-plus 1 x
+                  4096, gemma2 1 x 8192) timed by CUDA events (median of
+                  5) in tokens/s, with its peak memory and, for MoE,
+                  router_li and drop_frac. 12a also runs greedy generate
+                  in f32 (B = 4, prompt 16, 32 new) in tokens/s, one f32
+                  decode step and one bf16 prefill profiled (idle share,
+                  device time by kernel group; attention's device time
+                  from CUDA events around each flash_attention call), and
+                  the f32 forward at 2 layers against the same forward
+                  in float64 on the card within 1e-4. 12d holds the first
+                  local layer's attention at S = 8192 through
+                  flash_attention against a materialized masked softmax
+                  in f32 within 1e-4 of the largest entry; the same
+                  without the window must move the positions it binds
+                  (q >= 4096) by more than 1e-2. 12e and 12f run every
+                  MoE layer, on its own input in an f32 forward over the
+                  prefill's 8192 tokens, with the sorted and the onehot
+                  dispatch (a layer must drop): output within 1e-5 of the
+                  largest entry, every metric equal. These families reach
+                  no Pallas kernel in the reference (attention, MLP and
+                  expert products are jnp there, torch ops here), so
+                  phase 12 adds no kernel row.
 
 Every kernel launch counter is set to 0 just before the first campaign of
 phase 4, the campaign of phase 4c, the drivers of phase 4f (its fig. 1
@@ -291,7 +334,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 KERNEL_TOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 1e-2}
-LM_TOL = 1e-3                    # prefill logits, K5 against the plain SSD
+LM_TOL = 1e-3                    # prefill logits, K5 against the plain SSD;
+                                 # phase 12's decode against prefill
 LAYER_TOL = 1e-5                 # one Mamba2 layer, K5 against the plain SSD
 DECODE_TOL = 2e-2                # decode through the cache vs the prefill
 VERIFY_TOL = 1e-4
@@ -3625,6 +3669,464 @@ def ssd_control(args) -> None:
           f"chunks: rel err {rel:.3e} > {tol:.0e}, caught", flush=True)
 
 
+# -- phase 12: the dense, gemma2 and MoE language-model families -----------
+# Each arch at its published widths, random f32 parameters drawn from a
+# seeded generator on the card: (layers run, None = all; the bf16 prefill's
+# B and S; layers of the f32 decode-against-prefill check, None = all). The
+# depth cuts keep the f32 draw under ~42 GB, so that it, its bf16 copy (made
+# one tensor at a time) and the prefill's activations fit in 80 GB: at full
+# depth command-r-plus holds 419 GB of f32 parameters, gemma2-27b 109,
+# qwen3-moe 122, phi3.5-moe 168. B x S: command-r-plus and gemma2 have a
+# 256,000-entry vocabulary, whose f32 logits take 1 GB a thousand tokens
+# (and unembed an f32 copy of the table), so they prefill one sequence;
+# gemma2's is 8192 long, so its 4096 window binds.
+LM_FAMILY_CELLS = {
+    "qwen2-7b": (None, 2, 4096, None),
+    "minicpm-2b": (None, 2, 4096, None),
+    "command-r-plus-104b": (4, 1, 4096, 2),
+    "gemma2-27b": (16, 1, 8192, 2),
+    "qwen3-moe-30b-a3b": (16, 2, 4096, 2),
+    "phi3.5-moe-42b-a6.6b": (8, 2, 4096, 2),
+}
+FAMILY_DECODE_TOKENS = 17        # decode vs prefill (MoE: 8, see below)
+MOE_DECODE_TOKENS = 8            # n <= 8 <= capacity: no assignment can drop
+WINDOW_TOL = 1e-4                # flash attention vs the materialized mask
+WINDOW_WITNESS = 1e-2            # the same attention without the window
+DISPATCH_TOL = 1e-5              # MoE sorted vs onehot, of the largest entry
+
+
+def family_model(dev, arch: str):
+    """The arch's config cut to its cell's depth and its f32 parameters."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MDL
+
+    full = registry.get(arch)
+    layers = LM_FAMILY_CELLS[arch][0] or full.n_layers
+    cfg = dataclasses.replace(full, n_layers=layers)
+    t0 = time.perf_counter()
+    params = MDL.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    nparams, nbytes = tree_bytes(params)
+    phase(f"lm12 {arch} params", t0, layers=f"{layers} of {full.n_layers}",
+          d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.kv_heads}",
+          vocab=cfg.padded_vocab, params=nparams, f32_bytes=nbytes,
+          param_count_full=full.param_count(),
+          active_param_count_full=full.active_param_count())
+    return cfg, params
+
+
+def family_cut(cfg, params, n: int):
+    """The first n layers (gemma2: n // 2 pairs): the config and views of
+    the same parameters."""
+    import dataclasses
+
+    from repro_torch.models.model import _layer
+
+    if cfg.local_global_period:
+        layers = {part: _layer(params["layers"][part], slice(0, n // 2))
+                  for part in ("local", "global")}
+    else:
+        layers = _layer(params["layers"], slice(0, n))
+    return dataclasses.replace(cfg, n_layers=n), dict(params, layers=layers)
+
+
+def to_bf16(tree):
+    """Every floating tensor of a nested dict cast to bf16 in place, one at a
+    time, so the f32 tree is freed as the copy grows. Views of the f32
+    tensors held elsewhere keep them alive: drop them first."""
+    import torch
+
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            to_bf16(v)
+        elif v.is_floating_point():
+            tree[k] = v.to(torch.bfloat16)
+    return tree
+
+
+def family_decode_gap(cfg, params, toks) -> tuple[float, float, float]:
+    """Decode `toks` one by one through an f32 cache; the last step's logits
+    against a prefill over the same tokens. Returns (max abs err, max
+    |logit|, the largest drop_frac of the prefill and the steps; 0 for a
+    model without MoE)."""
+    import torch
+
+    from repro_torch.models import model as MDL
+    from repro_torch.serving.decode import prefill
+
+    _, full, fm = prefill(params, {"tokens": toks}, cfg, with_metrics=True)
+    cache = MDL.init_cache(cfg, toks.shape[0], toks.shape[1] + 1,
+                           dtype=torch.float32, device=toks.device)
+    drops = [fm.get("drop_frac", 0.0)]
+    with torch.no_grad():
+        for t in range(toks.shape[1]):
+            logits, cache, m = MDL.forward(
+                params, {"tokens": toks[:, t:t + 1]}, cfg, cache=cache)
+            drops.append(m.get("drop_frac", 0.0))
+    err = float((logits[:, 0] - full[:, -1]).abs().max())
+    return err, float(full[:, -1].abs().max()), max(float(d) for d in drops)
+
+
+def family_decode_check(dev, arch, cfg, params) -> None:
+    """Decode against prefill at the cell's check depth: the gap within
+    LM_TOL of the largest logit; MoE on a prompt that cannot drop, with
+    drop_frac == 0 asserted on both sides. On a miss, the gap at every
+    depth up to the check's is printed before the run fails."""
+    import torch
+
+    depth = LM_FAMILY_CELLS[arch][3] or cfg.n_layers
+    ntok = MOE_DECODE_TOKENS if cfg.moe else FAMILY_DECODE_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (1, ntok), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    cut_cfg, cut = family_cut(cfg, params, depth)
+    err, top, drop = family_decode_gap(cut_cfg, cut, toks)
+    if drop != 0.0:
+        raise AssertionError(f"{arch} decode vs prefill: drop_frac {drop} "
+                             f"on a prompt of {ntok} tokens")
+    if not err <= LM_TOL * top:
+        for d in range(1, depth + 1):
+            if cfg.local_global_period and d % 2:
+                continue
+            e, t, _ = family_decode_gap(*family_cut(cfg, params, d), toks)
+            print(f"[growth] {arch} decode vs prefill at {d} layers: "
+                  f"max abs err {e:.3e} of max |logit| {t:.3e}", flush=True)
+        raise AssertionError(f"{arch} decode vs prefill at {depth} layers: "
+                             f"max abs err {err:.3e} > {LM_TOL:.0e} x "
+                             f"{top:.3e}")
+    phase(f"lm12 {arch} decode vs prefill f32", t0, layers=depth,
+          tokens=ntok, max_abs_err=f"{err:.3e}", max_abs_logit=f"{top:.3e}",
+          rel=f"{err / top:.3e}", drop_frac=drop)
+
+
+def attention_ms(fn) -> tuple[float, int]:
+    """fn() once with a CUDA event pair around every flash_attention call:
+    (device ms between the pairs, summed; calls)."""
+    import torch
+
+    from repro_torch.models.layers import attention as A
+
+    plain, pairs = A.flash_attention, []
+
+    def timed(*args, **kw):
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        out = plain(*args, **kw)
+        pair[1].record()
+        pairs.append(pair)
+        return out
+
+    A.flash_attention = timed
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        A.flash_attention = plain
+    return sum(s.elapsed_time(e) for s, e in pairs), len(pairs)
+
+
+def family_prefill(dev, arch, cfg, params_bf, profile: bool = False):
+    """The bf16 prefill of the cell's B x S: a warm-up (its metrics
+    reported), then 5 calls each timed by CUDA events, median in tokens/s;
+    with `profile`, once more under torch.profiler and once with attention
+    timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.decode import prefill
+
+    _, bsz, seq, _ = LM_FAMILY_CELLS[arch]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (bsz, seq),
+                                     generator=gen, device=dev)}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    nxt, logits, metrics = prefill(params_bf, batch, cfg, with_metrics=True)
+    if tuple(logits.shape) != (bsz, seq, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} bf16 prefill: logits "
+                             f"{tuple(logits.shape)} or not finite")
+    del logits
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(5)]
+    for start, end in ev:
+        start.record()
+        prefill(params_bf, batch, cfg)
+        end.record()
+    torch.cuda.synchronize()
+    runs = [s.elapsed_time(e) for s, e in ev]
+    ms = float(np.median(runs))
+    phase(f"lm12 {arch} prefill bf16 timed", t0, layers=cfg.n_layers,
+          tokens=f"{bsz}x{seq}", ms=f"{ms:.3f}",
+          runs_ms=json.dumps([round(r, 3) for r in runs]),
+          tokens_per_s=f"{bsz * seq / (ms / 1e3):.1f}",
+          argmax=nxt.tolist(),
+          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+          **{k: f"{float(v):.6f}" for k, v in metrics.items()})
+    if profile:
+        t0 = time.perf_counter()
+        profile_call(f"{arch} bf16 prefill",
+                     lambda: prefill(params_bf, batch, cfg))
+        att, calls = attention_ms(lambda: prefill(params_bf, batch, cfg))
+        phase(f"lm12 {arch} prefill bf16 profiled", t0,
+              attention_ms=f"{att:.3f}", attention_calls=calls,
+              attention_share=f"{att / ms:.4f}")
+    return ms
+
+
+def qwen2_serving(dev, arch, cfg, params) -> None:
+    """12a's f32 serving: generate at B = 4 (prompt 16, 32 new) in tokens/s,
+    one decode step profiled, and the 2-layer forward against the same in
+    float64 on the card."""
+    import torch
+
+    from repro_torch.models import model as MDL
+    from repro_torch.serving.decode import (cast_params, generate,
+                                            make_serve_step, prefill)
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bsz, prompt_len, new = 4, 16, 32
+    prompt = torch.randint(0, cfg.vocab, (bsz, prompt_len), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(cfg, params, prompt, new, cache_len=prompt_len + new + 1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if tuple(out.shape) != (bsz, new) or not bool(
+            ((out >= 0) & (out < cfg.padded_vocab)).all()):
+        raise AssertionError(f"{arch} generate gave {tuple(out.shape)} "
+                             f"tokens outside the vocabulary")
+    steps = prompt_len + new - 1
+    phase(f"lm12 {arch} generate f32", t0, batch=bsz, prompt=prompt_len,
+          new_tokens=new, steps=steps, tokens_per_s=f"{bsz * new / dt:.2f}",
+          ms_per_step=f"{dt / steps * 1e3:.2f}", sample=out[0].tolist())
+
+    t0 = time.perf_counter()
+    step = make_serve_step(cfg, compute_dtype=torch.float32)
+    cache = MDL.init_cache(cfg, bsz, prompt_len + 2, dtype=torch.float32,
+                           device=dev)
+    with torch.no_grad():
+        for t in range(prompt_len):
+            tok, cache = step(params, {"tokens": prompt[:, t:t + 1]}, cache)
+        profile_call(f"{arch} f32 decode step", lambda: step(
+            params, {"tokens": tok[:, None]}, cache))
+    del cache
+    phase(f"lm12 {arch} decode step profiled", t0, batch=bsz,
+          position=prompt_len)
+
+    t0 = time.perf_counter()
+    cut_cfg, cut = family_cut(cfg, params, 2)
+    toks = prompt[:1, :FAMILY_DECODE_TOKENS]
+    _, got = prefill(cut, {"tokens": toks}, cut_cfg)
+    _, want = prefill(cast_params(cut, torch.float64), {"tokens": toks},
+                      cut_cfg)
+    if want.dtype != torch.float64:
+        raise AssertionError(f"the float64 forward gave {want.dtype} logits")
+    err, rel = rel_err(got, want)
+    if not rel <= VERIFY_TOL:
+        raise AssertionError(f"{arch} 2-layer f32 forward against float64: "
+                             f"rel err {rel:.3e} > {VERIFY_TOL:.0e}")
+    phase(f"lm12 {arch} f32 vs float64", t0, layers=2,
+          tokens=toks.shape[1], max_abs_err=f"{err:.3e}", rel=f"{rel:.3e}")
+
+
+def materialized_attention(q, k, v, window, softcap):
+    """Causal softmax attention with every score materialized, in f32, one
+    KV head (and its query group) at a time; the window and softcap as the
+    reference applies them."""
+    import math
+
+    import torch
+
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    pos = torch.arange(s, device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[:, None] - pos[None, :] < window
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for j in range(kvh):
+        qj = q[:, :, j * g:(j + 1) * g].float().permute(0, 2, 1, 3)
+        kj = k[:, :, j].float()
+        sc = (qj @ kj[:, None].transpose(-1, -2)) / math.sqrt(d)
+        if softcap is not None:
+            sc = softcap * torch.tanh(sc / softcap)
+        p = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
+        out[:, :, j * g:(j + 1) * g] = (p @ v[:, :, j].float()[:, None]
+                                        ).permute(0, 2, 1, 3)
+        del sc, p
+    return out
+
+
+def gemma2_window(dev, arch, cfg, params) -> None:
+    """12d: the first local layer's attention at S = 8192 (q, k and v from
+    its own projections of the embedded tokens, in f32) through the port's
+    flash_attention against materialized_attention, within WINDOW_TOL of
+    the largest entry; and, as the witness, the same without the window,
+    which must move the positions the window binds (q >= window) by more
+    than WINDOW_WITNESS of their largest entry."""
+    import math
+
+    import torch
+
+    from repro_torch.models.layers import attention as A
+    from repro_torch.models.layers.common import (apply_rope, embed, linear,
+                                                  rmsnorm)
+    from repro_torch.models.model import _layer
+
+    _, bsz, seq, _ = LM_FAMILY_CELLS[arch]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (bsz, seq), generator=gen, device=dev)
+    lp = _layer(params["layers"]["local"], 0)
+    hd = cfg.resolved_head_dim
+    with torch.no_grad():
+        x = embed(params["embed"], toks) * math.sqrt(cfg.d_model)
+        h = rmsnorm(lp["attn_norm"], x, cfg.rmsnorm_eps)
+        pos = torch.arange(seq, device=dev).expand(bsz, seq)
+        q, k, v = (linear(lp["attn"][w], h).reshape(bsz, seq, -1, hd)
+                   for w in ("wq", "wk", "wv"))
+        q, k = apply_rope(q, pos, cfg.rope_theta), apply_rope(
+            k, pos, cfg.rope_theta)
+        del x, h
+        got = A.flash_attention(q, k, v, causal=True,
+                                window=cfg.sliding_window,
+                                softcap=cfg.attn_softcap)
+        want = materialized_attention(q, k, v, cfg.sliding_window,
+                                      cfg.attn_softcap)
+        err, rel = rel_err(got, want)
+        if not rel <= WINDOW_TOL:
+            raise AssertionError(f"{arch} windowed flash_attention at S = "
+                                 f"{seq}: rel err {rel:.3e} > "
+                                 f"{WINDOW_TOL:.0e}")
+        bound = slice(cfg.sliding_window, None)
+        unwindowed = A.flash_attention(q, k, v, causal=True, window=None,
+                                       softcap=cfg.attn_softcap)
+        _, moved = rel_err(unwindowed[:, bound], want[:, bound])
+        if not moved > WINDOW_WITNESS:
+            raise AssertionError(f"{arch}: the attention without its window "
+                                 f"moved the bound positions by only "
+                                 f"{moved:.3e}")
+    phase(f"lm12 {arch} local attention S={seq}", t0,
+          window=cfg.sliding_window, softcap=cfg.attn_softcap,
+          max_abs_err=f"{err:.3e}", rel=f"{rel:.3e}",
+          witness_rel=f"{moved:.3e}")
+
+
+def moe_layer_inputs(cfg, params, toks) -> list:
+    """The input of every MoE layer in an f32 forward over `toks` (each
+    moe_layer call recorded on its way through)."""
+    import torch
+
+    from repro_torch.models import model as MDL
+    from repro_torch.models.layers import moe as MOE
+
+    plain, inputs = MOE.moe_layer, []
+
+    def record(p, x, moe_cfg, mesh=None):
+        inputs.append(x)
+        return plain(p, x, moe_cfg, mesh)
+
+    MOE.moe_layer = record
+    try:
+        with torch.no_grad():
+            MDL.forward(params, {"tokens": toks}, cfg)
+    finally:
+        MOE.moe_layer = plain
+    return inputs
+
+
+def moe_dispatch_check(dev, arch, cfg, params) -> None:
+    """12e/f: every MoE layer of the cut model on its own input in an f32
+    forward over the cell's B x S tokens, with the sorted and the onehot
+    dispatch: output within DISPATCH_TOL of the largest entry, every metric
+    equal. The random routers of the deeper layers send most tokens to a
+    few experts, so the drop path runs too (a layer must drop)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.layers import moe as MOE
+    from repro_torch.models.model import _layer
+
+    _, bsz, seq, _ = LM_FAMILY_CELLS[arch]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (bsz, seq), generator=gen, device=dev)
+    inputs = moe_layer_inputs(cfg, params, toks)
+    worst, drops, lis, ms = 0.0, [], [], {"sorted": 0.0, "onehot": 0.0}
+    with torch.no_grad():
+        for i, h in enumerate(inputs):
+            lp = _layer(params["layers"]["moe"], i)
+            out = {}
+            for dispatch in ("sorted", "onehot"):
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                y, m = MOE.moe_layer(lp, h, dataclasses.replace(
+                    cfg.moe, dispatch=dispatch))
+                end.record()
+                torch.cuda.synchronize()
+                ms[dispatch] += start.elapsed_time(end)
+                out[dispatch] = y, {k: float(v) for k, v in m.items()}
+            (ys, m_s), (yo, m_o) = out["sorted"], out["onehot"]
+            _, rel = rel_err(yo, ys)
+            if not rel <= DISPATCH_TOL or m_s != m_o:
+                raise AssertionError(
+                    f"{arch} MoE layer {i}, sorted vs onehot: rel err "
+                    f"{rel:.3e} (tol {DISPATCH_TOL:.0e}); metrics {m_s} vs "
+                    f"{m_o}")
+            worst = max(worst, rel)
+            drops.append(round(m_s["drop_frac"], 6))
+            lis.append(round(m_s["router_li"], 4))
+    if not max(drops) > 0:
+        raise AssertionError(f"{arch}: no MoE layer dropped an assignment; "
+                             f"the drop path went unchecked")
+    phase(f"lm12 {arch} moe sorted vs onehot f32", t0, layers=len(inputs),
+          tokens=bsz * seq, experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+          capacity=MOE.capacity(bsz * seq, cfg.moe),
+          worst_rel=f"{worst:.3e}", drop_frac=json.dumps(drops),
+          router_li=json.dumps(lis), sorted_ms=f"{ms['sorted']:.3f}",
+          onehot_ms=f"{ms['onehot']:.3f}")
+
+
+def lm_families(dev) -> None:
+    """Phase 12: each family's architectures at full width, one at a time,
+    every model freed before the next."""
+    import torch
+
+    t_phase = time.perf_counter()
+    for arch in LM_FAMILY_CELLS:
+        t_arch = time.perf_counter()
+        cfg, params = family_model(dev, arch)
+        family_decode_check(dev, arch, cfg, params)
+        if arch == "qwen2-7b":
+            qwen2_serving(dev, arch, cfg, params)
+        if cfg.local_global_period:
+            gemma2_window(dev, arch, cfg, params)
+        if cfg.moe:
+            moe_dispatch_check(dev, arch, cfg, params)
+        t0 = time.perf_counter()
+        params_bf = to_bf16(params)
+        torch.cuda.synchronize()
+        phase(f"lm12 {arch} bf16", t0,
+              allocated_gib=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
+        family_prefill(dev, arch, cfg, params_bf,
+                       profile=arch == "qwen2-7b")
+        del params, params_bf
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(f"lm12 {arch}", t_arch)
+    phase("lm families", t_phase)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3760,7 +4262,12 @@ def run(args, torch) -> int:
     phase("ssd times", t0)
     t0 = time.perf_counter()
     ssd_control(f32_args)
-    phase("ssd control", t0)
+    del lm, f32_args
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("ssd control", t0,
+          allocated_gib=f"{torch.cuda.memory_allocated() / 2**30:.3f}")
+    lm_families(dev)
     phase("total", t_run)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -1,11 +1,11 @@
 """Model configuration: frozen dataclasses, data only.
 
 The port's own copy of the reference's `configs/base.py`: ModelConfig holds
-everything the architectures need as data, ShapeConfig the input-shape
-cells, and smoke_config() the reduced same-family configuration the CPU
-tests run. Only the `ssm` family (zamba2) is ported so far; the other
-families' fields are kept so a configuration reads the same in both
-packages.
+everything the architectures need as data (and the parameter counts derived
+from it), ShapeConfig the input-shape cells, and smoke_config() the reduced
+same-family configuration the CPU tests run. The families the port does not
+run yet (rwkv6, vlm, audio) keep their fields, so a configuration reads the
+same in both packages.
 """
 from __future__ import annotations
 
@@ -79,6 +79,62 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         """Vocab rounded up to a multiple of 256, as the reference pads it."""
         return ((self.vocab + 255) // 256) * 256
+
+    @property
+    def attention_free(self) -> bool:
+        return self.rwkv is not None or (
+            self.ssm is not None and self.hybrid_attn_period == 0)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k (decode-time state/cache is O(1) or the
+        arch is hybrid with O(S) decode attention)."""
+        return self.ssm is not None or self.rwkv is not None
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embedding + blocks), the
+        reference's formula."""
+        d, l = self.d_model, self.n_layers
+        hd = self.resolved_head_dim
+        total = self.vocab * d  # embed (tied)
+        attn = (d * hd * self.n_heads + 2 * d * hd * self.kv_heads
+                + hd * self.n_heads * d)
+        ffn_dense = 3 * d * self.d_ff
+        for i in range(l):
+            if self.ssm is not None and not self._is_hybrid_attn_layer(i):
+                di = self.ssm.expand * d
+                total += 2 * d * di + di * d + d * self.ssm.d_state * 2
+                continue
+            if self.rwkv is not None:
+                # 5 square mats (r,k,v,g,o) + decay LoRA + 2-mat channel-mix
+                total += (5 * d * d + 2 * d * self.rwkv.decay_lora
+                          + 2 * d * self.d_ff)
+                continue
+            total += attn
+            if self.moe is not None and (i % self.moe_every == 0):
+                total += self.moe.num_experts * 3 * d * self.moe.d_ff_expert
+                total += d * self.moe.num_experts
+            else:
+                total += ffn_dense
+        if self.hybrid_attn_period:
+            total += attn + ffn_dense  # one shared block
+        return total
+
+    def active_param_count(self) -> int:
+        """Per-token active params (MoE: only top_k experts count)."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        total = self.param_count()
+        moe_layers = len([i for i in range(self.n_layers)
+                          if i % self.moe_every == 0])
+        per_expert = 3 * d * self.moe.d_ff_expert
+        return total - moe_layers * per_expert * (self.moe.num_experts
+                                                  - self.moe.top_k)
+
+    def _is_hybrid_attn_layer(self, i: int) -> bool:
+        return (bool(self.hybrid_attn_period)
+                and (i + 1) % self.hybrid_attn_period == 0)
 
 
 @dataclasses.dataclass(frozen=True)

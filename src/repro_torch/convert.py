@@ -87,27 +87,27 @@ def params_from_reference(tree: dict, cfg, device=None, dtype=None) -> dict:
     """The port's model parameters for a reference parameter pytree, given
     as nested dicts of numpy arrays (`jax.device_get(params)`).
 
-    The layout is the same in both packages (`w [d_in, d_out]`, Mamba2
-    layers stacked on a leading axis), so every leaf is a plain copy: the
-    stacked axes are kept, and the port indexes them as the reference's
-    scan does. Floating leaves take `dtype` when given, else their own type
-    (bf16 included); `device=None` is the card. Only the families the port
-    runs are accepted, and the stacked layer counts must match `cfg`.
+    The layout is the same in both packages (`w [d_in, d_out]`, layers
+    stacked on a leading axis), so every leaf is a plain copy: the stacked
+    axes are kept, and the port indexes them as the reference's scan does.
+    Floating leaves take `dtype` when given, else their own type (bf16
+    included); `device=None` is the card. Only the families the port runs
+    are accepted, and the stacked layer counts must match `cfg`: dense and
+    moe `layers` [n_layers, ...] (moe's expert weights [n_layers, E, ...]),
+    gemma2 `layers.{local,global}` [n_layers // 2, ...], Zamba2 `layers`
+    [groups * period, ...] and `tail_layers` [rem, ...].
     """
     import torch
 
     from .device import resolve_device
-    from .models.model import _require_hybrid_ssm
+    from .models.model import _family
 
-    _require_hybrid_ssm(cfg)
+    family = _family(cfg)
     dev = resolve_device(device)
-    groups, rem = divmod(cfg.n_layers, cfg.hybrid_attn_period)
-    stacks = {"layers": groups * cfg.hybrid_attn_period, "tail_layers": rem}
-    for key, n in stacks.items():
-        got = (np.shape(tree[key]["in_proj"]["w"])[0] if key in tree else 0)
-        if got != n:
-            raise ValueError(f"params_from_reference: {key} holds {got} "
-                             f"layers, {cfg.name} needs {n}")
+    for name, got, want in _stack_counts(tree, cfg, family):
+        if got != want:
+            raise ValueError(f"params_from_reference: {name} holds {got}, "
+                             f"{cfg.name} needs {want}")
 
     def leaf(a):
         arr = np.asarray(a)
@@ -125,3 +125,34 @@ def params_from_reference(tree: dict, cfg, device=None, dtype=None) -> dict:
         return leaf(node)
 
     return walk(tree)
+
+
+def _stack_counts(tree: dict, cfg, family: str):
+    """(what, its leading shape in `tree`, the shape `cfg` needs) for each
+    stacked part of a reference parameter tree."""
+    def lead(node, *path, axes=1):
+        for key in path:
+            node = node[key]
+        return tuple(np.shape(node)[:axes])
+
+    n = cfg.n_layers
+    if family == "hybrid":
+        groups, rem = divmod(n, cfg.hybrid_attn_period)
+        tail = (lead(tree, "tail_layers", "in_proj", "w")
+                if "tail_layers" in tree else (0,))
+        return [("layers", lead(tree, "layers", "in_proj", "w"),
+                 (groups * cfg.hybrid_attn_period,)),
+                ("tail_layers", tail, (rem,))]
+    if family == "gemma2":
+        return [(f"layers.{part}",
+                 lead(tree, "layers", part, "attn", "wq", "w"), (n // 2,))
+                for part in ("local", "global")]
+    out = [("layers", lead(tree, "layers", "attn", "wq", "w"), (n,))]
+    if family == "moe":
+        e = cfg.moe.num_experts
+        out += [(f"layers.moe.{w}", lead(tree, "layers", "moe", w, axes=2),
+                 (n, e)) for w in ("w_gate", "w_up", "w_down")]
+        out.append(("layers.moe.router", lead(tree, "layers", "moe",
+                                              "router", "w", axes=3),
+                    (n, cfg.d_model, e)))
+    return out

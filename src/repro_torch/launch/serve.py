@@ -1,8 +1,9 @@
 """Serving entry point: batched greedy decoding with a KV/state cache —
-`python -m repro_torch.launch.serve --arch zamba2-7b --tokens 32`.
+`python -m repro_torch.launch.serve --arch qwen2-7b --tokens 32`.
 
 Runs the smoke-size config of the chosen arch, on the card unless
-`--device cpu` is given. Only zamba2-7b is ported so far.
+`--device cpu` is given. An arch the port does not run yet exits with the
+registry's message; an encoder-only arch has no decode path.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from ..serving.decode import generate
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="zamba2-7b")
+    ap.add_argument("--arch", default="qwen2-7b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=32)
@@ -33,6 +34,8 @@ def main(argv=None):
         cfg = smoke_config(registry.get(args.arch))
     except KeyError as e:
         raise SystemExit(str(e.args[0]))
+    if cfg.encoder_only:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode path")
     dev = resolve_device(args.device)
     params = MDL.init_params(cfg, seed=0, device=dev)
     rng = np.random.default_rng(0)

@@ -5,7 +5,8 @@ decode path over a KV cache.
 The reference writes this in jnp, not Pallas, so plain torch ops are its
 port. Scores and the weighted sum of values are f32 wherever the reference
 asks for an f32 product (`preferred_element_type=jnp.float32`): operands are
-widened to f32 before the product, so a bf16 model does not round its scores.
+widened to f32 before the product, so a bf16 model does not round its scores
+(a float64 model keeps float64).
 Chunking over KV bounds the live score tensor to [B, H, Sq, kv_chunk].
 """
 from __future__ import annotations
@@ -15,18 +16,19 @@ from typing import Optional
 
 import torch
 
-from .common import apply_rope, init_linear, linear, softcap_fn
+from .common import apply_rope, init_linear, linear, softcap_fn, wide_dtype
 
 NEG_INF = -1e30
 
 
 def init_attention(gen, d_model, n_heads, kv_heads, head_dim, qkv_bias=False,
-                   dtype=torch.float32):
+                   dtype=torch.float32, stack=()):
+    kw = dict(dtype=dtype, stack=stack)
     return {
-        "wq": init_linear(gen, d_model, n_heads * head_dim, qkv_bias, dtype),
-        "wk": init_linear(gen, d_model, kv_heads * head_dim, qkv_bias, dtype),
-        "wv": init_linear(gen, d_model, kv_heads * head_dim, qkv_bias, dtype),
-        "wo": init_linear(gen, n_heads * head_dim, d_model, False, dtype),
+        "wq": init_linear(gen, d_model, n_heads * head_dim, qkv_bias, **kw),
+        "wk": init_linear(gen, d_model, kv_heads * head_dim, qkv_bias, **kw),
+        "wv": init_linear(gen, d_model, kv_heads * head_dim, qkv_bias, **kw),
+        "wo": init_linear(gen, n_heads * head_dim, d_model, False, **kw),
     }
 
 
@@ -46,23 +48,24 @@ def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
     _, sk, kvh, _ = k.shape
     g = h // kvh
     dev = q.device
+    wide = wide_dtype(q.dtype)
     # [b, kvh, g, sq, d] in f32
-    qg = q.reshape(b, sq, kvh, g, d).permute(0, 2, 3, 1, 4).float()
+    qg = q.reshape(b, sq, kvh, g, d).permute(0, 2, 3, 1, 4).to(wide)
     scale = 1.0 / math.sqrt(d)
     kv_chunk = min(kv_chunk, sk)
     nchunks = (sk + kv_chunk - 1) // kv_chunk
     q_pos = q_offset + torch.arange(sq, device=dev)
 
-    m = torch.full((b, kvh, g, sq), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, kvh, g, sq, d), dtype=torch.float32, device=dev)
+    m = torch.full((b, kvh, g, sq), NEG_INF, dtype=wide, device=dev)
+    l = torch.zeros((b, kvh, g, sq), dtype=wide, device=dev)
+    acc = torch.zeros((b, kvh, g, sq, d), dtype=wide, device=dev)
     for idx in range(nchunks):
         lo = idx * kv_chunk
         # [b, kvh, 1, ck, d]; the last chunk may be short (the reference
         # pads it and masks the padding: the same scores)
         kci = k[:, lo:lo + kv_chunk].permute(0, 2, 1, 3)[:, :, None]
         vci = v[:, lo:lo + kv_chunk].permute(0, 2, 1, 3)[:, :, None]
-        s = (qg @ kci.float().transpose(-1, -2)) * scale     # [b,kvh,g,sq,ck]
+        s = (qg @ kci.to(wide).transpose(-1, -2)) * scale    # [b,kvh,g,sq,ck]
         s = softcap_fn(s, softcap)
         k_pos = lo + torch.arange(kci.shape[3], device=dev)
         mask = torch.ones((sq, kci.shape[3]), dtype=torch.bool, device=dev)
@@ -75,7 +78,7 @@ def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        pv = p.to(v.dtype).float() @ vci.float()
+        pv = p.to(v.dtype).to(wide) @ vci.to(wide)
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
@@ -90,8 +93,9 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *, window=None,
     b, _, h, d = q.shape
     _, smax, kvh, _ = k_cache.shape
     g = h // kvh
-    qg = q.reshape(b, kvh, g, d).float()
-    kf = k_cache.permute(0, 2, 1, 3).float()                  # [b,kvh,S,d]
+    wide = wide_dtype(q.dtype)
+    qg = q.reshape(b, kvh, g, d).to(wide)
+    kf = k_cache.permute(0, 2, 1, 3).to(wide)                 # [b,kvh,S,d]
     s = (qg @ kf.transpose(-1, -2)) / math.sqrt(d)            # [b,kvh,g,S]
     s = softcap_fn(s, softcap)
     k_pos = torch.arange(smax, device=q.device)
@@ -100,7 +104,8 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *, window=None,
         mask = mask & (k_pos >= cache_len - window)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = p.to(v_cache.dtype).float() @ v_cache.permute(0, 2, 1, 3).float()
+    out = (p.to(v_cache.dtype).to(wide)
+           @ v_cache.permute(0, 2, 1, 3).to(wide))
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 

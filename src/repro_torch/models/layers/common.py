@@ -38,16 +38,22 @@ def linear(p, x):
     return y
 
 
+def wide_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the reference's f32 computations take: float32, or
+    float64 for a float64 model (whose products stay float64)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def init_rmsnorm(gen, d, dtype=torch.float32, stack=()):
     return {"scale": torch.ones((*stack, d), dtype=dtype, device=gen.device)}
 
 
 def rmsnorm(p, x, eps=1e-5):
-    """RMS norm computed in f32; returns the input's type."""
+    """RMS norm computed in f32 (f64 for f64); returns the input's type."""
     dt = x.dtype
-    x = x.float()
+    x = x.to(wide_dtype(dt))
     x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
-    return (x * p["scale"].float()).to(dt)
+    return (x * p["scale"].to(x.dtype)).to(dt)
 
 
 def init_embedding(gen, vocab, d, dtype=torch.float32):
@@ -59,8 +65,9 @@ def embed(p, tokens):
 
 
 def unembed(p, x, softcap=None):
-    """Tied unembedding. Logits in f32."""
-    logits = x.float() @ p["table"].float().T
+    """Tied unembedding. Logits in f32 (f64 for f64)."""
+    wide = wide_dtype(x.dtype)
+    logits = x.to(wide) @ p["table"].to(wide).T
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     return logits

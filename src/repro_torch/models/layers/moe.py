@@ -1,0 +1,141 @@
+"""Mixture-of-Experts with sort-based (reordered) dispatch, single device.
+
+The token->expert routing matrix is a sparse matrix, and this layer applies
+the paper's machinery to it, as the reference's does:
+  * `sorted` dispatch — assignments are permuted by expert id (a stable
+    argsort): the reordering. Each expert's tokens form one contiguous
+    segment, and the expert products run on dense [capacity, d] blocks;
+  * capacity clipping — every expert gets the same number of slots, the
+    nnz-balanced schedule (paper Listing 5); assignments past it are
+    dropped;
+  * the load-imbalance metric LI = max_load / fair_load (paper §6.1) of the
+    raw routing, returned with the drop fraction and the aux loss;
+  * `onehot` dispatch — the unreordered baseline: ranks from a cumulative
+    sum of one-hot rows over the same flattened order, so both dispatches
+    give every assignment the same rank, hence the same drops and the same
+    output up to the order of the combine's sums.
+
+The reference writes this in jnp, not Pallas, so plain torch ops are its
+port. Its expert-parallel path (a mesh, all_to_all over experts) is not
+ported: `moe_layer` runs the single-device body only.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .common import init_linear, truncated_normal, wide_dtype
+
+
+def init_moe(gen, d_model, cfg, dtype=torch.float32, stack=()):
+    """cfg: MoEConfig. Expert weights stacked on a leading E axis (after
+    any `stack` axes)."""
+    e, dff = cfg.num_experts, cfg.d_ff_expert
+    return {
+        "router": init_linear(gen, d_model, e, False, dtype, stack=stack),
+        "w_gate": truncated_normal(gen, (*stack, e, d_model, dff),
+                                   1.0 / math.sqrt(d_model), dtype),
+        "w_up": truncated_normal(gen, (*stack, e, d_model, dff),
+                                 1.0 / math.sqrt(d_model), dtype),
+        "w_down": truncated_normal(gen, (*stack, e, dff, d_model),
+                                   1.0 / math.sqrt(dff), dtype),
+    }
+
+
+def route(params, x_flat, num_experts, top_k):
+    """Returns (gates [n,k], experts [n,k], probs [n,E]); the router's
+    logits are f32 whatever the parameters' type. The top k come from a
+    stable descending sort, so a tie goes to the lower expert index, as
+    jax.lax.top_k breaks it."""
+    wide = wide_dtype(x_flat.dtype)
+    logits = x_flat.to(wide) @ params["router"]["w"].to(wide)
+    probs = torch.softmax(logits, dim=-1)
+    gates, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, experts = gates[:, :top_k], experts[:, :top_k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates, experts, probs
+
+
+def _aux_loss(probs, experts, num_experts):
+    """Switch-style load-balancing loss + the paper's LI metric."""
+    f = F.one_hot(experts[:, 0], num_experts).to(probs.dtype).mean(0)
+    p = probs.mean(0)
+    aux = num_experts * torch.sum(f * p)
+    counts = torch.bincount(experts.reshape(-1),
+                            minlength=num_experts).to(torch.float32)
+    li = counts.max() / torch.clamp(counts.mean(), min=1e-9)  # paper §6.1
+    return aux, li
+
+
+def _expert_ffn(buf, w_gate, w_up, w_down):
+    """buf [E, C, d] -> [E, C, d] (SwiGLU per expert)."""
+    h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
+    return torch.bmm(h, w_down)
+
+
+def capacity(n: int, moe_cfg) -> int:
+    """Slots per expert for n tokens: the reference's rounding up to 8."""
+    k, e = moe_cfg.top_k, moe_cfg.num_experts
+    return int(math.ceil(n * k * moe_cfg.capacity_factor / e / 8)) * 8
+
+
+def _moe_body(params, x, moe_cfg):
+    """x: [b, s, d]. Returns (y [b, s, d], metrics)."""
+    b, s, d = x.shape
+    e, k = moe_cfg.num_experts, moe_cfg.top_k
+    n = b * s
+    dev = x.device
+    x_flat = x.reshape(n, d)
+    gates, experts, probs = route(params, x_flat, e, k)
+    aux, li = _aux_loss(probs, experts, e)
+    cap = capacity(n, moe_cfg)
+
+    ef = experts.reshape(-1)                       # [n*k]
+    tok = torch.arange(n, device=dev).repeat_interleave(k)
+    gf = gates.reshape(-1)
+    pos = torch.arange(n * k, device=dev)
+    if moe_cfg.dispatch == "sorted":
+        # the reordering permutation; stable, so within an expert's segment
+        # the flattened order decides which assignments pass the capacity
+        order = torch.argsort(ef, stable=True)
+        ef_s, tok_s, gf_s = ef[order], tok[order], gf[order]
+        seg_start = torch.searchsorted(ef_s, ef_s, side="left")
+        rank = pos - seg_start
+    elif moe_cfg.dispatch == "onehot":
+        onehot_full = F.one_hot(ef, e)
+        rank = (torch.cumsum(onehot_full, dim=0) - 1)[pos, ef]
+        ef_s, tok_s, gf_s = ef, tok, gf
+    else:
+        raise ValueError(f"unknown MoE dispatch {moe_cfg.dispatch!r}")
+    keep = rank < cap
+    # a dropped assignment goes to one scratch row past the experts' slots
+    # (the only index written more than once)
+    slot = torch.where(keep, ef_s * cap + rank,
+                       torch.full_like(rank, e * cap))
+    buf = x.new_zeros((e * cap + 1, d))
+    buf[slot] = x_flat[tok_s]
+    buf = buf[:-1].reshape(e, cap, d)
+
+    y_buf = _expert_ffn(buf, params["w_gate"], params["w_up"],
+                        params["w_down"])
+
+    # combine: gather each assignment's slot output, weight, sum over k
+    y_flat = torch.cat([y_buf.reshape(e * cap, d), y_buf.new_zeros((1, d))])
+    contrib = y_flat[slot] * (gf_s * keep)[:, None]
+    y = x.new_zeros((n, d)).index_add_(0, tok_s, contrib.to(x.dtype))
+
+    drop_frac = 1.0 - keep.to(torch.float32).mean()
+    metrics = {"aux_loss": aux, "router_li": li, "drop_frac": drop_frac}
+    return y.reshape(b, s, d), metrics
+
+
+def moe_layer(params, x, moe_cfg, mesh=None):
+    """x: [B, S, d]. Returns (y, metrics {aux_loss, router_li, drop_frac}).
+    Only the single-device path is ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "moe_layer: the expert-parallel path over a mesh is not ported "
+            "yet; it comes with the launch and distributed modules")
+    return _moe_body(params, x, moe_cfg)

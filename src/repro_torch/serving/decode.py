@@ -37,16 +37,19 @@ def make_serve_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
 
 @torch.no_grad()
 def prefill(params, batch, cfg: ModelConfig, use_kernel: str = "auto",
-            device=None):
+            device=None, with_metrics: bool = False):
     """The prefill cell: a forward over the prompt with no cache. Returns
-    (argmax of the last position [B], logits [B,S,V] f32). Parameters are
-    used in their own type; `device=None` is the card."""
+    (argmax of the last position [B], logits [B,S,V] f32), and the
+    forward's metrics third when `with_metrics` (the MoE family's aux_loss,
+    router_li and drop_frac; {} for the others). Parameters are used in
+    their own type; `device=None` is the card."""
     dev = resolve_device(device)
     params = cast_params(params, device=dev)
     tokens = torch.as_tensor(batch["tokens"], device=dev)
-    logits, _, _ = MDL.forward(params, {"tokens": tokens}, cfg,
-                               use_kernel=use_kernel)
-    return logits[:, -1].argmax(dim=-1), logits
+    logits, _, metrics = MDL.forward(params, {"tokens": tokens}, cfg,
+                                     use_kernel=use_kernel)
+    out = logits[:, -1].argmax(dim=-1), logits
+    return (*out, metrics) if with_metrics else out
 
 
 @torch.no_grad()

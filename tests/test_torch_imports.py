@@ -119,17 +119,18 @@ def test_entry_points_default_to_the_card_and_raise_without_it(monkeypatch):
         bench_run.smoke_route()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RoutedSpmvService([MeshSpec("m", Topology(devices=2))])
-    cfg = smoke_config(registry.get("zamba2-7b"))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        lm.init_params(cfg)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        lm.init_cache(cfg, 1, 8)
-    params = lm.init_params(cfg, device="cpu")
-    tokens = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        prefill(params, {"tokens": tokens}, cfg)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        generate(cfg, params, tokens, 2, cache_len=8)
+    for arch in ("zamba2-7b", "qwen2-7b", "gemma2-27b", "qwen3-moe-30b-a3b"):
+        cfg = smoke_config(registry.get(arch))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lm.init_params(cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lm.init_cache(cfg, 1, 8)
+        params = lm.init_params(cfg, device="cpu")
+        tokens = torch.zeros(1, 4, dtype=torch.long)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            prefill(params, {"tokens": tokens}, cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            generate(cfg, params, tokens, 2, cache_len=8)
 
 
 def test_cpu_runs_only_on_request():

@@ -77,9 +77,11 @@ def test_config_is_the_references(cfgs):
         == (3584, 7168, 81)
 
 
-def test_registry_refuses_archs_not_ported():
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "llama-3.2-vision-11b",
+                                  "hubert-xlarge"])
+def test_registry_refuses_archs_not_ported(arch):
     with pytest.raises(KeyError, match="not ported yet"):
-        registry.get("qwen2-7b")
+        registry.get(arch)
 
 
 def test_init_params_has_the_references_layout(cfgs, params):
@@ -259,21 +261,33 @@ def test_params_from_reference_checks_the_layer_counts(cfgs, params):
 
 
 def test_other_families_are_not_ported(cfgs):
+    """rwkv6 is refused by the model as by the registry; a dense config
+    (Zamba2's widths without the SSM) runs."""
     import dataclasses
 
+    from repro_torch.configs.base import RWKVConfig
+
+    rwkv = dataclasses.replace(cfgs[1], ssm=None, hybrid_attn_period=0,
+                               rwkv=RWKVConfig(head_dim=32, decay_lora=16,
+                                               chunk=16), family="ssm")
+    with pytest.raises(NotImplementedError, match="rwkv6.*not ported"):
+        TM.init_params(rwkv, device=CPU)
+    with pytest.raises(NotImplementedError, match="rwkv6.*not ported"):
+        TM.forward({}, {"tokens": torch.zeros(1, 1, dtype=torch.long)},
+                   rwkv)
     dense = dataclasses.replace(cfgs[1], ssm=None, hybrid_attn_period=0,
                                 family="dense")
-    with pytest.raises(NotImplementedError, match="not ported|only"):
-        TM.init_params(dense, device=CPU)
-    with pytest.raises(NotImplementedError):
-        TM.forward({}, {"tokens": torch.zeros(1, 1, dtype=torch.long)},
-                   dense)
+    params = TM.init_params(dense, device=CPU)
+    logits, _, metrics = TM.forward(
+        params, {"tokens": torch.zeros(1, 3, dtype=torch.long)}, dense)
+    assert logits.shape == (1, 3, dense.padded_vocab) and metrics == {}
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_serve_cli_on_the_cpu(capsys):
-    serve.main(["--device", "cpu", "--batch", "2", "--prompt-len", "4",
-                "--tokens", "3"])
+    serve.main(["--arch", "qwen2-7b", "--device", "cpu", "--batch", "2",
+                "--prompt-len", "4", "--tokens", "3"])
     out = capsys.readouterr().out
-    assert "generated 6 tokens" in out and "on cpu" in out
+    assert "qwen2-7b on cpu: generated 6 tokens" in out
     with pytest.raises(SystemExit, match="not ported"):
-        serve.main(["--arch", "qwen2-7b", "--device", "cpu"])
+        serve.main(["--arch", "rwkv6-7b", "--device", "cpu"])
