@@ -5,7 +5,10 @@
                                      # Zamba2-7B at full width and depth,
                                      # then the dense, gemma2 and MoE LMs
                                      # at full width (qwen2-7b and
-                                     # minicpm-2b at full depth)
+                                     # minicpm-2b at full depth), then
+                                     # rwkv6-7b, llama-3.2-vision-11b and
+                                     # hubert-xlarge at full width and
+                                     # depth
 
 Phases, in order, one line each with its seconds; the first failure ends
 the run with a nonzero exit code (nothing is caught):
@@ -284,7 +287,35 @@ the run with a nonzero exit code (nothing is caught):
                   largest entry, every metric equal. These families reach
                   no Pallas kernel in the reference (attention, MLP and
                   expert products are jnp there, torch ops here), so
-                  phase 12 adds no kernel row.
+                  phase 12 adds no kernel row;
+13. lm tail     — then, one at a time (each freed before the next), the
+                  last three architectures at their published widths and
+                  full depth, random f32 parameters from a seeded
+                  generator on the card: 13a rwkv6-7b (32 layers, 64 heads
+                  of 64, WKV chunk 32): decode through an f32 cache against
+                  an f32 prefill over 17 tokens (not a multiple of the
+                  chunk: the prefill pads) within 1e-3 of the largest
+                  logit, the 2-layer f32 forward over 100 tokens against
+                  float64 on the card within 1e-4, f32 generate (B = 4,
+                  prompt 16, 32 new) in tokens/s with one decode step
+                  profiled; 13b llama-3.2-vision-11b (8 groups of 4 self
+                  layers and 1 gated cross layer over 1600 image tokens),
+                  its gates set to 0.5 first (they are 0 at init): decode
+                  against prefill as 13a, and the witness that the gates
+                  set back to 0 move the logits by more than 1e-2 of the
+                  largest; 13c hubert-xlarge (48 layers, frame embeddings
+                  in, untied head): the 2-layer float64 check, and the
+                  witness that redrawing the last of 100 frames moves the
+                  first frame's logits (the same forward made causal is
+                  printed beside it). Each then casts to bf16 and times a
+                  prefill (rwkv6 and the vlm B = 2 x S = 4096, the vlm with
+                  image_embeds [2, 1600, 4096]; hubert 8 x 1500 frames) by
+                  CUDA events (median of 5) in tokens/s with its peak
+                  memory, and profiles it once (idle share, launches,
+                  device time by kernel group; rwkv6 at 2 of its layers,
+                  see RWKV_PROFILE_LAYERS). These families reach no
+                  Pallas kernel in the reference, and phase 13 fails if
+                  it launches any kernel of the kernels line.
 
 Every kernel launch counter is set to 0 just before the first campaign of
 phase 4, the campaign of phase 4c, the drivers of phase 4f (its fig. 1
@@ -3419,10 +3450,11 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_call(label: str, fn) -> None:
+def profile_call(label: str, fn):
     """fn() once under torch.profiler: device busy time against the wall
     time of the same call (CUDA events), device time by kernel group, and
-    the kernels that take the most of it."""
+    the kernels that take the most of it. Returns what it prints (None
+    when the trace holds no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3440,7 +3472,7 @@ def profile_call(label: str, fn) -> None:
     if not kernels:
         print(f"[profile] {label}: the trace holds no device time: not "
               f"measured", flush=True)
-        return
+        return None
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     groups: dict = {}
     for e in kernels:
@@ -3448,12 +3480,14 @@ def profile_call(label: str, fn) -> None:
         g["calls"] += e.count
         g["ms"] += e.self_device_time_total / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"[profile] {label}: " + json.dumps({
+    summary = {
         "wall_ms": wall, "device_busy_ms": busy,
         "idle_share": 1 - busy / wall, "groups": groups,
+        "launches": sum(g["calls"] for g in groups.values()),
         "top": [{"kernel": e.key[:80], "calls": e.count,
-                 "ms": e.self_device_time_total / 1e3} for e in top]}),
-        flush=True)
+                 "ms": e.self_device_time_total / 1e3} for e in top]}
+    print(f"[profile] {label}: " + json.dumps(summary), flush=True)
+    return summary
 
 
 def decode_vs_prefill(cfg, params, toks) -> tuple[int, float, float]:
@@ -3748,24 +3782,29 @@ def to_bf16(tree):
     return tree
 
 
-def family_decode_gap(cfg, params, toks) -> tuple[float, float, float]:
+def family_decode_gap(cfg, params, toks,
+                      extra=None) -> tuple[float, float, float]:
     """Decode `toks` one by one through an f32 cache; the last step's logits
-    against a prefill over the same tokens. Returns (max abs err, max
-    |logit|, the largest drop_frac of the prefill and the steps; 0 for a
-    model without MoE)."""
+    against a prefill over the same tokens (`extra`: inputs every call
+    takes, the vlm's image_embeds). Returns (max abs err, max |logit|, the
+    largest drop_frac of the prefill and the steps; 0 for a model without
+    MoE)."""
     import torch
 
     from repro_torch.models import model as MDL
     from repro_torch.serving.decode import prefill
 
-    _, full, fm = prefill(params, {"tokens": toks}, cfg, with_metrics=True)
+    extra = extra or {}
+    _, full, fm = prefill(params, {"tokens": toks, **extra}, cfg,
+                          with_metrics=True)
     cache = MDL.init_cache(cfg, toks.shape[0], toks.shape[1] + 1,
                            dtype=torch.float32, device=toks.device)
     drops = [fm.get("drop_frac", 0.0)]
     with torch.no_grad():
         for t in range(toks.shape[1]):
             logits, cache, m = MDL.forward(
-                params, {"tokens": toks[:, t:t + 1]}, cfg, cache=cache)
+                params, {"tokens": toks[:, t:t + 1], **extra}, cfg,
+                cache=cache)
             drops.append(m.get("drop_frac", 0.0))
     err = float((logits[:, 0] - full[:, -1]).abs().max())
     return err, float(full[:, -1].abs().max()), max(float(d) for d in drops)
@@ -3830,26 +3869,23 @@ def attention_ms(fn) -> tuple[float, int]:
     return sum(s.elapsed_time(e) for s, e in pairs), len(pairs)
 
 
-def family_prefill(dev, arch, cfg, params_bf, profile: bool = False):
-    """The bf16 prefill of the cell's B x S: a warm-up (its metrics
-    reported), then 5 calls each timed by CUDA events, median in tokens/s;
-    with `profile`, once more under torch.profiler and once with attention
-    timed."""
+def timed_prefill(label: str, cfg, params_bf, batch) -> float:
+    """The bf16 prefill of `batch`: a warm-up (its metrics reported, its
+    logits checked finite), then 5 calls each timed by CUDA events; prints
+    the median in tokens/s and the peak memory, and returns the median
+    ms."""
     import numpy as np
     import torch
 
     from repro_torch.serving.decode import prefill
 
-    _, bsz, seq, _ = LM_FAMILY_CELLS[arch]
-    gen = torch.Generator(device=dev).manual_seed(1)
-    batch = {"tokens": torch.randint(0, cfg.vocab, (bsz, seq),
-                                     generator=gen, device=dev)}
+    bsz, seq = next(iter(batch.values())).shape[:2]
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     nxt, logits, metrics = prefill(params_bf, batch, cfg, with_metrics=True)
     if tuple(logits.shape) != (bsz, seq, cfg.padded_vocab) or not bool(
             torch.isfinite(logits).all()):
-        raise AssertionError(f"{arch} bf16 prefill: logits "
+        raise AssertionError(f"{label} bf16 prefill: logits "
                              f"{tuple(logits.shape)} or not finite")
     del logits
     ev = [(torch.cuda.Event(enable_timing=True),
@@ -3861,13 +3897,29 @@ def family_prefill(dev, arch, cfg, params_bf, profile: bool = False):
     torch.cuda.synchronize()
     runs = [s.elapsed_time(e) for s, e in ev]
     ms = float(np.median(runs))
-    phase(f"lm12 {arch} prefill bf16 timed", t0, layers=cfg.n_layers,
+    phase(f"{label} prefill bf16 timed", t0, layers=cfg.n_layers,
           tokens=f"{bsz}x{seq}", ms=f"{ms:.3f}",
           runs_ms=json.dumps([round(r, 3) for r in runs]),
           tokens_per_s=f"{bsz * seq / (ms / 1e3):.1f}",
           argmax=nxt.tolist(),
           peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
           **{k: f"{float(v):.6f}" for k, v in metrics.items()})
+    return ms
+
+
+def family_prefill(dev, arch, cfg, params_bf, profile: bool = False):
+    """The bf16 prefill of the cell's B x S, timed (timed_prefill); with
+    `profile`, once more under torch.profiler and once with attention
+    timed."""
+    import torch
+
+    from repro_torch.serving.decode import prefill
+
+    _, bsz, seq, _ = LM_FAMILY_CELLS[arch]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (bsz, seq),
+                                     generator=gen, device=dev)}
+    ms = timed_prefill(f"lm12 {arch}", cfg, params_bf, batch)
     if profile:
         t0 = time.perf_counter()
         profile_call(f"{arch} bf16 prefill",
@@ -3879,15 +3931,13 @@ def family_prefill(dev, arch, cfg, params_bf, profile: bool = False):
     return ms
 
 
-def qwen2_serving(dev, arch, cfg, params) -> None:
-    """12a's f32 serving: generate at B = 4 (prompt 16, 32 new) in tokens/s,
-    one decode step profiled, and the 2-layer forward against the same in
-    float64 on the card."""
+def family_generate(dev, label: str, cfg, params):
+    """f32 serving at full depth: generate at B = 4 (prompt 16, 32 new) in
+    tokens/s, then one decode step profiled. Returns the prompt."""
     import torch
 
     from repro_torch.models import model as MDL
-    from repro_torch.serving.decode import (cast_params, generate,
-                                            make_serve_step, prefill)
+    from repro_torch.serving.decode import generate, make_serve_step
 
     gen = torch.Generator(device=dev).manual_seed(2)
     bsz, prompt_len, new = 4, 16, 32
@@ -3900,10 +3950,10 @@ def qwen2_serving(dev, arch, cfg, params) -> None:
     dt = time.perf_counter() - t0
     if tuple(out.shape) != (bsz, new) or not bool(
             ((out >= 0) & (out < cfg.padded_vocab)).all()):
-        raise AssertionError(f"{arch} generate gave {tuple(out.shape)} "
+        raise AssertionError(f"{label} generate gave {tuple(out.shape)} "
                              f"tokens outside the vocabulary")
     steps = prompt_len + new - 1
-    phase(f"lm12 {arch} generate f32", t0, batch=bsz, prompt=prompt_len,
+    phase(f"{label} generate f32", t0, batch=bsz, prompt=prompt_len,
           new_tokens=new, steps=steps, tokens_per_s=f"{bsz * new / dt:.2f}",
           ms_per_step=f"{dt / steps * 1e3:.2f}", sample=out[0].tolist())
 
@@ -3914,26 +3964,44 @@ def qwen2_serving(dev, arch, cfg, params) -> None:
     with torch.no_grad():
         for t in range(prompt_len):
             tok, cache = step(params, {"tokens": prompt[:, t:t + 1]}, cache)
-        profile_call(f"{arch} f32 decode step", lambda: step(
+        profile_call(f"{label} f32 decode step", lambda: step(
             params, {"tokens": tok[:, None]}, cache))
     del cache
-    phase(f"lm12 {arch} decode step profiled", t0, batch=bsz,
+    phase(f"{label} decode step profiled", t0, batch=bsz,
           position=prompt_len)
+    return prompt
+
+
+def float64_gate(label: str, cfg, params, batch) -> None:
+    """The f32 forward of the first 2 layers over `batch` against the same
+    forward in float64 on the card, within VERIFY_TOL of the largest
+    logit."""
+    import torch
+
+    from repro_torch.serving.decode import cast_params, prefill
 
     t0 = time.perf_counter()
     cut_cfg, cut = family_cut(cfg, params, 2)
-    toks = prompt[:1, :FAMILY_DECODE_TOKENS]
-    _, got = prefill(cut, {"tokens": toks}, cut_cfg)
-    _, want = prefill(cast_params(cut, torch.float64), {"tokens": toks},
-                      cut_cfg)
+    _, got = prefill(cut, batch, cut_cfg)
+    _, want = prefill(cast_params(cut, torch.float64), batch, cut_cfg)
     if want.dtype != torch.float64:
         raise AssertionError(f"the float64 forward gave {want.dtype} logits")
     err, rel = rel_err(got, want)
     if not rel <= VERIFY_TOL:
-        raise AssertionError(f"{arch} 2-layer f32 forward against float64: "
+        raise AssertionError(f"{label} 2-layer f32 forward against float64: "
                              f"rel err {rel:.3e} > {VERIFY_TOL:.0e}")
-    phase(f"lm12 {arch} f32 vs float64", t0, layers=2,
-          tokens=toks.shape[1], max_abs_err=f"{err:.3e}", rel=f"{rel:.3e}")
+    phase(f"{label} f32 vs float64", t0, layers=2,
+          tokens=next(iter(batch.values())).shape[1],
+          max_abs_err=f"{err:.3e}", rel=f"{rel:.3e}")
+
+
+def qwen2_serving(dev, arch, cfg, params) -> None:
+    """12a's f32 serving: generate and one decode step profiled
+    (family_generate), and the 2-layer forward against the same in float64
+    on the card."""
+    prompt = family_generate(dev, f"lm12 {arch}", cfg, params)
+    float64_gate(f"lm12 {arch}", cfg, params,
+                 {"tokens": prompt[:1, :FAMILY_DECODE_TOKENS]})
 
 
 def materialized_attention(q, k, v, window, softcap):
@@ -4127,6 +4195,187 @@ def lm_families(dev) -> None:
     phase("lm families", t_phase)
 
 
+# phase 13: arch -> its bf16 prefill's B x S (hubert: 30 s clips at its
+# 20 ms frame rate); every arch at full width and depth
+LM_TAIL_CELLS = {
+    "rwkv6-7b": (2, 4096),
+    "llama-3.2-vision-11b": (2, 4096),
+    "hubert-xlarge": (8, 1500),
+}
+FLOAT64_TOKENS = 100             # several RWKV chunks of 32, plus padding
+# rwkv6's prefill is profiled at 2 of its 32 layers (the same B x S): the
+# WKV chunk loop launches ~142k kernels at full depth, whose trace takes
+# the profiler ~2 minutes to process on an H100 host
+RWKV_PROFILE_LAYERS = 2
+VLM_GATE = 0.5                   # the cross layers' gate (zero at init)
+GATE_WITNESS = 1e-2              # the vlm's logits with the gates back at 0
+
+
+def tail_model(dev, arch: str):
+    """The arch at full width and depth, its f32 parameters on the card."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MDL
+
+    cfg = registry.get(arch)
+    t0 = time.perf_counter()
+    params = MDL.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    nparams, nbytes = tree_bytes(params)
+    phase(f"lm13 {arch} params", t0, layers=cfg.n_layers,
+          d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.kv_heads}",
+          vocab=cfg.padded_vocab, params=nparams, f32_bytes=nbytes,
+          param_count_full=cfg.param_count())
+    return cfg, params
+
+
+def tail_inputs(dev, cfg, bsz: int, seq: int, seed: int) -> dict:
+    """The forward batch of the arch from a seeded generator on the card:
+    tokens, or frame embeddings (hubert); the vlm's image embeddings."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.embed_inputs:
+        batch = {"tokens": torch.randint(0, cfg.vocab, (bsz, seq),
+                                         generator=gen, device=dev)}
+    else:
+        batch = {"embeds": torch.randn((bsz, seq, cfg.d_model),
+                                       generator=gen, device=dev)}
+    if cfg.cross_attn_period:
+        batch["image_embeds"] = torch.randn(
+            (bsz, cfg.num_image_tokens, cfg.d_model), generator=gen,
+            device=dev)
+    return batch
+
+
+def tail_decode_gate(label: str, cfg, params, batch) -> None:
+    """Decode through an f32 cache against an f32 prefill over the same
+    tokens at full depth, within LM_TOL of the largest logit."""
+    t0 = time.perf_counter()
+    extra = {k: v for k, v in batch.items() if k == "image_embeds"}
+    err, top, _ = family_decode_gap(cfg, params, batch["tokens"], extra)
+    if not err <= LM_TOL * top:
+        raise AssertionError(f"{label} decode vs prefill at {cfg.n_layers} "
+                             f"layers: max abs err {err:.3e} > "
+                             f"{LM_TOL:.0e} x {top:.3e}")
+    phase(f"{label} decode vs prefill f32", t0, layers=cfg.n_layers,
+          tokens=batch["tokens"].shape[1], max_abs_err=f"{err:.3e}",
+          max_abs_logit=f"{top:.3e}", rel=f"{err / top:.3e}")
+
+
+def gate_witness(label: str, cfg, params, batch) -> None:
+    """The vlm's f32 prefill with its gates at VLM_GATE and at 0: the
+    cross-attention must move the logits by more than GATE_WITNESS of
+    their largest entry."""
+    from repro_torch.serving.decode import prefill
+
+    t0 = time.perf_counter()
+    gate = params["cross_layers"]["gate"]
+    _, on = prefill(params, batch, cfg)
+    saved = gate.clone()
+    gate.zero_()
+    _, off = prefill(params, batch, cfg)
+    gate.copy_(saved)
+    _, moved = rel_err(off, on)
+    if not moved > GATE_WITNESS:
+        raise AssertionError(f"{label}: the gates at 0 moved the logits by "
+                             f"only {moved:.3e}")
+    phase(f"{label} gate witness", t0, gate=float(saved[0]),
+          tokens=batch["tokens"].shape[1], rel_moved=f"{moved:.3e}")
+
+
+def bidirectional_witness(dev, label: str, cfg, params) -> None:
+    """Redrawing the last frame must move the first frame's logits (the
+    encoder attends both ways); the same forward made causal is printed
+    beside it, where the first frame cannot see the last."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.serving.decode import prefill
+
+    t0 = time.perf_counter()
+    batch = tail_inputs(dev, cfg, 1, FLOAT64_TOKENS, seed=5)
+    moved = batch["embeds"].clone()
+    moved[:, -1] = torch.randn(moved[:, -1].shape, device=dev,
+                               generator=torch.Generator(
+                                   device=dev).manual_seed(6))
+    causal = dataclasses.replace(cfg, encoder_only=False)
+    first = {}
+    for name, c in (("bidirectional", cfg), ("causal", causal)):
+        first[name] = [prefill(params, {"embeds": e}, c)[1][:, 0]
+                       for e in (batch["embeds"], moved)]
+    _, rel = rel_err(*first["bidirectional"])
+    if not rel > 0:
+        raise AssertionError(f"{label}: redrawing the last frame left the "
+                             f"first frame's logits unchanged")
+    a, b = first["causal"]
+    phase(f"{label} bidirectional witness", t0, layers=cfg.n_layers,
+          frames=FLOAT64_TOKENS, first_frame_rel_moved=f"{rel:.3e}",
+          causal_first_frame_moved=f"{float((a - b).abs().max()):.3e}")
+
+
+def lm_tail(dev) -> None:
+    """Phase 13: rwkv6-7b, llama-3.2-vision-11b and hubert-xlarge at full
+    width and depth, one at a time, every model freed before the next. No
+    SpMV or SSD kernel may launch."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.serving.decode import prefill
+
+    t_phase = time.perf_counter()
+    before = dict(kernels.LAUNCHES)
+    for arch, (bsz, seq) in LM_TAIL_CELLS.items():
+        t_arch = time.perf_counter()
+        label = f"lm13 {arch}"
+        cfg, params = tail_model(dev, arch)
+        if cfg.cross_attn_period:
+            params["cross_layers"]["gate"].fill_(VLM_GATE)
+        if not cfg.encoder_only:
+            batch = tail_inputs(dev, cfg, 1, FAMILY_DECODE_TOKENS, seed=3)
+            tail_decode_gate(label, cfg, params, batch)
+        if cfg.cross_attn_period:
+            gate_witness(label, cfg, params, batch)
+        else:
+            float64_gate(label, cfg, params,
+                         tail_inputs(dev, cfg, 1, FLOAT64_TOKENS, seed=4))
+        if cfg.encoder_only:
+            bidirectional_witness(dev, label, cfg, params)
+        if cfg.rwkv:
+            family_generate(dev, label, cfg, params)
+        t0 = time.perf_counter()
+        params_bf = to_bf16(params)
+        torch.cuda.synchronize()
+        phase(f"{label} bf16", t0,
+              allocated_gib=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
+        batch = tail_inputs(dev, cfg, bsz, seq, seed=1)
+        timed_prefill(label, cfg, params_bf, batch)
+        t0 = time.perf_counter()
+        prof_cfg, prof_params = (
+            family_cut(cfg, params_bf, RWKV_PROFILE_LAYERS) if cfg.rwkv
+            else (cfg, params_bf))
+        prof = profile_call(f"{label} bf16 prefill",
+                            lambda: prefill(prof_params, batch, prof_cfg))
+        phase(f"{label} prefill bf16 profiled", t0,
+              layers=prof_cfg.n_layers, **({"idle_share": "not measured"}
+                                           if prof is None else {
+                  "idle_share": f"{prof['idle_share']:.4f}",
+                  "device_busy_ms": f"{prof['device_busy_ms']:.3f}",
+                  "wall_ms": f"{prof['wall_ms']:.3f}",
+                  "launches": prof["launches"]}))
+        del prof_params
+        del params, params_bf, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase(label, t_arch)
+    if kernels.LAUNCHES != before:
+        raise AssertionError(f"phase 13 launched a kernel: {before} -> "
+                             f"{dict(kernels.LAUNCHES)}")
+    phase("lm tail families", t_phase)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4268,6 +4517,7 @@ def run(args, torch) -> int:
     phase("ssd control", t0,
           allocated_gib=f"{torch.cuda.memory_allocated() / 2**30:.3f}")
     lm_families(dev)
+    lm_tail(dev)
     phase("total", t_run)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -3,9 +3,8 @@
 The port's own copy of the reference's `configs/base.py`: ModelConfig holds
 everything the architectures need as data (and the parameter counts derived
 from it), ShapeConfig the input-shape cells, and smoke_config() the reduced
-same-family configuration the CPU tests run. The families the port does not
-run yet (rwkv6, vlm, audio) keep their fields, so a configuration reads the
-same in both packages.
+same-family configuration the CPU tests run. Every field is the
+reference's, so a configuration reads the same in both packages.
 """
 from __future__ import annotations
 

@@ -91,11 +91,13 @@ def params_from_reference(tree: dict, cfg, device=None, dtype=None) -> dict:
     stacked on a leading axis), so every leaf is a plain copy: the stacked
     axes are kept, and the port indexes them as the reference's scan does.
     Floating leaves take `dtype` when given, else their own type (bf16
-    included); `device=None` is the card. Only the families the port runs
-    are accepted, and the stacked layer counts must match `cfg`: dense and
-    moe `layers` [n_layers, ...] (moe's expert weights [n_layers, E, ...]),
-    gemma2 `layers.{local,global}` [n_layers // 2, ...], Zamba2 `layers`
-    [groups * period, ...] and `tail_layers` [rem, ...].
+    included); `device=None` is the card. The stacked layer counts must
+    match `cfg`, else ValueError: dense, audio and moe `layers` [n_layers,
+    ...] (moe's expert weights [n_layers, E, ...]), gemma2
+    `layers.{local,global}` [n_layers // 2, ...], Zamba2 `layers` [groups *
+    period, ...] and `tail_layers` [rem, ...], rwkv6 `layers` [n_layers,
+    ...], the vlm `layers` [groups * (period - 1), ...] and `cross_layers`
+    [groups, ...]; a config without tied embeddings needs its `head`.
     """
     import torch
 
@@ -136,18 +138,30 @@ def _stack_counts(tree: dict, cfg, family: str):
         return tuple(np.shape(node)[:axes])
 
     n = cfg.n_layers
+    out = []
+    if not cfg.tie_embeddings:
+        out.append(("head", lead(tree, "head", "w", axes=2) if "head" in tree
+                    else (), (cfg.d_model, cfg.padded_vocab)))
+    if family == "rwkv6":
+        return out + [("layers", lead(tree, "layers", "wr", "w"), (n,))]
+    if family == "vlm":
+        groups = n // cfg.cross_attn_period
+        return out + [
+            ("layers", lead(tree, "layers", "attn", "wq", "w"),
+             (groups * (cfg.cross_attn_period - 1),)),
+            ("cross_layers", lead(tree, "cross_layers", "gate"), (groups,))]
     if family == "hybrid":
         groups, rem = divmod(n, cfg.hybrid_attn_period)
         tail = (lead(tree, "tail_layers", "in_proj", "w")
                 if "tail_layers" in tree else (0,))
-        return [("layers", lead(tree, "layers", "in_proj", "w"),
-                 (groups * cfg.hybrid_attn_period,)),
-                ("tail_layers", tail, (rem,))]
+        return out + [("layers", lead(tree, "layers", "in_proj", "w"),
+                       (groups * cfg.hybrid_attn_period,)),
+                      ("tail_layers", tail, (rem,))]
     if family == "gemma2":
-        return [(f"layers.{part}",
-                 lead(tree, "layers", part, "attn", "wq", "w"), (n // 2,))
-                for part in ("local", "global")]
-    out = [("layers", lead(tree, "layers", "attn", "wq", "w"), (n,))]
+        return out + [(f"layers.{part}",
+                       lead(tree, "layers", part, "attn", "wq", "w"),
+                       (n // 2,)) for part in ("local", "global")]
+    out.append(("layers", lead(tree, "layers", "attn", "wq", "w"), (n,)))
     if family == "moe":
         e = cfg.moe.num_experts
         out += [(f"layers.moe.{w}", lead(tree, "layers", "moe", w, axes=2),

@@ -2,8 +2,10 @@
 `python -m repro_torch.launch.serve --arch qwen2-7b --tokens 32`.
 
 Runs the smoke-size config of the chosen arch, on the card unless
-`--device cpu` is given. An arch the port does not run yet exits with the
-registry's message; an encoder-only arch has no decode path.
+`--device cpu` is given; the vlm's image embeddings are drawn from the
+prompts' generator, as the reference draws them. An unknown arch exits
+with the registry's message; an encoder-only arch (hubert) has no decode
+path: its forward entry is `serving.decode.prefill`.
 """
 from __future__ import annotations
 
@@ -41,9 +43,15 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
                                            (args.batch, args.prompt_len)))
+    img = None
+    if cfg.cross_attn_period:
+        img = torch.as_tensor(rng.standard_normal(
+            (args.batch, cfg.num_image_tokens, cfg.d_model)),
+            dtype=torch.float32)
     t0 = time.perf_counter()
     out = generate(cfg, params, prompts, args.tokens,
-                   cache_len=args.prompt_len + args.tokens + 1, device=dev)
+                   cache_len=args.prompt_len + args.tokens + 1, device=dev,
+                   image_embeds=img)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0

@@ -1,6 +1,6 @@
 """Attention: chunked online softmax over KV blocks with GQA,
-causal/bidirectional, sliding window and softcap; plus the single-token
-decode path over a KV cache.
+causal/bidirectional, sliding window, softcap and cross-attention; plus the
+single-token decode path over a KV cache.
 
 The reference writes this in jnp, not Pallas, so plain torch ops are its
 port. Scores and the weighted sum of values are f32 wherever the reference
@@ -111,7 +111,7 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *, window=None,
 
 def attention_block(params, x, *, n_heads, kv_heads, head_dim, rope_theta,
                     causal=True, window=None, softcap=None, kv_chunk=1024,
-                    cache=None):
+                    cache=None, cross_kv=None):
     """Full attention sub-block: proj -> rope -> (flash | decode) -> out proj.
 
     cache: None (prefill; returns (y, None)) or {k, v, len} for decode,
@@ -119,18 +119,23 @@ def attention_block(params, x, *, n_heads, kv_heads, head_dim, rope_theta,
     positions. The reference returns updated copies of the buffers; here the
     new keys and values are written into them in place, and the returned
     cache holds the same buffers with len advanced.
+    cross_kv: [B, T, d] states the keys and values come from (the vlm's
+    image embeddings): no RoPE, never causal, and no cache, also in decode
+    (returns (y, None)).
     """
     b, s, _ = x.shape
+    kv_src = x if cross_kv is None else cross_kv
     q = _split_heads(linear(params["wq"], x), n_heads, head_dim)
-    k = _split_heads(linear(params["wk"], x), kv_heads, head_dim)
-    v = _split_heads(linear(params["wv"], x), kv_heads, head_dim)
+    k = _split_heads(linear(params["wk"], kv_src), kv_heads, head_dim)
+    v = _split_heads(linear(params["wv"], kv_src), kv_heads, head_dim)
 
-    base = 0 if cache is None else cache["len"]
-    positions = (base + torch.arange(s, device=x.device)).expand(b, s)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    if cross_kv is None:
+        base = 0 if cache is None else cache["len"]
+        positions = (base + torch.arange(s, device=x.device)).expand(b, s)
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
 
-    if cache is not None:
+    if cache is not None and cross_kv is None:
         end = base + s
         cache["k"][:, base:end] = k
         cache["v"][:, base:end] = v
@@ -138,8 +143,9 @@ def attention_block(params, x, *, n_heads, kv_heads, head_dim, rope_theta,
                              softcap=softcap)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": end}
     else:
-        y = flash_attention(q, k, v, causal=causal, window=window,
-                            softcap=softcap, kv_chunk=kv_chunk)
+        y = flash_attention(q, k, v, causal=causal and cross_kv is None,
+                            window=window, softcap=softcap,
+                            kv_chunk=kv_chunk)
         new_cache = None
     y = y.reshape(b, s, n_heads * head_dim)
     return linear(params["wo"], y), new_cache

@@ -1,0 +1,174 @@
+"""RWKV6 "Finch" block: time-mix (WKV6 linear attention with data-dependent
+per-channel decay) + channel-mix FFN [arXiv:2404.05892].
+
+Prefill runs the chunked parallel form: within a chunk of T tokens the
+decay products are cumulative log-decay differences (an attention-like
+[T, T] matrix per head and channel), and the running state [B, H, D, D] is
+carried across chunks by a Python loop, as the reference's `lax.scan`
+carries it. Decode is the O(1) state update of one token.
+
+The reference's documented simplifications are kept: the token-shift mix
+coefficients are static (full RWKV6 uses a data-dependent LoRA lerp), and
+`ln_x` is one RMS norm over d_model, not a per-head group norm. The decay
+LoRA and the per-head bonus u are kept, as they define WKV6.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .common import init_linear, init_rmsnorm, linear, rmsnorm
+
+NEG_INF = -1e30
+
+
+def init_rwkv6(gen, d_model, rwkv_cfg, d_ff, dtype=torch.float32, stack=()):
+    hd = rwkv_cfg.head_dim
+    h = d_model // hd
+    lora = rwkv_cfg.decay_lora
+    dev = gen.device
+
+    def full(value):
+        return torch.full((*stack, d_model), value, dtype=dtype, device=dev)
+
+    def normal(shape, scale):
+        return torch.randn((*stack, *shape), dtype=dtype, device=dev,
+                           generator=gen).mul_(scale)
+
+    def lin(d_in, d_out):
+        return init_linear(gen, d_in, d_out, False, dtype, stack=stack)
+
+    return {
+        # time-mix
+        "mix_r": full(0.5),
+        "mix_k": full(0.5),
+        "mix_v": full(0.5),
+        "mix_w": full(0.5),
+        "mix_g": full(0.5),
+        "wr": lin(d_model, d_model),
+        "wk": lin(d_model, d_model),
+        "wv": lin(d_model, d_model),
+        "wg": lin(d_model, d_model),
+        "wo": lin(d_model, d_model),
+        # data-dependent decay LoRA: w = exp(-exp(w0 + tanh(x A) B))
+        "w0": full(-4.0),
+        "w_lora_a": normal((d_model, lora), 1.0 / math.sqrt(d_model)),
+        "w_lora_b": normal((lora, d_model), 1.0 / math.sqrt(lora)),
+        "u_bonus": normal((h, hd), 0.1),
+        "ln_x": init_rmsnorm(gen, d_model, dtype, stack=stack),
+        # channel-mix
+        "cmix_k": full(0.5),
+        "wck": lin(d_model, d_ff),
+        "wcv": lin(d_ff, d_model),
+    }
+
+
+def _token_shift(x, mix, last=None):
+    """lerp(x_{t-1}, x_t, mix). last: [B,1,d] carry for decode (None: the
+    token before the first is zero)."""
+    if last is None:
+        prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    else:
+        prev = torch.cat([last.to(x.dtype), x], dim=1)[:, :-1]
+    return x * mix + prev * (1 - mix)
+
+
+def _wkv6_chunked(r, k, v, log_w, u, chunk, init_state=None):
+    """r,k,v: [B,S,H,D]; log_w: [B,S,H,D] (log decay, < 0); u: [H,D]; S a
+    multiple of `chunk`. Returns (y [B,S,H,D], state [B,H,D,D]), with
+    state[k_dim, v_dim].
+
+    Within a chunk, y_t = sum_{i<t} r_t . (k_i * prod_{i<j<t} w_j) v_i
+    + (r_t . (u * k_t)) v_t + (r_t * prod_{j<t} w_j) @ state. The decay is
+    formed directly as exp(cum_{t-1} - cum_i), whose exponent is <= 0 for
+    i < t, so it never overflows; the exponent is masked to -1e30 before
+    exp, so no 0 * inf makes a NaN."""
+    b, s, h, d = r.shape
+    tri_lo = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=r.device), diagonal=-1)
+    mask = tri_lo[None, :, :, None, None]
+    state = (r.new_zeros((b, h, d, d)) if init_state is None
+             else init_state.to(r.dtype))
+    ys = []
+    for lo in range(0, s, chunk):
+        r_i, k_i, v_i, lw_i = (t[:, lo:lo + chunk] for t in (r, k, v, log_w))
+        cum = torch.cumsum(lw_i, dim=1)                       # [B,T,H,D]
+        cum_shift = F.pad(cum, (0, 0, 0, 0, 1, 0))[:, :-1]
+        expo = cum_shift[:, :, None] - cum[:, None]           # [B,T,T,H,D]
+        dec = torch.exp(torch.where(mask, expo, NEG_INF))
+        scores = torch.einsum("bthd,btihd->bhti", r_i, k_i[:, None] * dec)
+        y_i = torch.einsum("bhti,bihd->bthd", scores, v_i)
+        # the diagonal (bonus) term: (r_t . (u * k_t)) v_t
+        y_i = y_i + (r_i * k_i * u[None, None]).sum(-1, keepdim=True) * v_i
+        # the cross-chunk read: (r_t * exp(cum_shift_t)) @ state
+        y_i = y_i + torch.einsum("bthd,bhde->bthe",
+                                 r_i * torch.exp(cum_shift), state)
+        # state' = diag(exp(cum_T)) state + sum_i exp(cum_T - cum_i) k_i v_i^T
+        dec_end = torch.exp(cum[:, -1:] - cum)
+        state = (state * torch.exp(cum[:, -1])[..., None]
+                 + torch.einsum("bihd,bihe->bhde", k_i * dec_end, v_i))
+        ys.append(y_i)
+    return torch.cat(ys, dim=1), state
+
+
+def rwkv6_time_mix(params, x, rwkv_cfg, cache=None):
+    """x [B,S,d]. cache: None (prefill from the zero state) or
+    {shift_t [B,1,d], wkv [B,H,D,D]} for one decode token (S = 1; the
+    reference's decode update reads position 0 only, so S > 1 with a cache
+    raises ValueError). Returns (out [B,S,d], new {shift_t, wkv} or None);
+    the cache passed in is not written."""
+    b, s, d = x.shape
+    if cache is not None and s != 1:
+        raise ValueError(f"rwkv6_time_mix: a cached call takes one token, "
+                         f"got S = {s}")
+    hd = rwkv_cfg.head_dim
+    h = d // hd
+    last = None if cache is None else cache["shift_t"]
+    xr, xk, xv, xw, xg = (_token_shift(x, params[f"mix_{n}"], last)
+                          for n in "rkvwg")
+    r = linear(params["wr"], xr).reshape(b, s, h, hd)
+    k = linear(params["wk"], xk).reshape(b, s, h, hd)
+    v = linear(params["wv"], xv).reshape(b, s, h, hd)
+    g = F.silu(linear(params["wg"], xg))
+    log_w = -torch.exp(params["w0"] + torch.tanh(xw @ params["w_lora_a"])
+                       @ params["w_lora_b"]).reshape(b, s, h, hd)
+    u = params["u_bonus"]
+
+    if cache is None:
+        pad = (-s) % rwkv_cfg.chunk
+        if pad:
+            r, k, v, log_w = (F.pad(t, (0, 0, 0, 0, 0, pad))
+                              for t in (r, k, v, log_w))
+        y, _ = _wkv6_chunked(r, k, v, log_w, u, rwkv_cfg.chunk)
+        y = y[:, :s]
+        new_cache = None
+    else:
+        state = cache["wkv"].to(r.dtype)
+        # one step: y = r . (u k v^T + state); state' = diag(w) state + k v^T
+        kv = torch.einsum("bhd,bhe->bhde", k[:, 0], v[:, 0])
+        y = torch.einsum("bhd,bhde->bhe", r[:, 0],
+                         u[None, :, :, None] * kv + state)[:, None]
+        state = state * torch.exp(log_w[:, 0])[..., None] + kv
+        new_cache = {"shift_t": x[:, -1:], "wkv": state}
+    y = rmsnorm(params["ln_x"], y.reshape(b, s, d)) * g
+    return linear(params["wo"], y), new_cache
+
+
+def rwkv6_channel_mix(params, x, cache_last=None):
+    xk = _token_shift(x, params["cmix_k"], cache_last)
+    k = torch.square(F.relu(linear(params["wck"], xk)))
+    return linear(params["wcv"], k)
+
+
+def init_rwkv6_cache(batch, d_model, rwkv_cfg, dtype=torch.float32,
+                     device=None, stack=()):
+    hd = rwkv_cfg.head_dim
+    h = d_model // hd
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "shift_t": torch.zeros((*stack, batch, 1, d_model), **kw),
+        "shift_c": torch.zeros((*stack, batch, 1, d_model), **kw),
+        "wkv": torch.zeros((*stack, batch, h, hd, hd), **kw),
+    }

@@ -1,9 +1,12 @@
-"""The language model, for the families the port runs: dense, gemma2's
-local/global pairs, MoE, and the Zamba2 hybrid (`ssm` with a shared
-attention block).
+"""The language model, for the reference's ten architectures: dense,
+gemma2's local/global pairs, MoE, the Zamba2 hybrid (`ssm` with a shared
+attention block), rwkv6, the vlm and the audio encoder.
 
-    x = embed(tokens)                     (x sqrt(d_model) for gemma)
+    x = embed(tokens)                     (x sqrt(d_model) for gemma), or
+        batch["embeds"] when the config takes embeddings in (audio)
     dense:  x = layer(x) for each of L (attention + SwiGLU) layers
+    audio:  the dense body, bidirectional (encoder_only), frame
+            embeddings in and an untied head out
     gemma2: x = global(local(x)) for each of L/2 pairs (the local layer
             windowed, post-block norms, attention and final softcaps)
     moe:    x = layer(x) for each of L (attention + MoE) layers; the
@@ -13,14 +16,18 @@ attention block).
                 x = shared_attention_block(x)   (the same parameters every
                                                  time; one KV cache a group)
             x = mamba2(x) for each tail layer
-    logits = unembed(final_norm(x))
+    rwkv6:  x = x + time_mix(x); x = x + channel_mix(x) for each of L layers
+    vlm:    for each group of `cross_attn_period` layers: period - 1 dense
+            layers, then one cross layer over batch["image_embeds"] whose
+            attention output is scaled by tanh(gate)
+    logits = unembed(final_norm(x)), or the untied head's
 
 Parameters and caches keep the reference's pytree layout: a family's layer
 weights are stacked on a leading layer axis (`layers` [L, ...]; gemma2's
 `layers.{local,global}` [L/2, ...]; Zamba2's `layers` [groups * period,
-...] and `tail_layers` [rem, ...]), and the reference's `lax.scan` over
-that axis is a Python loop over views of it. The rwkv6, vlm and audio
-families raise NotImplementedError.
+...] and `tail_layers` [rem, ...]; the vlm's `layers` [groups * (period -
+1), ...] and `cross_layers` [groups, ...]), and the reference's `lax.scan`
+over that axis is a Python loop over views of it.
 """
 from __future__ import annotations
 
@@ -35,33 +42,34 @@ from .layers import attention as A
 from .layers import mamba2 as M
 from .layers import mlp as MLP
 from .layers import moe as MOE
+from .layers import rwkv6 as R
 from .layers.common import (embed, init_embedding, init_linear, init_rmsnorm,
                             linear, rmsnorm, unembed, wide_dtype)
 
-PORTED = "dense, gemma2 (local/global), moe and the zamba2 hybrid"
-
 
 def _family(cfg: ModelConfig) -> str:
-    """The family the forward runs for `cfg`: "dense", "gemma2", "moe" or
-    "hybrid"; NotImplementedError for a family the port does not run."""
-    unported = None
+    """The family the forward runs for `cfg`: "rwkv6", "hybrid", "vlm",
+    "moe", "gemma2", "audio" or "dense". A pure SSM config (`ssm` without
+    `hybrid_attn_period`) raises NotImplementedError: the reference cannot
+    run it either (its `_zamba_forward` divides by the zero period)."""
     if cfg.rwkv is not None:
-        unported = "rwkv6"
-    elif cfg.cross_attn_period:
-        unported = "vlm"
-    elif cfg.encoder_only or not cfg.embed_inputs:
-        unported = "audio"
-    elif cfg.ssm is not None and not cfg.hybrid_attn_period:
-        unported = "pure ssm"
-    if unported:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the {unported} family is not ported "
-            f"yet; the port runs {PORTED}")
+        return "rwkv6"
     if cfg.ssm is not None:
+        if not cfg.hybrid_attn_period:
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}): a pure SSM config (ssm without "
+                f"hybrid_attn_period) has no forward, in the reference as "
+                f"here")
         return "hybrid"
+    if cfg.cross_attn_period:
+        return "vlm"
     if cfg.moe is not None:
         return "moe"
-    return "gemma2" if cfg.local_global_period else "dense"
+    if cfg.local_global_period:
+        return "gemma2"
+    if cfg.encoder_only or not cfg.embed_inputs:
+        return "audio"
+    return "dense"
 
 
 def _layer(tree, idx):
@@ -101,8 +109,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
         p["layers"] = {"local": _init_dense_layer(gen, cfg, dtype, pairs),
                        "global": _init_dense_layer(gen, cfg, dtype, pairs)}
         return p
-    if family == "dense":
+    if family in ("dense", "audio"):
         p["layers"] = _init_dense_layer(gen, cfg, dtype, (cfg.n_layers,))
+        return p
+    if family == "rwkv6":
+        p["layers"] = R.init_rwkv6(gen, cfg.d_model, cfg.rwkv, cfg.d_ff,
+                                   dtype, stack=(cfg.n_layers,))
+        return p
+    if family == "vlm":
+        groups = cfg.n_layers // cfg.cross_attn_period
+        p["layers"] = _init_dense_layer(
+            gen, cfg, dtype, (groups * (cfg.cross_attn_period - 1),))
+        p["cross_layers"] = _init_cross_layer(gen, cfg, dtype, (groups,))
         return p
     period = cfg.hybrid_attn_period
     groups, rem = divmod(cfg.n_layers, period)
@@ -139,6 +157,20 @@ def _init_dense_layer(gen, cfg, dtype, stack):
         d["mlp_post_norm"] = init_rmsnorm(gen, cfg.d_model, dtype,
                                           stack=stack)
     return d
+
+
+def _init_cross_layer(gen, cfg, dtype, stack):
+    """The vlm's gated cross-attention layer; its gate starts at zero, so
+    at init the layer is its MLP alone."""
+    return {
+        "attn_norm": init_rmsnorm(gen, cfg.d_model, dtype, stack=stack),
+        "cross_attn": A.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                       cfg.kv_heads, cfg.resolved_head_dim,
+                                       False, dtype, stack=stack),
+        "gate": torch.zeros(stack, dtype=dtype, device=gen.device),
+        "mlp_norm": init_rmsnorm(gen, cfg.d_model, dtype, stack=stack),
+        "mlp": MLP.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, stack=stack),
+    }
 
 
 def _init_moe_layer(gen, cfg, dtype, stack):
@@ -186,6 +218,36 @@ def _moe_dense_layer(lp, x, cfg, *, cache=None, kv_chunk=1024):
     return x + y, new_cache, moe_metrics
 
 
+def _rwkv_layer(lp, x, cfg, cache=None):
+    """Time-mix then channel-mix, each with its residual. cache: None or
+    this layer's {shift_t, shift_c, wkv}; returns the new one (shift_c is
+    the last position after the time-mix residual)."""
+    cache_tm = None if cache is None else {"shift_t": cache["shift_t"],
+                                           "wkv": cache["wkv"]}
+    y, new_tm = R.rwkv6_time_mix(lp, x, cfg.rwkv, cache_tm)
+    x = x + y
+    last_c = None if cache is None else cache["shift_c"]
+    y = R.rwkv6_channel_mix(lp, x, last_c)
+    new_cache = None
+    if cache is not None:
+        new_cache = {"shift_t": new_tm["shift_t"], "wkv": new_tm["wkv"],
+                     "shift_c": x[:, -1:]}
+    return x + y, new_cache
+
+
+def _cross_layer(lp, x, img, cfg):
+    """The vlm's cross layer: attention from x to the image embeddings (no
+    RoPE, not causal, no cache) scaled by tanh(gate), then the MLP."""
+    h = rmsnorm(lp["attn_norm"], x, cfg.rmsnorm_eps)
+    y, _ = A.attention_block(
+        lp["cross_attn"], h, n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        cross_kv=img)
+    x = x + torch.tanh(lp["gate"]) * y
+    h = rmsnorm(lp["mlp_norm"], x, cfg.rmsnorm_eps)
+    return x + MLP.mlp(lp["mlp"], h)
+
+
 def _shared_attn_block(sp, x, cfg, cache=None, kv_chunk=1024):
     h = rmsnorm(sp["norm"], x, cfg.rmsnorm_eps)
     y, new_cache = _attention(sp, h, cfg, cache=cache, kv_chunk=kv_chunk)
@@ -201,19 +263,36 @@ def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
             use_kernel: str = "auto"):
     """Returns (logits [B,S,V] f32, new_cache, metrics).
 
-    batch: {"tokens": [B,S]} on the parameters' device. cache: None (prefill
-    from the zero state) or init_cache()'s tree for decode, which is updated
-    in place and returned. metrics: the MoE family's aux_loss, router_li
+    batch: {"tokens": [B,S]}, or {"embeds": [B,S,d]} for a config that takes
+    embeddings in (audio), plus {"image_embeds": [B,T,d]} for the vlm, on
+    the parameters' device; embeddings are taken in the parameters' type.
+    cache: None (prefill from the zero state) or init_cache()'s tree for
+    decode, which is updated in place and returned (an encoder-only config
+    has none: ValueError). metrics: the MoE family's aux_loss, router_li
     and drop_frac averaged over layers, else {}. use_kernel applies to the
     SSD chunk kernel."""
     family = _family(cfg)
-    x = embed(params["embed"], batch["tokens"])
-    if cfg.name.startswith("gemma"):
-        x = x * math.sqrt(cfg.d_model)
+    if cache is not None and cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode cache")
+    dtype = params["final_norm"]["scale"].dtype
+    if cfg.embed_inputs:
+        x = embed(params["embed"], batch["tokens"])
+        if cfg.name.startswith("gemma"):
+            x = x * math.sqrt(cfg.d_model)
+    else:
+        x = batch["embeds"].to(dtype)
     metrics: Dict[str, torch.Tensor] = {}
     if family == "hybrid":
         x, cache = _zamba_forward(params, x, cfg, cache, kv_chunk,
                                   use_kernel)
+    elif family == "rwkv6":
+        x = _rwkv_forward(params, x, cfg, cache)
+    elif family == "vlm":
+        if "image_embeds" not in batch:
+            raise ValueError(f"{cfg.name}: the vlm's batch needs "
+                             f"image_embeds [B, T, d]")
+        x = _vlm_forward(params, x, batch["image_embeds"].to(dtype), cfg,
+                         cache, kv_chunk)
     elif family == "moe":
         x, metrics = _moe_forward(params, x, cfg, cache, kv_chunk)
     elif family == "gemma2":
@@ -221,16 +300,20 @@ def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
     else:
         x = _dense_forward(params, x, cfg, cache, kv_chunk)
     x = rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and cfg.embed_inputs:
         logits = unembed(params["embed"], x, cfg.final_softcap)
     else:
         logits = linear(params["head"], x).to(wide_dtype(x.dtype))
     return logits, cache, metrics
 
 
-def _kv_layer(kv, i):
-    """Layer i of a stacked KV cache: views of its buffers and its length."""
-    return {"k": kv["k"][i], "v": kv["v"][i], "len": kv["len"][i]}
+def _kv_layer(kv, *idx):
+    """The layer at `idx` of a stacked KV cache (one index, or the vlm's
+    group and layer): views of its buffers and its length."""
+    length = kv["len"]
+    for i in idx:
+        length = length[i]
+    return {"k": kv["k"][idx], "v": kv["v"][idx], "len": length}
 
 
 def _depth(stack) -> int:
@@ -274,6 +357,33 @@ def _moe_forward(params, x, cfg, cache, kv_chunk):
     return x, {k: v / cfg.n_layers for k, v in acc.items()}
 
 
+def _rwkv_forward(params, x, cfg, cache):
+    for i in range(params["layers"]["wr"]["w"].shape[0]):
+        lc = None if cache is None else _layer(cache, i)
+        x, nc = _rwkv_layer(_layer(params["layers"], i), x, cfg, lc)
+        if cache is not None:
+            _write(cache, i, nc)
+    return x
+
+
+def _vlm_forward(params, x, img, cfg, cache, kv_chunk):
+    """Each group: period - 1 dense layers over the group's KV caches, then
+    its cross layer over `img` (recomputed every call, as the reference
+    does: the cross keys and values are not cached)."""
+    per = cfg.cross_attn_period - 1
+    kv = None if cache is None else cache["self"]
+    for g in range(params["cross_layers"]["gate"].shape[0]):
+        for j in range(per):
+            lc = None if kv is None else _kv_layer(kv, g, j)
+            x, nc = _dense_layer(_layer(params["layers"], g * per + j), x,
+                                 cfg, window=None, cache=lc,
+                                 kv_chunk=kv_chunk)
+            if kv is not None:
+                kv["len"][g][j] = nc["len"]
+        x = _cross_layer(_layer(params["cross_layers"], g), x, img, cfg)
+    return x
+
+
 def _zamba_forward(params, x, cfg, cache, kv_chunk, use_kernel):
     period = cfg.hybrid_attn_period
     groups = params["layers"]["in_proj"]["w"].shape[0] // period
@@ -304,21 +414,36 @@ def _zamba_forward(params, x, cfg, cache, kv_chunk, use_kernel):
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
-    """Decode cache in the reference's layout. A KV cache of n layers is
-    {k, v [n, B, max_len, KVH, D], len: one int per layer}: dense and moe
-    hold one of L layers, gemma2 {local, global} of L/2 each; Zamba2 holds
-    `mamba` {conv, ssm} stacked [groups, period, ...], `shared_attn` (one
-    KV layer per group) and `tail` {conv, ssm} [rem, ...] or None."""
+    """Decode cache in the reference's layout, zeroed tensors of its own
+    (the forward writes them in place). A KV cache of n layers is {k, v [n,
+    B, max_len, KVH, D], len: one int per layer}: dense and moe hold one of
+    L layers, gemma2 {local, global} of L/2 each; the vlm {"self": {k, v
+    [groups, period - 1, B, max_len, KVH, D], len [groups][period - 1]}};
+    rwkv6 {shift_t, shift_c [L, B, 1, d], wkv [L, B, H, D, D]}; Zamba2
+    holds `mamba` {conv, ssm} stacked [groups, period, ...], `shared_attn`
+    (one KV layer per group) and `tail` {conv, ssm} [rem, ...] or None. An
+    encoder-only config has no cache: ValueError."""
     family = _family(cfg)
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode cache")
     dev = resolve_device(device)
     hd = cfg.resolved_head_dim
 
-    def kv(n):
-        shape = (n, batch, max_len, cfg.kv_heads, hd)
+    def kv(*stack):
+        shape = (*stack, batch, max_len, cfg.kv_heads, hd)
+        length = [0] * stack[-1]
+        for n in reversed(stack[:-1]):
+            length = [list(length) for _ in range(n)]
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev),
-                "len": [0] * n}
+                "len": length}
 
+    if family == "rwkv6":
+        return R.init_rwkv6_cache(batch, cfg.d_model, cfg.rwkv, dtype, dev,
+                                  stack=(cfg.n_layers,))
+    if family == "vlm":
+        period = cfg.cross_attn_period
+        return {"self": kv(cfg.n_layers // period, period - 1)}
     if family == "gemma2":
         return {"local": kv(cfg.n_layers // 2),
                 "global": kv(cfg.n_layers // 2)}

@@ -22,9 +22,14 @@ def cast_params(params, dtype=None, device=None):
 def make_serve_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
     """Returns serve_step(params, batch, cache) -> (next_tokens, cache).
 
-    Every floating parameter is taken in the compute type, as the reference
-    casts it; parameters that already have it are used as they are, so a
-    caller that casts once (generate) pays nothing per step."""
+    batch is {"tokens": [B, 1]}, plus {"image_embeds"} for the vlm (every
+    step, as the reference passes them). Every floating parameter is taken
+    in the compute type, as the reference casts it; parameters that already
+    have it are used as they are, so a caller that casts once (generate)
+    pays nothing per step. An encoder-only config has no decode step:
+    ValueError."""
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
 
     def serve_step(params, batch, cache):
         params_c = cast_params(params, compute_dtype)
@@ -38,15 +43,20 @@ def make_serve_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
 @torch.no_grad()
 def prefill(params, batch, cfg: ModelConfig, use_kernel: str = "auto",
             device=None, with_metrics: bool = False):
-    """The prefill cell: a forward over the prompt with no cache. Returns
-    (argmax of the last position [B], logits [B,S,V] f32), and the
-    forward's metrics third when `with_metrics` (the MoE family's aux_loss,
-    router_li and drop_frac; {} for the others). Parameters are used in
-    their own type; `device=None` is the card."""
+    """The prefill cell: a forward over the prompt with no cache. batch is
+    the reference's forward batch: {"tokens": [B,S]} or, for a config that
+    takes embeddings in (hubert), {"embeds": [B,S,d]}, plus
+    {"image_embeds": [B,T,d]} for the vlm (without them: ValueError). It is
+    also the encoder's forward entry, which has no decode. Returns (argmax
+    of the last position [B], logits [B,S,V] f32), and the forward's
+    metrics third when `with_metrics` (the MoE family's aux_loss, router_li
+    and drop_frac; {} for the others). Parameters are used in their own
+    type; `device=None` is the card."""
     dev = resolve_device(device)
     params = cast_params(params, device=dev)
-    tokens = torch.as_tensor(batch["tokens"], device=dev)
-    logits, _, metrics = MDL.forward(params, {"tokens": tokens}, cfg,
+    inputs = {k: torch.as_tensor(batch[k], device=dev)
+              for k in ("tokens", "embeds", "image_embeds") if k in batch}
+    logits, _, metrics = MDL.forward(params, inputs, cfg,
                                      use_kernel=use_kernel)
     out = logits[:, -1].argmax(dim=-1), logits
     return (*out, metrics) if with_metrics else out
@@ -54,21 +64,29 @@ def prefill(params, batch, cfg: ModelConfig, use_kernel: str = "auto",
 
 @torch.no_grad()
 def generate(cfg: ModelConfig, params, prompt_tokens, max_new: int,
-             cache_len: int, device=None):
+             cache_len: int, device=None, image_embeds=None):
     """Greedy generation in f32: token-by-token prefill then decode, over
     the same cache code as serve_step. The parameters are cast to f32 once
-    here, not once per step. Returns tokens [B, max_new] int32."""
+    here, not once per step. image_embeds [B,T,d]: the vlm's, passed to
+    every step (without them: ValueError). An encoder-only config has no
+    generate: ValueError. Returns tokens [B, max_new] int32."""
+    step = make_serve_step(cfg, compute_dtype=torch.float32)
+    if cfg.cross_attn_period and image_embeds is None:
+        raise ValueError(f"{cfg.name}: generate needs image_embeds")
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt_tokens, device=dev)
     b, s = prompt.shape
     params = cast_params(params, torch.float32, dev)
+    extra = ({} if image_embeds is None else {"image_embeds": torch.as_tensor(
+        image_embeds, dtype=torch.float32, device=dev)})
     cache = MDL.init_cache(cfg, b, cache_len, dtype=torch.float32, device=dev)
-    step = make_serve_step(cfg, compute_dtype=torch.float32)
     tok = None
     for t in range(s):
-        tok, cache = step(params, {"tokens": prompt[:, t:t + 1]}, cache)
+        tok, cache = step(params, {"tokens": prompt[:, t:t + 1], **extra},
+                          cache)
     out = [tok]
     for _ in range(max_new - 1):
-        tok, cache = step(params, {"tokens": out[-1][:, None]}, cache)
+        tok, cache = step(params, {"tokens": out[-1][:, None], **extra},
+                          cache)
         out.append(tok)
     return torch.stack(out, dim=1)

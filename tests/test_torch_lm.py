@@ -77,11 +77,9 @@ def test_config_is_the_references(cfgs):
         == (3584, 7168, 81)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "llama-3.2-vision-11b",
-                                  "hubert-xlarge"])
-def test_registry_refuses_archs_not_ported(arch):
-    with pytest.raises(KeyError, match="not ported yet"):
-        registry.get(arch)
+def test_registry_refuses_an_unknown_arch():
+    with pytest.raises(KeyError, match="unknown arch 'zamba3-7b'"):
+        registry.get("zamba3-7b")
 
 
 def test_init_params_has_the_references_layout(cfgs, params):
@@ -260,21 +258,18 @@ def test_params_from_reference_checks_the_layer_counts(cfgs, params):
         params_from_reference(params[0], deeper, device=CPU)
 
 
-def test_other_families_are_not_ported(cfgs):
-    """rwkv6 is refused by the model as by the registry; a dense config
-    (Zamba2's widths without the SSM) runs."""
+def test_pure_ssm_is_refused_and_dense_runs(cfgs):
+    """A pure SSM config (Zamba2 without its attention period) is refused by
+    the model, as the reference cannot run it; a dense config (Zamba2's
+    widths without the SSM) runs."""
     import dataclasses
 
-    from repro_torch.configs.base import RWKVConfig
-
-    rwkv = dataclasses.replace(cfgs[1], ssm=None, hybrid_attn_period=0,
-                               rwkv=RWKVConfig(head_dim=32, decay_lora=16,
-                                               chunk=16), family="ssm")
-    with pytest.raises(NotImplementedError, match="rwkv6.*not ported"):
-        TM.init_params(rwkv, device=CPU)
-    with pytest.raises(NotImplementedError, match="rwkv6.*not ported"):
+    pure = dataclasses.replace(cfgs[1], hybrid_attn_period=0, family="ssm")
+    with pytest.raises(NotImplementedError, match="pure SSM"):
+        TM.init_params(pure, device=CPU)
+    with pytest.raises(NotImplementedError, match="pure SSM"):
         TM.forward({}, {"tokens": torch.zeros(1, 1, dtype=torch.long)},
-                   rwkv)
+                   pure)
     dense = dataclasses.replace(cfgs[1], ssm=None, hybrid_attn_period=0,
                                 family="dense")
     params = TM.init_params(dense, device=CPU)
@@ -289,5 +284,5 @@ def test_serve_cli_on_the_cpu(capsys):
                 "--prompt-len", "4", "--tokens", "3"])
     out = capsys.readouterr().out
     assert "qwen2-7b on cpu: generated 6 tokens" in out
-    with pytest.raises(SystemExit, match="not ported"):
-        serve.main(["--arch", "rwkv6-7b", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="unknown arch"):
+        serve.main(["--arch", "rwkv7-7b", "--device", "cpu"])

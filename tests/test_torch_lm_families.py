@@ -33,7 +33,6 @@ from repro.configs.base import smoke_config as ref_smoke_config
 from repro.models import model as RM
 from repro.models.layers import moe as RMOE
 from repro.serving.decode import generate as ref_generate
-from repro_torch.configs import base as TB
 from repro_torch.configs import registry
 from repro_torch.configs.base import smoke_config
 from repro_torch.convert import params_from_reference
@@ -52,7 +51,6 @@ WITNESS = 1e-2
 ARCHS = ("qwen2-7b", "minicpm-2b", "command-r-plus-104b", "gemma2-27b",
          "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b")
 MOE = ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b")
-REFUSED = ("rwkv6-7b", "llama-3.2-vision-11b", "hubert-xlarge")
 SEQ = 72        # past gemma2's smoke window of 64
 METRICS = ("aux_loss", "router_li", "drop_frac")
 
@@ -71,17 +69,6 @@ def model():
                            params_from_reference(rp, cfg, device=CPU))
         return built[arch]
     return get
-
-
-def port_config(rcfg) -> TB.ModelConfig:
-    """The port's ModelConfig with a reference config's fields (for the
-    architectures the port's registry does not hold)."""
-    d = dataclasses.asdict(rcfg)
-    for key, cls in (("moe", TB.MoEConfig), ("ssm", TB.SSMConfig),
-                     ("rwkv", TB.RWKVConfig)):
-        if d[key] is not None:
-            d[key] = cls(**d[key])
-    return TB.ModelConfig(**d)
 
 
 def _np(t):
@@ -128,22 +115,22 @@ def test_config_is_the_references(arch):
 @pytest.mark.parametrize("arch", sorted(ref_registry.ARCHS))
 def test_param_counts_are_the_references(arch):
     rcfg = ref_registry.get(arch)
-    cfg = registry.ARCHS.get(arch) or port_config(rcfg)
+    cfg = registry.get(arch)
     assert cfg.param_count() == rcfg.param_count()
     assert cfg.active_param_count() == rcfg.active_param_count()
     assert (cfg.attention_free, cfg.sub_quadratic) == \
         (rcfg.attention_free, rcfg.sub_quadratic)
 
 
-@pytest.mark.parametrize("arch", REFUSED)
-def test_unported_families_are_refused(arch):
-    with pytest.raises(KeyError, match="not ported yet"):
-        registry.get(arch)
-    cfg = port_config(ref_smoke_config(ref_registry.get(arch)))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TM.init_params(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TM.init_cache(cfg, 1, 8, device=CPU)
+@pytest.mark.parametrize("arch", sorted(ref_registry.ARCHS))
+def test_registry_holds_the_references_archs(arch):
+    """The port's registry has the reference's ten keys, each with the
+    reference's config, and its family runs: init_params at smoke size."""
+    assert sorted(registry.ARCHS) == sorted(ref_registry.ARCHS)
+    assert dataclasses.asdict(registry.get(arch)) == dataclasses.asdict(
+        ref_registry.get(arch))
+    params = TM.init_params(smoke_config(registry.get(arch)), device=CPU)
+    assert "final_norm" in params and "layers" in params
 
 
 # ---------------------------------------------------------------------------
