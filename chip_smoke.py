@@ -4,11 +4,13 @@
     python3 chip_smoke.py            # Fig. 1 pair (1,048,576 rows), then
                                      # Zamba2-7B at full width and depth,
                                      # then the dense, gemma2 and MoE LMs
-                                     # at full width (qwen2-7b and
-                                     # minicpm-2b at full depth), then
-                                     # rwkv6-7b, llama-3.2-vision-11b and
+                                     # at full width (qwen2-7b at full
+                                     # depth), then rwkv6-7b,
+                                     # llama-3.2-vision-11b and
                                      # hubert-xlarge at full width and
-                                     # depth
+                                     # depth (rwkv6's timed prefill at 8
+                                     # layers), then training: minicpm-2b's
+                                     # train step at full width and depth
 
 Phases, in order, one line each with its seconds; the first failure ends
 the run with a nonzero exit code (nothing is caught):
@@ -253,17 +255,18 @@ the run with a nonzero exit code (nothing is caught):
                   published widths with random f32 parameters from a seeded
                   generator on the card, cut in depth as LM_FAMILY_CELLS
                   says (the f32 draw under ~42 GB): 12a qwen2-7b (28
-                  layers, GQA 28/4, QKV bias) and 12b minicpm-2b (40
-                  layers, MHA 36 x 64) at full depth, 12c
-                  command-r-plus-104b at 4 of 64 layers, 12d gemma2-27b at
-                  16 of 46 (8 local/global pairs), 12e qwen3-moe-30b-a3b
+                  layers, GQA 28/4, QKV bias) at full depth, 12b
+                  minicpm-2b (MHA 36 x 64) at 8 of 40 layers (14a trains
+                  it at full depth), 12c command-r-plus-104b at 4 of 64
+                  layers, 12d gemma2-27b at 8 of 46 (4 local/global
+                  pairs), 12e qwen3-moe-30b-a3b
                   at 16 of 48 (128 experts, top 8), 12f phi3.5-moe at 8 of
                   32 (16 experts, top 2). Each: decode through an f32
                   cache against an f32 prefill over the same tokens (17;
                   8 for MoE, which then cannot drop, drop_frac == 0
                   asserted on both sides) within 1e-3 of the largest
-                  logit, at full depth for 12a and 12b and at 2 layers
-                  for the others (on a miss the gap at every depth is
+                  logit, at the cell's depth for 12a and 12b and at 2
+                  layers for the others (on a miss the gap at every depth is
                   printed before the run fails); then the parameters cast
                   to bf16 and a bf16 prefill (qwen2-7b, minicpm-2b and
                   the MoE models B = 2 x S = 4096, command-r-plus 1 x
@@ -311,30 +314,69 @@ the run with a nonzero exit code (nothing is caught):
                   prefill (rwkv6 and the vlm B = 2 x S = 4096, the vlm with
                   image_embeds [2, 1600, 4096]; hubert 8 x 1500 frames) by
                   CUDA events (median of 5) in tokens/s with its peak
-                  memory, and profiles it once (idle share, launches,
-                  device time by kernel group; rwkv6 at 2 of its layers,
-                  see RWKV_PROFILE_LAYERS). These families reach no
+                  memory (rwkv6 at 8 of its 32 layers, see
+                  RWKV_TIMED_LAYERS), and profiles it once (idle share,
+                  launches, device time by kernel group; rwkv6 at 2 of
+                  its layers, see RWKV_PROFILE_LAYERS). These families reach no
                   Pallas kernel in the reference, and phase 13 fails if
-                  it launches any kernel of the kernels line.
+                  it launches any kernel of the kernels line;
+14. lm train    — training on the card, each model freed before the next
+                  (repro_torch.training, launch.train; TF32 off): 14a
+                  minicpm-2b at full width and depth (40 layers), f32
+                  master weights and Adam moments, bf16 compute, remat of
+                  every layer, WSD (warmup 2, total 10), through
+                  make_train_step on SyntheticLM.batch_for_model at B = 1
+                  x S = 4096: one warm-up step and 5 timed by CUDA events
+                  (median) in tokens/s, with the peak memory and MFU ((6
+                  N T + 3 x the causal attention's products) / 989
+                  TFLOP/s); then one step composed of the step's parts
+                  (loss_and_grads, then adamw_update) that split its time
+                  between them; each step's loss, grad_norm and lr
+                  (finite; lr exactly lr_at's); one step profiled at 2 of
+                  the 40 layers on copies of their state (idle share,
+                  launches, device time by kernel group);
+                  14b the same model at 2 layers, 1 x 256 tokens:
+                  loss_fn's loss and gradients in f32 against float64 on
+                  the card (1e-5 relative, each gradient leaf 1e-4 of its
+                  largest float64 entry), then one adamw_update from the
+                  same state and gradients in f32 and float64 (1e-5 of
+                  each leaf's largest entry); 14c zamba2-7b at full width
+                  cut to one group and its tail (9 Mamba2 layers and the
+                  shared attention; embedding scaled as in phase 8), f32,
+                  1 x 1024: loss and gradients with K5 against the plain
+                  SSD (1e-4 relative, each leaf 1e-3 of its largest), the
+                  plain scan at chunk 64 against 128 beside it, and K5
+                  launched exactly 18 times (2 x 9: the forward and its
+                  recomputation; the SSD's backward is torch ops); 14d
+                  launch.train.train on small_lm_config(), 40 steps of 8 x
+                  256, a checkpoint every 20: crashed at 20, resumed to
+                  40, and 40 uninterrupted steps in another directory
+                  (the checkpoints in a temporary directory): the resumed
+                  losses within 1e-5 of the uninterrupted ones, the
+                  final loss below the first by more than 0.3, and
+                  restore_latest giving the last saved state bit for
+                  bit. Only 14c may launch a kernel of the kernels line.
 
 Every kernel launch counter is set to 0 just before the first campaign of
 phase 4, the campaign of phase 4c, the drivers of phase 4f (its fig. 1
 cells, then the others, then each soak and workload driver), each forced
 path of phase 5 (f32 and bf16) and of phase 6b, each service and
 workload path of phases 7s and 7w, the parallel campaign of phase 7p,
-the one-device fleet of phase 7r and the f32 prefill of phase 8, and read
-just after it (and around each K4 panel check of phase 7p, which must
+the one-device fleet of phase 7r, the f32 prefill of phase 8 and the
+train step of phase 14c, and read just after it (and around each K4 panel check of phase 7p, which must
 show one K4 launch; those launches are not the path's); a bell cell of
 phase 7p that launched no K4, a forced path that
 did not launch its kernel, a cell whose plan (or forced engine) is a
 kernel engine that launched nothing in its own timed calls, a service or
-workload path that did not launch its kernels, or a prefill whose K5
-count is not its number of Mamba2 layers (81), fails the run. The kernels
+workload path that did not launch its kernels, a prefill whose K5
+count is not its number of Mamba2 layers (81), or a train step whose K5
+count is not twice its Mamba2 layers (18), fails the run. The kernels
 line reports, for each kernel, the launches of the path that feeds its
 row and, for K1-K4 in f32, those of the bench paths of phase 4f (the
 figure drivers, and each of its soaks and workload drivers), the
-service, router, workload and parallel campaign paths
-(`launches_paths`); spmm_batch in phase 4f must launch K1 and K2.
+service, router, workload and parallel campaign paths, and for K5 the f32 prefill
+and the train step of phase 14c (`launches_paths`); spmm_batch in phase 4f
+must launch K1 and K2.
 
 Verification is against the numpy float64 oracle at rel err <= 1e-4 (the
 error over the oracle's largest entry); a kernel against its plain version
@@ -3326,7 +3368,8 @@ def lm_prefill(dev) -> dict:
     from repro_torch import kernels
     from repro_torch.configs import registry
     from repro_torch.models import model as MDL
-    from repro_torch.serving.decode import cast_params, prefill
+    from repro_torch.serving.decode import prefill
+    from repro_torch.training.tree import cast_tree
 
     cfg = registry.get(LM_ARCH)
     t0 = time.perf_counter()
@@ -3403,7 +3446,7 @@ def lm_prefill(dev) -> dict:
     del logits_k, logits_r
 
     t0 = time.perf_counter()
-    params_bf = cast_params(params, torch.bfloat16)
+    params_bf = cast_tree(params, torch.bfloat16)
     worst, checked = layerwise_ssd(cfg, params_bf, tokens)
     if not worst <= KERNEL_TOL["bfloat16"]:
         raise AssertionError(f"a bf16 Mamba2 layer with K5 against the plain "
@@ -3710,15 +3753,17 @@ def ssd_control(args) -> None:
 # depth cuts keep the f32 draw under ~42 GB, so that it, its bf16 copy (made
 # one tensor at a time) and the prefill's activations fit in 80 GB: at full
 # depth command-r-plus holds 419 GB of f32 parameters, gemma2-27b 109,
-# qwen3-moe 122, phi3.5-moe 168. B x S: command-r-plus and gemma2 have a
+# qwen3-moe 122, phi3.5-moe 168. minicpm-2b and gemma2 are cut further to
+# keep the run inside its time limit (14a trains minicpm-2b at full
+# depth). B x S: command-r-plus and gemma2 have a
 # 256,000-entry vocabulary, whose f32 logits take 1 GB a thousand tokens
 # (and unembed an f32 copy of the table), so they prefill one sequence;
 # gemma2's is 8192 long, so its 4096 window binds.
 LM_FAMILY_CELLS = {
     "qwen2-7b": (None, 2, 4096, None),
-    "minicpm-2b": (None, 2, 4096, None),
+    "minicpm-2b": (8, 2, 4096, None),
     "command-r-plus-104b": (4, 1, 4096, 2),
-    "gemma2-27b": (16, 1, 8192, 2),
+    "gemma2-27b": (8, 1, 8192, 2),
     "qwen3-moe-30b-a3b": (16, 2, 4096, 2),
     "phi3.5-moe-42b-a6.6b": (8, 2, 4096, 2),
 }
@@ -3978,12 +4023,13 @@ def float64_gate(label: str, cfg, params, batch) -> None:
     logit."""
     import torch
 
-    from repro_torch.serving.decode import cast_params, prefill
+    from repro_torch.serving.decode import prefill
+    from repro_torch.training.tree import cast_tree
 
     t0 = time.perf_counter()
     cut_cfg, cut = family_cut(cfg, params, 2)
     _, got = prefill(cut, batch, cut_cfg)
-    _, want = prefill(cast_params(cut, torch.float64), batch, cut_cfg)
+    _, want = prefill(cast_tree(cut, torch.float64), batch, cut_cfg)
     if want.dtype != torch.float64:
         raise AssertionError(f"the float64 forward gave {want.dtype} logits")
     err, rel = rel_err(got, want)
@@ -4196,7 +4242,8 @@ def lm_families(dev) -> None:
 
 
 # phase 13: arch -> its bf16 prefill's B x S (hubert: 30 s clips at its
-# 20 ms frame rate); every arch at full width and depth
+# 20 ms frame rate); every arch at full width and depth, but rwkv6's
+# timed prefill (host-bound, ~0.6 s a layer) at RWKV_TIMED_LAYERS
 LM_TAIL_CELLS = {
     "rwkv6-7b": (2, 4096),
     "llama-3.2-vision-11b": (2, 4096),
@@ -4207,6 +4254,7 @@ FLOAT64_TOKENS = 100             # several RWKV chunks of 32, plus padding
 # WKV chunk loop launches ~142k kernels at full depth, whose trace takes
 # the profiler ~2 minutes to process on an H100 host
 RWKV_PROFILE_LAYERS = 2
+RWKV_TIMED_LAYERS = 8
 VLM_GATE = 0.5                   # the cross layers' gate (zero at init)
 GATE_WITNESS = 1e-2              # the vlm's logits with the gates back at 0
 
@@ -4351,7 +4399,8 @@ def lm_tail(dev) -> None:
         phase(f"{label} bf16", t0,
               allocated_gib=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
         batch = tail_inputs(dev, cfg, bsz, seq, seed=1)
-        timed_prefill(label, cfg, params_bf, batch)
+        timed_prefill(label, *(family_cut(cfg, params_bf, RWKV_TIMED_LAYERS)
+                               if cfg.rwkv else (cfg, params_bf)), batch)
         t0 = time.perf_counter()
         prof_cfg, prof_params = (
             family_cut(cfg, params_bf, RWKV_PROFILE_LAYERS) if cfg.rwkv
@@ -4374,6 +4423,393 @@ def lm_tail(dev) -> None:
         raise AssertionError(f"phase 13 launched a kernel: {before} -> "
                              f"{dict(kernels.LAUNCHES)}")
     phase("lm tail families", t_phase)
+
+
+# phase 14: training. 14a minicpm-2b at full width and depth (the model the
+# reference's WSD schedule is named for), B x S = 1 x 4096, its context
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_BATCH, TRAIN_SEQ = 1, 4096
+TRAIN_TIMED_STEPS = 5            # after one warm-up step; median taken
+TRAIN_SPLIT_STEPS = 1            # then composed of the step's two parts
+TRAIN_PROFILE_LAYERS = 2         # the profiled step's depth (trace cost)
+TRAIN_OPT = {"warmup_steps": 2, "total_steps": 10, "schedule": "wsd"}
+# 14b: minicpm-2b at 2 layers, 1 x 256 tokens, f32 against float64
+GATE_LAYERS, GATE_SEQ = 2, 256
+GATE_LOSS_TOL = 1e-5             # relative
+GATE_GRAD_TOL = 1e-4             # of each leaf's largest float64 entry
+GATE_ADAM_TOL = 1e-5             # new parameters, of each leaf's largest
+# 14c: zamba2-7b cut to one group and its tail, 1 x 1024, f32
+ZAMBA_TRAIN_SEQ = 1024
+ZAMBA_LOSS_TOL = 1e-4            # K5 against the plain SSD, relative
+ZAMBA_GRAD_TOL = 1e-3            # of each leaf's largest entry
+# 14d: the training driver on small_lm_config
+LOOP_STEPS, LOOP_CRASH, LOOP_EVERY = 40, 20, 20
+LOOP_BATCH, LOOP_SEQ = 8, 256
+LOOP_TOL = 1e-5                  # resumed losses against uninterrupted
+LOOP_DROP = 0.3                  # the reference test's bar on the loss
+
+
+def attention_flops(cfg, bsz: int, seq: int) -> int:
+    """The causal attention's two products (Q K^T, P V) of one forward
+    over the lower triangle: 2 products x 2 flop x B x H x hd x S(S+1)/2
+    per layer."""
+    return (4 * bsz * cfg.n_heads * cfg.resolved_head_dim
+            * seq * (seq + 1) // 2 * cfg.n_layers)
+
+
+def timed_steps(step_fn, state, batches):
+    """step_fn(state, batch, mark) -> (state, metrics) over `batches`,
+    where mark() records a CUDA event; each step also gets one at its
+    start and one at its end. Returns (state, [metrics], [[ms between a
+    step's consecutive events]])."""
+    import torch
+
+    marks, metrics = [], []
+
+    def mark():
+        marks[-1].append(torch.cuda.Event(enable_timing=True))
+        marks[-1][-1].record()
+
+    for batch in batches:
+        marks.append([])
+        mark()
+        state, m = step_fn(state, batch, mark)
+        mark()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    return state, metrics, [[a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+                            for ev in marks]
+
+
+def train_step_phase(dev):
+    """14a: minicpm-2b's train step at full width and depth, f32 master
+    weights and Adam moments, bf16 compute, WSD. Returns (cfg, state)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.training import data as DATA
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.tree import tree_map
+
+    cfg = registry.get(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    state = TL.init_state(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    nparams, pbytes = tree_bytes(state["params"])
+    phase("lm14a params", t0, arch=cfg.name, layers=cfg.n_layers,
+          d_model=cfg.d_model, vocab=cfg.padded_vocab, params=nparams,
+          param_count=cfg.param_count(),
+          state_gib=f"{torch.cuda.memory_allocated() / 2**30:.2f}",
+          reckoned_gib=f"{(3 * pbytes + 2 * nparams * 2) / 2**30:.2f}",
+          reckoning="f32 params, mu, nu + bf16 copy and its grads")
+
+    opt_cfg = OPT.OptConfig(**TRAIN_OPT)
+    step_fn, _, _ = TL.make_train_step(cfg, opt_cfg,
+                                       compute_dtype=torch.bfloat16,
+                                       device=dev)
+
+    def split_step(state, batch, mark):
+        # step_fn's own sequence, with an event between its two parts
+        params_c = TL.cast_tree(state["params"], torch.bfloat16)
+        loss, m, grads = TL.loss_and_grads(
+            params_c, TL.batch_to_device(batch, dev), cfg)
+        del params_c
+        mark()
+        params, opt, om = OPT.adamw_update(opt_cfg, state["params"], grads,
+                                           state["opt"])
+        return {"params": params, "opt": opt}, dict(m, loss=loss, **om)
+
+    data = DATA.SyntheticLM(DATA.DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    batches = [data.batch_for_model(k, cfg) for k in range(
+        1 + TRAIN_TIMED_STEPS + TRAIN_SPLIT_STEPS)]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics, times = timed_steps(
+        lambda s, b, mark: step_fn(s, b), state,
+        batches[:1 + TRAIN_TIMED_STEPS])
+    peak = torch.cuda.max_memory_allocated()
+    state, split_metrics, split = timed_steps(
+        split_step, state, batches[1 + TRAIN_TIMED_STEPS:])
+    steps = []
+    for k, m in enumerate(metrics + split_metrics, start=1):
+        vals = {key: float(m[key]) for key in ("loss", "grad_norm", "lr")}
+        want_lr = float(OPT.lr_at(opt_cfg, torch.tensor(k, device=dev)))
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"train step {k}: {vals} not finite")
+        if vals["lr"] != want_lr:
+            raise AssertionError(f"train step {k}: lr {vals['lr']!r} is not "
+                                 f"lr_at's {want_lr!r}")
+        steps.append(vals)
+    if int(state["opt"]["step"]) != len(batches):
+        raise AssertionError(f"the state counts {int(state['opt']['step'])} "
+                             f"steps, not {len(batches)}")
+    ms = float(np.median([t[0] for t in times[1:]]))
+    fb = float(np.median([t[0] for t in split]))
+    adam = float(np.median([t[1] for t in split]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * nparams * tokens + 3 * attention_flops(cfg, TRAIN_BATCH,
+                                                       TRAIN_SEQ)
+    phase("lm14a train step timed", t0, layers=cfg.n_layers,
+          tokens=f"{TRAIN_BATCH}x{TRAIN_SEQ}", ms=f"{ms:.3f}",
+          runs_ms=json.dumps([round(t[0], 3) for t in times[1:]]),
+          warmup_ms=f"{times[0][0]:.3f}",
+          forward_backward_ms=f"{fb:.3f}", adamw_ms=f"{adam:.3f}",
+          split_runs_ms=json.dumps([[round(x, 3) for x in t]
+                                    for t in split]),
+          tokens_per_s=f"{tokens / (ms / 1e3):.1f}",
+          mfu=f"{flops / (ms / 1e3) / BF16_FLOPS_PER_S:.4f}",
+          mfu_formula="(6*N*T + 3*causal attention products) / 989e12 "
+                      "per s",
+          flops=flops, peak_gib=f"{peak / 2**30:.2f}",
+          steps=json.dumps(steps))
+
+    t0 = time.perf_counter()
+
+    def cut(tree):
+        # copies: the profiled steps must not update 14a's state
+        return tree_map(torch.clone,
+                        family_cut(cfg, tree, TRAIN_PROFILE_LAYERS)[1])
+
+    cut_cfg = family_cut(cfg, state["params"], TRAIN_PROFILE_LAYERS)[0]
+    opt = state["opt"]
+    cut_state = {"params": cut(state["params"]), "opt": {
+        "step": opt["step"].clone(), "mu": cut(opt["mu"]),
+        "nu": cut(opt["nu"])}}
+    cut_step, _, _ = TL.make_train_step(cut_cfg, opt_cfg,
+                                        compute_dtype=torch.bfloat16,
+                                        device=dev)
+    cut_step(cut_state, batches[0])                # warm-up at this depth
+    prof = profile_call(f"lm14a {cfg.name} train step at "
+                        f"{TRAIN_PROFILE_LAYERS} layers",
+                        lambda: cut_step(cut_state, batches[0]))
+    del cut_state
+    phase("lm14a train step profiled", t0, layers=cut_cfg.n_layers,
+          **({"idle_share": "not measured"} if prof is None else {
+              "idle_share": f"{prof['idle_share']:.4f}",
+              "device_busy_ms": f"{prof['device_busy_ms']:.3f}",
+              "wall_ms": f"{prof['wall_ms']:.3f}",
+              "launches": prof["launches"]}))
+    return cfg, state
+
+
+def grad_gate(dev, cfg, state) -> None:
+    """14b: minicpm-2b at 2 layers and full width, 1 x 256 tokens: loss_fn's
+    loss and gradients in f32 against float64 on the card, then one
+    adamw_update from the same state and gradients in f32 and in
+    float64."""
+    import torch
+
+    from repro_torch.training import data as DATA
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.tree import (cast_tree, leaves_with_paths,
+                                           tree_map)
+
+    t0 = time.perf_counter()
+    cut_cfg, p32 = family_cut(cfg, state["params"], GATE_LAYERS)
+    batch = TL.batch_to_device(DATA.SyntheticLM(DATA.DataConfig(
+        vocab=cfg.vocab, seq_len=GATE_SEQ, global_batch=1)).batch_for_model(
+        0, cfg), dev)
+    p64 = cast_tree(p32, torch.float64)
+    loss32, _, g32 = TL.loss_and_grads(p32, batch, cut_cfg)
+    loss64, _, g64 = TL.loss_and_grads(p64, batch, cut_cfg)
+    if g64["embed"]["table"].dtype != torch.float64:
+        raise AssertionError("the float64 gradients are not float64")
+    loss_rel = abs(float(loss32) - float(loss64)) / abs(float(loss64))
+    worst, where = 0.0, ""
+    for (path, a), (_, b) in zip(leaves_with_paths(g32),
+                                 leaves_with_paths(g64)):
+        rel = rel_err(a, b)[1]
+        if rel > worst:
+            worst, where = rel, path
+    if not (loss_rel <= GATE_LOSS_TOL and worst <= GATE_GRAD_TOL):
+        raise AssertionError(f"14b f32 against float64: loss rel "
+                             f"{loss_rel:.3e} (tol {GATE_LOSS_TOL:.0e}), "
+                             f"gradient {where} rel {worst:.3e} (tol "
+                             f"{GATE_GRAD_TOL:.0e})")
+    phase("lm14b f32 vs float64 loss and grads", t0, layers=GATE_LAYERS,
+          tokens=f"1x{GATE_SEQ}", loss=f"{float(loss64):.6f}",
+          loss_rel=f"{loss_rel:.3e}", worst_grad_rel=f"{worst:.3e}",
+          worst_leaf=json.dumps(where))
+
+    t0 = time.perf_counter()
+    opt = state["opt"]
+    mu = family_cut(cfg, opt["mu"], GATE_LAYERS)[1]
+    nu = family_cut(cfg, opt["nu"], GATE_LAYERS)[1]
+    new = {}
+    for dtype in (torch.float32, torch.float64):
+        def copy(tree, dtype=dtype):
+            return tree_map(lambda t: t.to(dtype, copy=True), tree)
+
+        params = copy(p32)
+        OPT.adamw_update(OPT.OptConfig(**TRAIN_OPT), params, copy(g64), {
+            "step": opt["step"].clone(), "mu": copy(mu), "nu": copy(nu)})
+        new[dtype] = dict(leaves_with_paths(params))
+    worst_p = max(rel_err(new[torch.float32][k], v)[1]
+                  for k, v in new[torch.float64].items())
+    if not worst_p <= GATE_ADAM_TOL:
+        raise AssertionError(f"14b adamw_update f32 against float64: rel "
+                             f"{worst_p:.3e} > {GATE_ADAM_TOL:.0e}")
+    phase("lm14b adamw f32 vs float64", t0, step=int(opt["step"]) + 1,
+          worst_param_rel=f"{worst_p:.3e}",
+          inputs="the same state and float64 gradients")
+
+
+def zamba_train_phase(dev) -> int:
+    """14c: zamba2-7b at full width cut to one group and its tail (9 Mamba2
+    layers and the shared attention block), embedding scaled as in phase 8,
+    f32, 1 x 1024: loss_fn(train=True) and its gradients with K5
+    (use_kernel="auto") against the plain SSD, the same pair with the plain
+    scan's chunks of 64 and 128 beside it. Returns K5's launches in the
+    step: two per Mamba2 layer (the forward and its recomputation in
+    backward; the SSD's backward runs torch ops)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import registry
+    from repro_torch.models import model as MDL
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.tree import leaves_with_paths
+
+    t0 = time.perf_counter()
+    full = registry.get(LM_ARCH)
+    params = MDL.init_params(full, seed=0, dtype=torch.float32, device=dev)
+    params["embed"]["table"].mul_(EMBED_SCALE)
+    cfg, cut = cut_depth(full, params, 1)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, ZAMBA_TRAIN_SEQ),
+                                     generator=gen, device=dev)}
+    kernels.reset_launches()
+    loss_k, _, g_k = TL.loss_and_grads(cut, batch, cfg, use_kernel="auto")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = 2 * cfg.n_layers
+    if launches["ssd_chunk"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"the Zamba2 train step launched "
+                             f"{json.dumps(launches)}; want ssd_chunk "
+                             f"{want} (2 x {cfg.n_layers} Mamba2 layers) "
+                             f"and nothing else")
+    loss_r, _, g_r = TL.loss_and_grads(cut, batch, cfg, use_kernel="ref")
+    half = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, chunk=cfg.ssm.chunk // 2))
+    loss_h, _, g_h = TL.loss_and_grads(cut, batch, half, use_kernel="ref")
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES != launches:
+        raise AssertionError("the plain Zamba2 train steps launched a "
+                             "kernel")
+    worst = {}
+    for name, (loss, grads) in (("kernel", (loss_k, g_k)),
+                                ("chunk64", (loss_h, g_h))):
+        errs = [(rel_err(a, b)[1], path) for (path, a), (_, b) in zip(
+            leaves_with_paths(grads), leaves_with_paths(g_r))]
+        worst[name] = (abs(float(loss) - float(loss_r)) / abs(float(loss_r)),
+                       *max(errs))
+    loss_rel, grad_rel, where = worst["kernel"]
+    if not (loss_rel <= ZAMBA_LOSS_TOL and grad_rel <= ZAMBA_GRAD_TOL):
+        raise AssertionError(f"14c Zamba2 train step, K5 against the plain "
+                             f"SSD: loss rel {loss_rel:.3e} (tol "
+                             f"{ZAMBA_LOSS_TOL:.0e}), gradient {where} rel "
+                             f"{grad_rel:.3e} (tol {ZAMBA_GRAD_TOL:.0e})")
+    smallest = min(float(g.abs().max()) for _, g in leaves_with_paths(g_r))
+    if not smallest > 0:
+        raise AssertionError("a Zamba2 gradient leaf is all zeros")
+    phase("lm14c zamba2 train step K5 vs plain", t0,
+          layers=f"{cfg.n_layers} Mamba2 + shared attention",
+          tokens=f"1x{ZAMBA_TRAIN_SEQ}", k5_launches=launches["ssd_chunk"],
+          loss=f"{float(loss_r):.6f}", loss_rel=f"{loss_rel:.3e}",
+          worst_grad_rel=f"{grad_rel:.3e}", worst_leaf=json.dumps(where),
+          witness_loss_rel=f"{worst['chunk64'][0]:.3e}",
+          witness_grad_rel=f"{worst['chunk64'][1]:.3e}",
+          witness="plain chunk 64 vs plain chunk 128")
+    del params, cut, g_k, g_r, g_h
+    return launches["ssd_chunk"]
+
+
+def train_loop_phase(dev) -> None:
+    """14d: repro_torch.launch.train on small_lm_config(): 40 steps of 8 x
+    256 with a checkpoint every 20, crashed at 20 and resumed to 40, beside
+    an uninterrupted run in another directory."""
+    import torch
+
+    from repro_torch.launch.train import small_lm_config, train
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training.tree import leaves
+
+    cfg = small_lm_config()
+    kw = dict(batch=LOOP_BATCH, seq=LOOP_SEQ, ckpt_every=LOOP_EVERY,
+              device=dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        runs = {}
+        for name, directory, crash in (("crashed", "a", LOOP_CRASH),
+                                       ("resumed", "a", None),
+                                       ("whole", "b", None)):
+            t0 = time.perf_counter()
+            runs[name] = train(cfg, LOOP_STEPS, os.path.join(tmp, directory),
+                               crash_at=crash, **kw)
+            torch.cuda.synchronize()
+            phase(f"lm14d train {name}", t0, steps=len(runs[name]["losses"]),
+                  first_loss=f"{runs[name]['losses'][0]:.6f}",
+                  last_loss=f"{runs[name]['losses'][-1]:.6f}")
+        t0 = time.perf_counter()
+        step, saved, _ = CKPT.Checkpointer(
+            os.path.join(tmp, "a")).restore_latest(runs["resumed"]["state"])
+        same = all(torch.equal(a, b) for a, b in zip(
+            leaves(saved), leaves(runs["resumed"]["state"])))
+    crashed, resumed, whole = (runs[k] for k in ("crashed", "resumed",
+                                                 "whole"))
+    if crashed.get("crashed_at") != LOOP_CRASH or step != LOOP_STEPS \
+            or not same:
+        raise AssertionError(f"14d: crashed at {crashed.get('crashed_at')}, "
+                             f"latest checkpoint step {step}, restored "
+                             f"bit for bit: {same}")
+    tail = whole["losses"][LOOP_CRASH:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"], tail))
+    drop = crashed["losses"][0] - resumed["final_loss"]
+    if not (len(resumed["losses"]) == len(tail) and rel <= LOOP_TOL
+            and drop > LOOP_DROP):
+        raise AssertionError(f"14d: resumed losses against uninterrupted rel "
+                             f"{rel:.3e} (tol {LOOP_TOL:.0e}), loss drop "
+                             f"{drop:.4f} (bar {LOOP_DROP})")
+    phase("lm14d crash and resume", t0, params=cfg.param_count(),
+          resumed_vs_whole_rel=f"{rel:.3e}", loss_drop=f"{drop:.4f}",
+          whole_drop=f"{whole['losses'][0] - whole['final_loss']:.4f}",
+          restored_bit_for_bit=same)
+
+
+def lm_train(dev) -> int:
+    """Phase 14: training on the card, each model freed before the next.
+    Only 14c may launch a kernel of the kernels line (K5). Returns K5's
+    launches in 14c's train step."""
+    import torch
+
+    from repro_torch import kernels
+
+    t_phase = time.perf_counter()
+    before = dict(kernels.LAUNCHES)
+    cfg, state = train_step_phase(dev)
+    grad_gate(dev, cfg, state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if kernels.LAUNCHES != before:
+        raise AssertionError(f"phases 14a-14b launched a kernel: {before} "
+                             f"-> {dict(kernels.LAUNCHES)}")
+    k5 = zamba_train_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = dict(kernels.LAUNCHES)
+    train_loop_phase(dev)
+    if kernels.LAUNCHES != before:
+        raise AssertionError("phase 14d launched a kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("lm train", t_phase)
+    return k5
 
 
 def main(argv=None) -> int:
@@ -4518,6 +4954,14 @@ def run(args, torch) -> int:
           allocated_gib=f"{torch.cuda.memory_allocated() / 2**30:.3f}")
     lm_families(dev)
     lm_tail(dev)
+    k5_train = lm_train(dev)
+    for row in rows:
+        if row["name"] == "ssd_chunk":
+            row["launches_paths"] = {
+                row["launches_path"]: row["launches"],
+                f"lm14c train step, {LM_ARCH} at 9 layers, B=1, "
+                f"S={ZAMBA_TRAIN_SEQ}": k5_train}
+            row["launches"] = sum(row["launches_paths"].values())
     phase("total", t_run)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

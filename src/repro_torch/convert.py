@@ -9,8 +9,8 @@ dicts, gives the port's operator computing the same thing, and a
 reference `Plan.to_json()` plus its permutation gives the port's Plan
 holding the same decision (a sharded plan's topology, partitioner, panel
 starts and comm model included); a reference model's parameter pytree, as
-nested dicts of numpy arrays, gives the port's parameters. Nothing here
-imports the reference package.
+nested dicts of numpy arrays, gives the port's parameters, and a reference
+train state the port's. Nothing here imports the reference package.
 """
 from __future__ import annotations
 
@@ -127,6 +127,30 @@ def params_from_reference(tree: dict, cfg, device=None, dtype=None) -> dict:
         return leaf(node)
 
     return walk(tree)
+
+
+def state_from_reference(state: dict, cfg, device=None) -> dict:
+    """The port's train state for a reference train state {"params", "opt":
+    {"step", "mu", "nu"}}, given as nested dicts of numpy arrays
+    (`jax.device_get(state)`). params, mu and nu go through
+    params_from_reference, with its stack checks (ValueError), keeping
+    their types; step stays an int32 scalar. `device=None` is the card."""
+    import torch
+
+    from .device import resolve_device
+
+    opt = state["opt"]
+    step = np.asarray(opt["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"state_from_reference: opt.step must be an int32 "
+                         f"scalar, got {step.dtype} {step.shape}")
+    return {
+        "params": params_from_reference(state["params"], cfg, device),
+        "opt": {"step": torch.from_numpy(step.copy()).to(
+                    resolve_device(device)),
+                "mu": params_from_reference(opt["mu"], cfg, device),
+                "nu": params_from_reference(opt["nu"], cfg, device)},
+    }
 
 
 def _stack_counts(tree: dict, cfg, family: str):

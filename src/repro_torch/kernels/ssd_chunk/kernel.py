@@ -8,7 +8,8 @@ repro_torch/csrc/ssd_chunk.cu: at N = P = 64 `ssd_scan_tc_kernel` (bf16)
 and `ssd_scan_tf32_kernel` (f32, three TF32 products per product) on the
 tensor cores, `ssd_scan_simt_kernel` on the CUDA cores for the other
 shapes. Forward only, as the TPU kernel: it serves the
-prefill; training keeps the plain path.
+prefill and the forward of a train step, whose gradient comes from the
+plain scan (models/layers/mamba2.py `SSDScan`).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Full-sequence SSD over chunks, one K5 launch per call (forward only:
-serving and prefill). The counterpart of the reference's `lax.scan` over
+the prefill and a train step's forward; `mamba2.SSDScan` gives it a
+gradient). The counterpart of the reference's `lax.scan` over
 `ssd_chunk` in kernels/ssd_chunk/ops.py."""
 from __future__ import annotations
 

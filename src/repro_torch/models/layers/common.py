@@ -96,3 +96,15 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def softmax_cross_entropy(logits, labels):
+    """logits [..., V], labels [...] int -> the mean of logsumexp - gold over
+    every position. Every column counts, the padded ones too: they are
+    real rows of the (tied) embedding, as in the reference."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)

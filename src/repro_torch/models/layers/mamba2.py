@@ -2,7 +2,9 @@
 
 Prefill: the sequence is padded to a multiple of `chunk` and scanned by
 `ssd_scan`, one launch of the fused K5 kernel per layer on the card (81 for
-the Zamba2-7B prefill), which walks the chunks itself. Decode: the O(1) recurrent state update, in torch ops.
+the Zamba2-7B prefill), which walks the chunks itself. Training goes
+through the same forward; the SSD's gradient comes from the plain scan
+(`SSDScan`). Decode: the O(1) recurrent state update, in torch ops.
 
 As in the reference: a single B/C group, a scalar A per head, a causal conv
 of width 4. State cache = (conv_state [B, W-1, d_conv_ch], ssm_state
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...kernels.ssd_chunk.kernel import ssd_scan_plain
 from ...kernels.ssd_chunk.ops import ssd_scan
 from .common import init_linear, init_rmsnorm, linear, rmsnorm
 
@@ -77,20 +80,50 @@ def _mix(params, x, ssm_cfg, conv_state=None):
     return z, xs.reshape(b, s, h, p), dt, b_mat, c_mat, new_conv
 
 
+class SSDScan(torch.autograd.Function):
+    """ssd_scan with a gradient. The forward is ssd_scan's own: K5 on CUDA
+    tensors under "auto", the plain scan on CPU tensors or under "ref".
+    The backward recomputes the plain chunked scan (ssd_scan_plain) in
+    torch ops under autograd and returns that graph's vector-Jacobian
+    product: the reference's own gradient, autodiff of its jnp scan
+    `_ssd_chunked`, since K5, like the TPU kernel it replaces, has no
+    backward. Only the inputs are kept for backward."""
+
+    @staticmethod
+    def forward(ctx, la, xw, b_mat, c_mat, state0, chunk, use_kernel):
+        ctx.save_for_backward(la, xw, b_mat, c_mat, state0)
+        ctx.chunk = chunk
+        return ssd_scan(la, xw, b_mat, c_mat, state0, chunk=chunk,
+                        use_kernel=use_kernel)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        needs = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, needs)]
+            outs = ssd_scan_plain(*inputs, ctx.chunk)
+            grads = iter(torch.autograd.grad(
+                outs, [t for t, n in zip(inputs, needs) if n],
+                (grad_y, grad_state)))
+        return (*(next(grads) if n else None for n in needs), None, None)
+
+
 def _ssd_chunked(xh, dt, a_log, b_mat, c_mat, chunk, init_state=None,
                  use_kernel="auto"):
     """SSD over a padded sequence. xh [B,S,H,P], dt [B,S,H], b/c [B,S,N].
     Returns (y [B,S,H,P], final_state [B,H,N,P]).
 
     The log decay is f32 and the discretized input is in xh's type, as the
-    reference prepares them; ssd_scan then runs K5 once over all chunks."""
+    reference prepares them; ssd_scan then runs K5 once over all chunks
+    (SSDScan, which gives it a gradient)."""
     b, s, h, p = xh.shape
     n = b_mat.shape[-1]
     la, xw = _discretize(xh, dt, a_log)
     s0 = (xh.new_zeros((b, h, n, p)) if init_state is None
           else init_state.to(xh.dtype).contiguous())
-    return ssd_scan(la, xw, b_mat.contiguous(), c_mat.contiguous(), s0,
-                    chunk=chunk, use_kernel=use_kernel)
+    return SSDScan.apply(la, xw, b_mat.contiguous(), c_mat.contiguous(), s0,
+                         chunk, use_kernel)
 
 
 def mamba2_block(params, x, ssm_cfg, cache=None, use_kernel="auto"):

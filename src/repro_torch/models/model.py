@@ -22,6 +22,11 @@ attention block), rwkv6, the vlm and the audio encoder.
             attention output is scaled by tanh(gate)
     logits = unembed(final_norm(x)), or the untied head's
 
+Training: `forward(train=True)` runs each of the reference's remat units
+inside a checkpoint (recomputed in backward), and `loss_fn` is the
+cross-entropy of the next token (an encoder's labels) over the padded
+vocabulary, plus MoE's weighted aux loss.
+
 Parameters and caches keep the reference's pytree layout: a family's layer
 weights are stacked on a leading layer axis (`layers` [L, ...]; gemma2's
 `layers.{local,global}` [L/2, ...]; Zamba2's `layers` [groups * period,
@@ -35,6 +40,7 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -44,7 +50,8 @@ from .layers import mlp as MLP
 from .layers import moe as MOE
 from .layers import rwkv6 as R
 from .layers.common import (embed, init_embedding, init_linear, init_rmsnorm,
-                            linear, rmsnorm, unembed, wide_dtype)
+                            linear, rmsnorm, softmax_cross_entropy, unembed,
+                            wide_dtype)
 
 
 def _family(cfg: ModelConfig) -> str:
@@ -77,6 +84,20 @@ def _layer(tree, idx):
     if isinstance(tree, dict):
         return {k: _layer(v, idx) for k, v in tree.items()}
     return tree[idx]
+
+
+_STACKED = ("layers", "cross_layers", "tail_layers")  # [L, ...] leaves
+
+
+def _unstack(tree):
+    """A stacked parameter tree with each leaf unbound into a tuple of its
+    layers (views), which `_layer` indexes as it indexes the stack. Under
+    autograd one unbind's backward stacks the layers' gradients once,
+    where indexing the stack per layer adds a zero tensor the size of the
+    whole leaf into its gradient at every layer."""
+    if isinstance(tree, dict):
+        return {k: _unstack(v) for k, v in tree.items()}
+    return torch.unbind(tree)
 
 
 def _write(tree, idx, new) -> None:
@@ -259,8 +280,18 @@ def _shared_attn_block(sp, x, cfg, cache=None, kv_chunk=1024):
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+def _call(train: bool, fn, *args, **kw):
+    """fn(*args, **kw); under `train` inside a checkpoint, so that backward
+    recomputes its activations instead of keeping them (the reference's
+    jax.checkpoint around each scan body). Arguments are passed, not
+    closed over: the recomputation must see this call's layer."""
+    if train:
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return fn(*args, **kw)
+
+
 def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
-            use_kernel: str = "auto"):
+            use_kernel: str = "auto", train: bool = False):
     """Returns (logits [B,S,V] f32, new_cache, metrics).
 
     batch: {"tokens": [B,S]}, or {"embeds": [B,S,d]} for a config that takes
@@ -270,11 +301,19 @@ def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
     decode, which is updated in place and returned (an encoder-only config
     has none: ValueError). metrics: the MoE family's aux_loss, router_li
     and drop_frac averaged over layers, else {}. use_kernel applies to the
-    SSD chunk kernel."""
+    SSD chunk kernel. train: each of the reference's remat units (a layer
+    of the dense, audio, MoE and rwkv6 loops, a gemma2 pair, a Zamba2 group
+    with its shared attention block, each Zamba2 tail layer, a vlm group)
+    runs inside a checkpoint; a cache with train raises ValueError."""
     family = _family(cfg)
     if cache is not None and cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: no decode cache")
+    if cache is not None and train:
+        raise ValueError("forward: train=True takes no cache (decode does "
+                         "not train)")
     dtype = params["final_norm"]["scale"].dtype
+    params = {k: _unstack(v) if k in _STACKED else v
+              for k, v in params.items()}
     if cfg.embed_inputs:
         x = embed(params["embed"], batch["tokens"])
         if cfg.name.startswith("gemma"):
@@ -284,21 +323,21 @@ def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
     metrics: Dict[str, torch.Tensor] = {}
     if family == "hybrid":
         x, cache = _zamba_forward(params, x, cfg, cache, kv_chunk,
-                                  use_kernel)
+                                  use_kernel, train)
     elif family == "rwkv6":
-        x = _rwkv_forward(params, x, cfg, cache)
+        x = _rwkv_forward(params, x, cfg, cache, train)
     elif family == "vlm":
         if "image_embeds" not in batch:
             raise ValueError(f"{cfg.name}: the vlm's batch needs "
                              f"image_embeds [B, T, d]")
         x = _vlm_forward(params, x, batch["image_embeds"].to(dtype), cfg,
-                         cache, kv_chunk)
+                         cache, kv_chunk, train)
     elif family == "moe":
-        x, metrics = _moe_forward(params, x, cfg, cache, kv_chunk)
+        x, metrics = _moe_forward(params, x, cfg, cache, kv_chunk, train)
     elif family == "gemma2":
-        x = _pair_forward(params, x, cfg, cache, kv_chunk)
+        x = _pair_forward(params, x, cfg, cache, kv_chunk, train)
     else:
-        x = _dense_forward(params, x, cfg, cache, kv_chunk)
+        x = _dense_forward(params, x, cfg, cache, kv_chunk, train)
     x = rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
     if cfg.tie_embeddings and cfg.embed_inputs:
         logits = unembed(params["embed"], x, cfg.final_softcap)
@@ -317,93 +356,110 @@ def _kv_layer(kv, *idx):
 
 
 def _depth(stack) -> int:
-    return stack["attn_norm"]["scale"].shape[0]
+    return len(stack["attn_norm"]["scale"])
 
 
-def _dense_forward(params, x, cfg, cache, kv_chunk):
+def _dense_forward(params, x, cfg, cache, kv_chunk, train):
     for i in range(_depth(params["layers"])):
         lc = None if cache is None else _kv_layer(cache, i)
-        x, nc = _dense_layer(_layer(params["layers"], i), x, cfg,
-                             window=None, cache=lc, kv_chunk=kv_chunk)
+        x, nc = _call(train, _dense_layer, _layer(params["layers"], i), x,
+                      cfg, window=None, cache=lc, kv_chunk=kv_chunk)
         if cache is not None:
             cache["len"][i] = nc["len"]
     return x
 
 
-def _pair_forward(params, x, cfg, cache, kv_chunk):
-    """gemma2: each pair is a local layer (windowed) then a global one."""
-    pairs = params["layers"]
-    for i in range(_depth(pairs["local"])):
-        for part, window in (("local", cfg.sliding_window),
-                             ("global", None)):
-            lc = None if cache is None else _kv_layer(cache[part], i)
-            x, nc = _dense_layer(_layer(pairs[part], i), x, cfg,
-                                 window=window, cache=lc, kv_chunk=kv_chunk)
-            if cache is not None:
-                cache[part]["len"][i] = nc["len"]
+def _pair(pairs, i, x, cfg, cache, kv_chunk):
+    """gemma2's pair i: its local layer (windowed), then its global one."""
+    for part, window in (("local", cfg.sliding_window), ("global", None)):
+        lc = None if cache is None else _kv_layer(cache[part], i)
+        x, nc = _dense_layer(_layer(pairs[part], i), x, cfg, window=window,
+                             cache=lc, kv_chunk=kv_chunk)
+        if cache is not None:
+            cache[part]["len"][i] = nc["len"]
     return x
 
 
-def _moe_forward(params, x, cfg, cache, kv_chunk):
+def _pair_forward(params, x, cfg, cache, kv_chunk, train):
+    pairs = params["layers"]
+    for i in range(_depth(pairs["local"])):
+        x = _call(train, _pair, pairs, i, x, cfg, cache, kv_chunk)
+    return x
+
+
+def _moe_forward(params, x, cfg, cache, kv_chunk, train):
     acc = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in ("aux_loss", "router_li", "drop_frac")}
     for i in range(_depth(params["layers"])):
         lc = None if cache is None else _kv_layer(cache, i)
-        x, nc, mm = _moe_dense_layer(_layer(params["layers"], i), x, cfg,
-                                     cache=lc, kv_chunk=kv_chunk)
+        x, nc, mm = _call(train, _moe_dense_layer,
+                          _layer(params["layers"], i), x, cfg, cache=lc,
+                          kv_chunk=kv_chunk)
         if cache is not None:
             cache["len"][i] = nc["len"]
         acc = {k: acc[k] + mm[k] for k in acc}
     return x, {k: v / cfg.n_layers for k, v in acc.items()}
 
 
-def _rwkv_forward(params, x, cfg, cache):
-    for i in range(params["layers"]["wr"]["w"].shape[0]):
+def _rwkv_forward(params, x, cfg, cache, train):
+    for i in range(len(params["layers"]["wr"]["w"])):
         lc = None if cache is None else _layer(cache, i)
-        x, nc = _rwkv_layer(_layer(params["layers"], i), x, cfg, lc)
+        x, nc = _call(train, _rwkv_layer, _layer(params["layers"], i), x,
+                      cfg, lc)
         if cache is not None:
             _write(cache, i, nc)
     return x
 
 
-def _vlm_forward(params, x, img, cfg, cache, kv_chunk):
-    """Each group: period - 1 dense layers over the group's KV caches, then
-    its cross layer over `img` (recomputed every call, as the reference
-    does: the cross keys and values are not cached)."""
+def _vlm_group(params, g, x, img, cfg, kv, kv_chunk):
+    """The vlm's group g: period - 1 dense layers over the group's KV
+    caches, then its cross layer over `img` (recomputed every call, as the
+    reference does: the cross keys and values are not cached)."""
     per = cfg.cross_attn_period - 1
+    for j in range(per):
+        lc = None if kv is None else _kv_layer(kv, g, j)
+        x, nc = _dense_layer(_layer(params["layers"], g * per + j), x, cfg,
+                             window=None, cache=lc, kv_chunk=kv_chunk)
+        if kv is not None:
+            kv["len"][g][j] = nc["len"]
+    return _cross_layer(_layer(params["cross_layers"], g), x, img, cfg)
+
+
+def _vlm_forward(params, x, img, cfg, cache, kv_chunk, train):
     kv = None if cache is None else cache["self"]
-    for g in range(params["cross_layers"]["gate"].shape[0]):
-        for j in range(per):
-            lc = None if kv is None else _kv_layer(kv, g, j)
-            x, nc = _dense_layer(_layer(params["layers"], g * per + j), x,
-                                 cfg, window=None, cache=lc,
-                                 kv_chunk=kv_chunk)
-            if kv is not None:
-                kv["len"][g][j] = nc["len"]
-        x = _cross_layer(_layer(params["cross_layers"], g), x, img, cfg)
+    for g in range(len(params["cross_layers"]["gate"])):
+        x = _call(train, _vlm_group, params, g, x, img, cfg, kv, kv_chunk)
     return x
 
 
-def _zamba_forward(params, x, cfg, cache, kv_chunk, use_kernel):
+def _zamba_group(params, g, x, cfg, cache, kv_chunk, use_kernel):
+    """Zamba2's group g: its `hybrid_attn_period` Mamba2 layers, then the
+    shared attention block."""
     period = cfg.hybrid_attn_period
-    groups = params["layers"]["in_proj"]["w"].shape[0] // period
-    sp = params["shared_attn"]
-    for g in range(groups):
-        for j in range(period):
-            lc = None if cache is None else _layer(cache["mamba"], (g, j))
-            x, nc = M.mamba2_block(_layer(params["layers"], g * period + j),
-                                   x, cfg.ssm, lc, use_kernel)
-            if cache is not None:
-                _write(cache["mamba"], (g, j), nc)
-        ac = None if cache is None else _kv_layer(cache["shared_attn"], g)
-        x, nac = _shared_attn_block(sp, x, cfg, ac, kv_chunk)
+    for j in range(period):
+        lc = None if cache is None else _layer(cache["mamba"], (g, j))
+        x, nc = M.mamba2_block(_layer(params["layers"], g * period + j), x,
+                               cfg.ssm, lc, use_kernel)
         if cache is not None:
-            cache["shared_attn"]["len"][g] = nac["len"]
+            _write(cache["mamba"], (g, j), nc)
+    ac = None if cache is None else _kv_layer(cache["shared_attn"], g)
+    x, nac = _shared_attn_block(params["shared_attn"], x, cfg, ac, kv_chunk)
+    if cache is not None:
+        cache["shared_attn"]["len"][g] = nac["len"]
+    return x
+
+
+def _zamba_forward(params, x, cfg, cache, kv_chunk, use_kernel, train):
+    period = cfg.hybrid_attn_period
+    for g in range(len(params["layers"]["in_proj"]["w"]) // period):
+        x = _call(train, _zamba_group, params, g, x, cfg, cache, kv_chunk,
+                  use_kernel)
     if "tail_layers" in params:
-        for j in range(params["tail_layers"]["in_proj"]["w"].shape[0]):
+        for j in range(len(params["tail_layers"]["in_proj"]["w"])):
             lc = None if cache is None else _layer(cache["tail"], j)
-            x, nc = M.mamba2_block(_layer(params["tail_layers"], j), x,
-                                   cfg.ssm, lc, use_kernel)
+            x, nc = _call(train, M.mamba2_block,
+                          _layer(params["tail_layers"], j), x, cfg.ssm, lc,
+                          use_kernel)
             if cache is not None:
                 _write(cache["tail"], j, nc)
     return x, cache
@@ -458,3 +514,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         "tail": (M.init_mamba2_cache(batch, cfg.d_model, cfg.ssm, dtype, dev,
                                      stack=(rem,)) if rem else None),
     }
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+def loss_fn(params, batch, cfg: ModelConfig, train: bool = True,
+            use_kernel: str = "auto"):
+    """(loss, metrics): the cross-entropy over the full padded vocabulary,
+    of an encoder-only model's logits against batch["labels"], else of
+    logits[:, :-1] against tokens[:, 1:]; MoE adds router_aux_weight x its
+    aux_loss. metrics holds the forward's and "ce_loss", the loss (the aux
+    term included, under the reference's name)."""
+    logits, _, metrics = forward(params, batch, cfg, train=train,
+                                 use_kernel=use_kernel)
+    if cfg.encoder_only:
+        loss = softmax_cross_entropy(logits, batch["labels"])
+    else:
+        loss = softmax_cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+    if cfg.moe is not None and "aux_loss" in metrics:
+        loss = loss + cfg.moe.router_aux_weight * metrics["aux_loss"]
+    metrics["ce_loss"] = loss
+    return loss, metrics

@@ -7,16 +7,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..models import model as MDL
-
-
-def cast_params(params, dtype=None, device=None):
-    """Floating parameters in `dtype` on `device` (None keeps each). A
-    tensor that already has both is returned as it is, not copied."""
-    if isinstance(params, dict):
-        return {k: cast_params(v, dtype, device) for k, v in params.items()}
-    if params.is_floating_point():
-        return params.to(device=device, dtype=dtype)
-    return params.to(device=device)
+from ..training.tree import cast_tree
 
 
 def make_serve_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
@@ -32,7 +23,7 @@ def make_serve_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
 
     def serve_step(params, batch, cache):
-        params_c = cast_params(params, compute_dtype)
+        params_c = cast_tree(params, compute_dtype)
         logits, new_cache, _ = MDL.forward(params_c, batch, cfg, cache=cache)
         next_tokens = logits[:, -1].argmax(dim=-1).to(torch.int32)
         return next_tokens, new_cache
@@ -53,7 +44,7 @@ def prefill(params, batch, cfg: ModelConfig, use_kernel: str = "auto",
     and drop_frac; {} for the others). Parameters are used in their own
     type; `device=None` is the card."""
     dev = resolve_device(device)
-    params = cast_params(params, device=dev)
+    params = cast_tree(params, device=dev)
     inputs = {k: torch.as_tensor(batch[k], device=dev)
               for k in ("tokens", "embeds", "image_embeds") if k in batch}
     logits, _, metrics = MDL.forward(params, inputs, cfg,
@@ -76,7 +67,7 @@ def generate(cfg: ModelConfig, params, prompt_tokens, max_new: int,
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt_tokens, device=dev)
     b, s = prompt.shape
-    params = cast_params(params, torch.float32, dev)
+    params = cast_tree(params, torch.float32, dev)
     extra = ({} if image_embeds is None else {"image_embeds": torch.as_tensor(
         image_embeds, dtype=torch.float32, device=dev)})
     cache = MDL.init_cache(cfg, b, cache_len, dtype=torch.float32, device=dev)

@@ -25,6 +25,9 @@ from repro_torch.launch import spmv_bench
 from repro_torch.router import MeshSpec, RoutedSpmvService
 from repro_torch.models import model as lm
 from repro_torch.serving.decode import generate, prefill
+from repro_torch.training import optimizer as topt
+from repro_torch.training import train_loop
+from repro_torch.launch import train as launch_train
 
 torch.set_num_threads(1)
 
@@ -131,6 +134,14 @@ def test_entry_points_default_to_the_card_and_raise_without_it(monkeypatch):
             prefill(params, {"tokens": tokens}, cfg)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             generate(cfg, params, tokens, 2, cache_len=8)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_loop.init_state(cfg)
+        step, _, _ = train_loop.make_train_step(cfg, topt.OptConfig())
+        state = {"params": params, "opt": topt.init_opt_state(params)}
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            step(state, {"tokens": np.zeros((1, 4), np.int32)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.train(launch_train.small_lm_config(), 2, "unused")
 
 
 def test_cpu_runs_only_on_request():
@@ -177,7 +188,8 @@ def test_importing_the_drivers_leaves_the_reference_out():
     assert {"repro_torch.bench.run", "repro_torch.bench.common",
             "repro_torch.bench.workloads", "repro_torch.bench.moe_dispatch",
             "repro_torch.bench.corpus_scale", "repro_torch.bench.regress",
-            "repro_torch.examples.cg_solver"} <= set(names)
+            "repro_torch.examples.cg_solver",
+            "repro_torch.examples.train_small_lm"} <= set(names)
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
