@@ -4,13 +4,15 @@
     python3 chip_smoke.py            # Fig. 1 pair (1,048,576 rows), then
                                      # Zamba2-7B at full width and depth,
                                      # then the dense, gemma2 and MoE LMs
-                                     # at full width (qwen2-7b at full
-                                     # depth), then rwkv6-7b,
+                                     # at full width (cut in depth), then
+                                     # rwkv6-7b,
                                      # llama-3.2-vision-11b and
                                      # hubert-xlarge at full width and
-                                     # depth (rwkv6's timed prefill at 8
-                                     # layers), then training: minicpm-2b's
-                                     # train step at full width and depth
+                                     # depth (their timed prefills cut in
+                                     # depth), then training: minicpm-2b's
+                                     # train step at full width and depth,
+                                     # then the mesh train step on a
+                                     # one-rank NCCL (1, 1) mesh
 
 Phases, in order, one line each with its seconds; the first failure ends
 the run with a nonzero exit code (nothing is caught):
@@ -254,8 +256,9 @@ the run with a nonzero exit code (nothing is caught):
                   freed before the next), six architectures at their
                   published widths with random f32 parameters from a seeded
                   generator on the card, cut in depth as LM_FAMILY_CELLS
-                  says (the f32 draw under ~42 GB): 12a qwen2-7b (28
-                  layers, GQA 28/4, QKV bias) at full depth, 12b
+                  says (the f32 draw under ~42 GB; qwen2-7b, minicpm-2b
+                  and gemma2 further, for time): 12a qwen2-7b (GQA 28/4,
+                  QKV bias) at 8 of 28 layers, 12b
                   minicpm-2b (MHA 36 x 64) at 8 of 40 layers (14a trains
                   it at full depth), 12c command-r-plus-104b at 4 of 64
                   layers, 12d gemma2-27b at 8 of 46 (4 local/global
@@ -314,10 +317,11 @@ the run with a nonzero exit code (nothing is caught):
                   prefill (rwkv6 and the vlm B = 2 x S = 4096, the vlm with
                   image_embeds [2, 1600, 4096]; hubert 8 x 1500 frames) by
                   CUDA events (median of 5) in tokens/s with its peak
-                  memory (rwkv6 at 8 of its 32 layers, see
-                  RWKV_TIMED_LAYERS), and profiles it once (idle share,
-                  launches, device time by kernel group; rwkv6 at 2 of
-                  its layers, see RWKV_PROFILE_LAYERS). These families reach no
+                  memory, and profiles it once (idle share, launches,
+                  device time by kernel group), both cut in depth (rwkv6
+                  at 2 of its 32 layers, the vlm at 2 of its 8 groups,
+                  hubert at 12 of its 48 layers; see LM_TAIL_CELLS).
+                  These families reach no
                   Pallas kernel in the reference, and phase 13 fails if
                   it launches any kernel of the kernels line;
 14. lm train    — training on the card, each model freed before the next
@@ -326,7 +330,7 @@ the run with a nonzero exit code (nothing is caught):
                   master weights and Adam moments, bf16 compute, remat of
                   every layer, WSD (warmup 2, total 10), through
                   make_train_step on SyntheticLM.batch_for_model at B = 1
-                  x S = 4096: one warm-up step and 5 timed by CUDA events
+                  x S = 4096: one warm-up step and 3 timed by CUDA events
                   (median) in tokens/s, with the peak memory and MFU ((6
                   N T + 3 x the causal attention's products) / 989
                   TFLOP/s); then one step composed of the step's parts
@@ -355,27 +359,51 @@ the run with a nonzero exit code (nothing is caught):
                   losses within 1e-5 of the uninterrupted ones, the
                   final loss below the first by more than 0.3, and
                   restore_latest giving the last saved state bit for
-                  bit. Only 14c may launch a kernel of the kernels line.
+                  bit. Only 14c may launch a kernel of the kernels line;
+15. mesh        — the mesh paths (repro_torch.launch.mesh,
+                  distributed.sharding) on one NCCL process group of one
+                  rank (a HashStore: no network) and a (1, 1) ("data",
+                  "model") mesh, destroyed when the phase ends; a failed
+                  NCCL init or collective ends the run. One rank shows that
+                  the path runs on the card and gives the plain path's
+                  numbers, not what a collective costs. 15a minicpm-2b at
+                  full width and 2 of its 40 layers (14a's state), 1 x
+                  4096, f32 master weights, bf16 compute, WSD: two steps
+                  through make_train_step(mesh=) and two through
+                  mesh=None from the same state, loss, grad_norm and every
+                  leaf of the state equal or within 1e-6 of the leaf's
+                  largest entry, the largest difference printed, both
+                  paths' ms (CUDA events) and peak memory; 15b
+                  qwen3-moe-30b-a3b at full width (128 experts, top 8) and
+                  2 of 48 layers, 1 x 4096: one step whose MoE layers take
+                  moe_layer(mesh=) against mesh=None under the same gate,
+                  with router_li and drop_frac (one expert-parallel rank:
+                  no all_to_all runs, ep_exchange=false); 15c 14c's Zamba2 through
+                  make_train_step(mesh=) in f32: K5 launched 18 times in
+                  the step, the loss and the gradients (read from the
+                  first AdamW step's mu) within 14c's gates of 14c's
+                  plain-SSD step.
 
 Every kernel launch counter is set to 0 just before the first campaign of
 phase 4, the campaign of phase 4c, the drivers of phase 4f (its fig. 1
 cells, then the others, then each soak and workload driver), each forced
 path of phase 5 (f32 and bf16) and of phase 6b, each service and
 workload path of phases 7s and 7w, the parallel campaign of phase 7p,
-the one-device fleet of phase 7r, the f32 prefill of phase 8 and the
-train step of phase 14c, and read just after it (and around each K4 panel check of phase 7p, which must
+the one-device fleet of phase 7r, the f32 prefill of phase 8, the
+train step of phase 14c and the mesh train step of phase 15c, and read
+just after it (and around each K4 panel check of phase 7p, which must
 show one K4 launch; those launches are not the path's); a bell cell of
 phase 7p that launched no K4, a forced path that
 did not launch its kernel, a cell whose plan (or forced engine) is a
 kernel engine that launched nothing in its own timed calls, a service or
 workload path that did not launch its kernels, a prefill whose K5
-count is not its number of Mamba2 layers (81), or a train step whose K5
-count is not twice its Mamba2 layers (18), fails the run. The kernels
+count is not its number of Mamba2 layers (81), or a train step (14c,
+15c) whose K5 count is not twice its Mamba2 layers (18), fails the run. The kernels
 line reports, for each kernel, the launches of the path that feeds its
 row and, for K1-K4 in f32, those of the bench paths of phase 4f (the
 figure drivers, and each of its soaks and workload drivers), the
 service, router, workload and parallel campaign paths, and for K5 the f32 prefill
-and the train step of phase 14c (`launches_paths`); spmm_batch in phase 4f
+and the train steps of phases 14c and 15c (`launches_paths`); spmm_batch in phase 4f
 must launch K1 and K2.
 
 Verification is against the numpy float64 oracle at rel err <= 1e-4 (the
@@ -3753,14 +3781,14 @@ def ssd_control(args) -> None:
 # depth cuts keep the f32 draw under ~42 GB, so that it, its bf16 copy (made
 # one tensor at a time) and the prefill's activations fit in 80 GB: at full
 # depth command-r-plus holds 419 GB of f32 parameters, gemma2-27b 109,
-# qwen3-moe 122, phi3.5-moe 168. minicpm-2b and gemma2 are cut further to
-# keep the run inside its time limit (14a trains minicpm-2b at full
-# depth). B x S: command-r-plus and gemma2 have a
+# qwen3-moe 122, phi3.5-moe 168. qwen2-7b, minicpm-2b and gemma2 are cut
+# further to keep the run inside its time limit (14a trains minicpm-2b at
+# full depth). B x S: command-r-plus and gemma2 have a
 # 256,000-entry vocabulary, whose f32 logits take 1 GB a thousand tokens
 # (and unembed an f32 copy of the table), so they prefill one sequence;
 # gemma2's is 8192 long, so its 4096 window binds.
 LM_FAMILY_CELLS = {
-    "qwen2-7b": (None, 2, 4096, None),
+    "qwen2-7b": (8, 2, 4096, None),
     "minicpm-2b": (8, 2, 4096, None),
     "command-r-plus-104b": (4, 1, 4096, 2),
     "gemma2-27b": (8, 1, 8192, 2),
@@ -3799,18 +3827,28 @@ def family_model(dev, arch: str):
 
 
 def family_cut(cfg, params, n: int):
-    """The first n layers (gemma2: n // 2 pairs): the config and views of
-    the same parameters."""
+    """The first n layers (gemma2: n // 2 pairs; the vlm: n // period
+    groups, each its period - 1 self layers and its cross layer): the
+    config and views of the same parameters."""
     import dataclasses
 
     from repro_torch.models.model import _layer
 
+    cut = dict(params)
     if cfg.local_global_period:
-        layers = {part: _layer(params["layers"][part], slice(0, n // 2))
-                  for part in ("local", "global")}
+        cut["layers"] = {part: _layer(params["layers"][part],
+                                      slice(0, n // 2))
+                         for part in ("local", "global")}
+    elif cfg.cross_attn_period:
+        groups, period = n // cfg.cross_attn_period, cfg.cross_attn_period
+        n = groups * period
+        cut["layers"] = _layer(params["layers"],
+                               slice(0, groups * (period - 1)))
+        cut["cross_layers"] = _layer(params["cross_layers"],
+                                     slice(0, groups))
     else:
-        layers = _layer(params["layers"], slice(0, n))
-    return dataclasses.replace(cfg, n_layers=n), dict(params, layers=layers)
+        cut["layers"] = _layer(params["layers"], slice(0, n))
+    return dataclasses.replace(cfg, n_layers=n), cut
 
 
 def to_bf16(tree):
@@ -4144,9 +4182,9 @@ def moe_layer_inputs(cfg, params, toks) -> list:
 
     plain, inputs = MOE.moe_layer, []
 
-    def record(p, x, moe_cfg, mesh=None):
+    def record(p, x, moe_cfg, **kw):
         inputs.append(x)
-        return plain(p, x, moe_cfg, mesh)
+        return plain(p, x, moe_cfg, **kw)
 
     MOE.moe_layer = record
     try:
@@ -4241,20 +4279,19 @@ def lm_families(dev) -> None:
     phase("lm families", t_phase)
 
 
-# phase 13: arch -> its bf16 prefill's B x S (hubert: 30 s clips at its
-# 20 ms frame rate); every arch at full width and depth, but rwkv6's
-# timed prefill (host-bound, ~0.6 s a layer) at RWKV_TIMED_LAYERS
+# phase 13: arch -> (its bf16 prefill's B x S (hubert: 30 s clips at its
+# 20 ms frame rate), the layers that prefill is timed and profiled at).
+# Every arch runs its gates at full width and depth; the timed and
+# profiled prefill is cut in depth to keep the run inside its time limit
+# (the vlm to 2 of its 8 groups). rwkv6's at 2 of its 32 layers is also
+# what the profiler can take: the WKV chunk loop launches ~142k kernels at
+# full depth, whose trace takes it ~2 minutes to process on an H100 host.
 LM_TAIL_CELLS = {
-    "rwkv6-7b": (2, 4096),
-    "llama-3.2-vision-11b": (2, 4096),
-    "hubert-xlarge": (8, 1500),
+    "rwkv6-7b": (2, 4096, 2),
+    "llama-3.2-vision-11b": (2, 4096, 10),
+    "hubert-xlarge": (8, 1500, 12),
 }
 FLOAT64_TOKENS = 100             # several RWKV chunks of 32, plus padding
-# rwkv6's prefill is profiled at 2 of its 32 layers (the same B x S): the
-# WKV chunk loop launches ~142k kernels at full depth, whose trace takes
-# the profiler ~2 minutes to process on an H100 host
-RWKV_PROFILE_LAYERS = 2
-RWKV_TIMED_LAYERS = 8
 VLM_GATE = 0.5                   # the cross layers' gate (zero at init)
 GATE_WITNESS = 1e-2              # the vlm's logits with the gates back at 0
 
@@ -4375,7 +4412,7 @@ def lm_tail(dev) -> None:
 
     t_phase = time.perf_counter()
     before = dict(kernels.LAUNCHES)
-    for arch, (bsz, seq) in LM_TAIL_CELLS.items():
+    for arch, (bsz, seq, timed_layers) in LM_TAIL_CELLS.items():
         t_arch = time.perf_counter()
         label = f"lm13 {arch}"
         cfg, params = tail_model(dev, arch)
@@ -4399,12 +4436,9 @@ def lm_tail(dev) -> None:
         phase(f"{label} bf16", t0,
               allocated_gib=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
         batch = tail_inputs(dev, cfg, bsz, seq, seed=1)
-        timed_prefill(label, *(family_cut(cfg, params_bf, RWKV_TIMED_LAYERS)
-                               if cfg.rwkv else (cfg, params_bf)), batch)
+        prof_cfg, prof_params = family_cut(cfg, params_bf, timed_layers)
+        timed_prefill(label, prof_cfg, prof_params, batch)
         t0 = time.perf_counter()
-        prof_cfg, prof_params = (
-            family_cut(cfg, params_bf, RWKV_PROFILE_LAYERS) if cfg.rwkv
-            else (cfg, params_bf))
         prof = profile_call(f"{label} bf16 prefill",
                             lambda: prefill(prof_params, batch, prof_cfg))
         phase(f"{label} prefill bf16 profiled", t0,
@@ -4429,7 +4463,8 @@ def lm_tail(dev) -> None:
 # reference's WSD schedule is named for), B x S = 1 x 4096, its context
 TRAIN_ARCH = "minicpm-2b"
 TRAIN_BATCH, TRAIN_SEQ = 1, 4096
-TRAIN_TIMED_STEPS = 5            # after one warm-up step; median taken
+TRAIN_TIMED_STEPS = 3            # after one warm-up step; median taken
+                                 # (3 keeps the run inside its limit)
 TRAIN_SPLIT_STEPS = 1            # then composed of the step's two parts
 TRAIN_PROFILE_LAYERS = 2         # the profiled step's depth (trace cost)
 TRAIN_OPT = {"warmup_steps": 2, "total_steps": 10, "schedule": "wsd"}
@@ -4658,14 +4693,16 @@ def grad_gate(dev, cfg, state) -> None:
           inputs="the same state and float64 gradients")
 
 
-def zamba_train_phase(dev) -> int:
+def zamba_train_phase(dev):
     """14c: zamba2-7b at full width cut to one group and its tail (9 Mamba2
     layers and the shared attention block), embedding scaled as in phase 8,
     f32, 1 x 1024: loss_fn(train=True) and its gradients with K5
     (use_kernel="auto") against the plain SSD, the same pair with the plain
-    scan's chunks of 64 and 128 beside it. Returns K5's launches in the
-    step: two per Mamba2 layer (the forward and its recomputation in
-    backward; the SSD's backward runs torch ops)."""
+    scan's chunks of 64 and 128 beside it. Returns (K5's launches in the
+    step: two per Mamba2 layer, the forward and its recomputation in
+    backward, the SSD's backward running torch ops; and for 15c the cut
+    config, a copy of its parameters, the batch and the plain SSD's loss
+    and gradients)."""
     import dataclasses
 
     import torch
@@ -4674,7 +4711,7 @@ def zamba_train_phase(dev) -> int:
     from repro_torch.configs import registry
     from repro_torch.models import model as MDL
     from repro_torch.training import train_loop as TL
-    from repro_torch.training.tree import leaves_with_paths
+    from repro_torch.training.tree import leaves_with_paths, tree_map
 
     t0 = time.perf_counter()
     full = registry.get(LM_ARCH)
@@ -4726,8 +4763,9 @@ def zamba_train_phase(dev) -> int:
           witness_loss_rel=f"{worst['chunk64'][0]:.3e}",
           witness_grad_rel=f"{worst['chunk64'][1]:.3e}",
           witness="plain chunk 64 vs plain chunk 128")
-    del params, cut, g_k, g_r, g_h
-    return launches["ssd_chunk"]
+    keep = (cfg, tree_map(torch.clone, cut), batch, loss_r, g_r)
+    del params, cut, g_k, g_h
+    return launches["ssd_chunk"], keep
 
 
 def train_loop_phase(dev) -> None:
@@ -4781,25 +4819,36 @@ def train_loop_phase(dev) -> None:
           restored_bit_for_bit=same)
 
 
-def lm_train(dev) -> int:
+def lm_train(dev):
     """Phase 14: training on the card, each model freed before the next.
     Only 14c may launch a kernel of the kernels line (K5). Returns K5's
-    launches in 14c's train step."""
+    launches in 14c's train step, a copy of 14a's state cut to
+    MESH_LAYERS layers (15a's) and what 15c takes from 14c."""
     import torch
 
     from repro_torch import kernels
+    from repro_torch.training.tree import tree_map
 
     t_phase = time.perf_counter()
     before = dict(kernels.LAUNCHES)
     cfg, state = train_step_phase(dev)
     grad_gate(dev, cfg, state)
-    del state
+    opt = state["opt"]
+    dense = (family_cut(cfg, state["params"], MESH_LAYERS)[0], {
+        "params": tree_map(torch.clone, family_cut(
+            cfg, state["params"], MESH_LAYERS)[1]),
+        "opt": {"step": opt["step"].clone(),
+                "mu": tree_map(torch.clone,
+                               family_cut(cfg, opt["mu"], MESH_LAYERS)[1]),
+                "nu": tree_map(torch.clone,
+                               family_cut(cfg, opt["nu"], MESH_LAYERS)[1])}})
+    del state, opt
     gc.collect()
     torch.cuda.empty_cache()
     if kernels.LAUNCHES != before:
         raise AssertionError(f"phases 14a-14b launched a kernel: {before} "
                              f"-> {dict(kernels.LAUNCHES)}")
-    k5 = zamba_train_phase(dev)
+    k5, zamba = zamba_train_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
     before = dict(kernels.LAUNCHES)
@@ -4809,6 +4858,260 @@ def lm_train(dev) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase("lm train", t_phase)
+    return k5, dense, zamba
+
+
+# phase 15: the mesh paths on one card, a one-rank NCCL group and a (1, 1)
+# ("data", "model") mesh. One rank shows that the path runs on the card and
+# gives the plain path's numbers, not what a collective costs
+MESH_SHAPE = (1, 1)
+MESH_LAYERS = 2                  # 15a: of minicpm-2b's 40; 15b: of 48
+MESH_STEPS = 2                   # 15a: steps through each path
+MESH_TOL = 1e-6                  # of a leaf's largest entry, where not equal
+MOE_MESH_ARCH = "qwen3-moe-30b-a3b"
+MOE_MESH_SEQ = 4096
+
+
+def state_diff(got, want) -> tuple[float, str, bool]:
+    """(the largest |got - want| over its leaf's largest |want|, that
+    leaf's path, every leaf equal) over two trees of the same leaves."""
+    from repro_torch.training.tree import leaves_with_paths
+
+    worst, where, equal = 0.0, "", True
+    for (path, a), (_, b) in zip(leaves_with_paths(got),
+                                 leaves_with_paths(want)):
+        if a.shape != b.shape:
+            raise AssertionError(f"{path}: shape {tuple(a.shape)} against "
+                                 f"{tuple(b.shape)}")
+        if a.dtype == b.dtype and bool((a == b).all()):
+            continue
+        equal = False
+        rel = rel_err(a, b)[1]
+        if rel > worst:
+            worst, where = rel, path
+    return worst, where, equal
+
+
+def step_gate(label: str, got_m, want_m, got_state, want_state) -> dict:
+    """The mesh step against the plain step: loss and grad_norm, and every
+    leaf of the state, equal or within MESH_TOL of the leaf's largest
+    entry. Returns what the phase line prints."""
+    vals = {}
+    for key in ("loss", "grad_norm", "lr"):
+        a, b = float(got_m[key]), float(want_m[key])
+        vals[key] = (a == b, abs(a - b) / max(abs(b), 1e-30))
+    worst, where, equal = state_diff(got_state, want_state)
+    if not (all(e or r <= MESH_TOL for e, r in vals.values())
+            and worst <= MESH_TOL):
+        raise AssertionError(f"{label}: mesh against plain: {vals}, state "
+                             f"leaf {where} rel {worst:.3e} (tol "
+                             f"{MESH_TOL:.0e})")
+    return {"bitwise": equal and all(e for e, _ in vals.values()),
+            "loss_rel": f"{vals['loss'][1]:.3e}",
+            "grad_norm_rel": f"{vals['grad_norm'][1]:.3e}",
+            "worst_state_rel": f"{worst:.3e}",
+            "worst_leaf": json.dumps(where)}
+
+
+def mesh_dense(dev, mesh, cfg, state) -> None:
+    """15a: minicpm-2b at full width and MESH_LAYERS layers (14a's state),
+    1 x 4096, f32 master weights, bf16 compute, WSD: MESH_STEPS steps
+    through make_train_step(mesh=) and as many through mesh=None from the
+    same state, each step's loss, grad_norm and the state after them held
+    together; both paths' ms (CUDA events) and peak memory."""
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.training import data as DATA
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_loop as TL
+
+    t0 = time.perf_counter()
+    opt_cfg = OPT.OptConfig(**TRAIN_OPT)
+    data = DATA.SyntheticLM(DATA.DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    batches = [data.batch_for_model(k, cfg) for k in range(MESH_STEPS)]
+    runs = {}
+    for name, kw in (("mesh", {"mesh": mesh, "dp_axes": ("data",)}),
+                     ("plain", {})):
+        step_fn, shardings, _ = TL.make_train_step(
+            cfg, opt_cfg, compute_dtype=torch.bfloat16, device=dev, **kw)
+        # the mesh path steps its own blocks (copies); the plain path
+        # steps the state itself, after it
+        start = (SH.shard_tree(state, shardings(state["params"]), mesh)
+                 if shardings else state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        final, metrics, times = timed_steps(
+            lambda s, b, mark: step_fn(s, b), start, batches)
+        runs[name] = (final, metrics, [t[0] for t in times],
+                      torch.cuda.max_memory_allocated())
+        del start
+    (got, got_m, got_ms, got_peak), (want, want_m, want_ms, want_peak) = (
+        runs["mesh"], runs["plain"])
+    steps = [step_gate(f"15a step {k + 1}", a, b, got, want)
+             for k, (a, b) in enumerate(zip(got_m, want_m))]
+    phase("mesh15a minicpm-2b train steps mesh vs plain", t0,
+          layers=f"{cfg.n_layers} of 40", tokens=f"{TRAIN_BATCH}x{TRAIN_SEQ}",
+          mesh=json.dumps(list(MESH_SHAPE)), steps=MESH_STEPS,
+          loss=json.dumps([round(float(m["loss"]), 6) for m in got_m]),
+          bitwise=all(s["bitwise"] for s in steps),
+          worst_state_rel=steps[-1]["worst_state_rel"],
+          worst_leaf=steps[-1]["worst_leaf"],
+          mesh_ms=json.dumps([round(t, 3) for t in got_ms]),
+          plain_ms=json.dumps([round(t, 3) for t in want_ms]),
+          mesh_peak_gib=f"{got_peak / 2**30:.2f}",
+          plain_peak_gib=f"{want_peak / 2**30:.2f}")
+
+
+def mesh_moe(dev, mesh) -> None:
+    """15b: qwen3-moe-30b-a3b at full width (128 experts, top 8) and
+    MESH_LAYERS layers, 1 x 4096, f32 master weights, bf16 compute: one
+    train step through make_train_step(mesh=), whose MoE layers take
+    moe_layer(mesh=) (at one rank over "model" no token exchange), against
+    mesh=None from the same state, with 15a's gate; router_li and
+    drop_frac of both."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.configs import registry
+    from repro_torch.training import data as DATA
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_loop as TL
+
+    t0 = time.perf_counter()
+    full = registry.get(MOE_MESH_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MESH_LAYERS)
+    state = TL.init_state(cfg, seed=0, device=dev)
+    batch = DATA.SyntheticLM(DATA.DataConfig(
+        vocab=cfg.vocab, seq_len=MOE_MESH_SEQ,
+        global_batch=1)).batch_for_model(0, cfg)
+    opt_cfg = OPT.OptConfig(**TRAIN_OPT)
+    step_m, shardings, _ = TL.make_train_step(
+        cfg, opt_cfg, mesh=mesh, dp_axes=("data",),
+        compute_dtype=torch.bfloat16, device=dev)
+    step_p, _, _ = TL.make_train_step(cfg, opt_cfg,
+                                      compute_dtype=torch.bfloat16,
+                                      device=dev)
+    got, got_m = step_m(SH.shard_tree(state, shardings(state["params"]),
+                                       mesh), batch)
+    want, want_m = step_p(state, batch)
+    torch.cuda.synchronize()
+    gate = step_gate("15b", got_m, want_m, got, want)
+    # one rank over "model": moe_layer(mesh=) splits no sequence and runs
+    # no all_to_all, only the expert gathers and the body
+    ep_size = SH.axis_sizes(mesh)["model"]
+    phase("mesh15b qwen3-moe-30b-a3b train step moe_layer(mesh=) vs plain",
+          t0, layers=f"{cfg.n_layers} of {full.n_layers}",
+          ep_size=ep_size, ep_exchange=str(ep_size > 1).lower(),
+          experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+          tokens=f"1x{MOE_MESH_SEQ}", loss=f"{float(got_m['loss']):.6f}",
+          router_li=f"{float(got_m['router_li']):.6f}",
+          drop_frac=f"{float(got_m['drop_frac']):.6f}",
+          plain_router_li=f"{float(want_m['router_li']):.6f}",
+          plain_drop_frac=f"{float(want_m['drop_frac']):.6f}", **gate)
+
+
+def mesh_zamba(dev, mesh, zamba) -> int:
+    """15c: 14c's Zamba2 (9 Mamba2 layers and the shared attention, f32,
+    1 x 1024) through make_train_step(mesh=), compute in f32: K5 launched
+    18 times in the step and nothing else; the loss and the gradients
+    within 14c's gates of 14c's plain-SSD step, the gradients read from
+    the first AdamW step's mu (from zero moments mu = (1 - b1) x the
+    clipped gradient). Returns K5's launches."""
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch import kernels
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.tree import leaves_with_paths
+
+    cfg, params, batch, loss_r, g_r = zamba
+    t0 = time.perf_counter()
+    opt_cfg = OPT.OptConfig()
+    step_fn, shardings, _ = TL.make_train_step(
+        cfg, opt_cfg, mesh=mesh, dp_axes=("data",),
+        compute_dtype=torch.float32, device=dev)
+    state = SH.shard_tree({"params": params,
+                            "opt": OPT.init_opt_state(params)},
+                           shardings(params), mesh)
+    kernels.reset_launches()
+    t_step = torch.cuda.Event(enable_timing=True)
+    t_end = torch.cuda.Event(enable_timing=True)
+    t_step.record()
+    state, metrics = step_fn(state, batch)
+    t_end.record()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = 2 * cfg.n_layers
+    if launches["ssd_chunk"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"15c: the Zamba2 mesh train step launched "
+                             f"{json.dumps(launches)}; want ssd_chunk {want} "
+                             f"and nothing else")
+    gnorm = float(metrics["grad_norm"])
+    clip = min(1.0, opt_cfg.grad_clip / max(gnorm, 1e-9))
+    loss_rel = abs(float(metrics["loss"]) - float(loss_r)) / abs(
+        float(loss_r))
+    grad_rel, where = max(
+        (rel_err(mu.double() / ((1 - opt_cfg.b1) * clip), g)[1], path)
+        for (path, mu), (_, g) in zip(leaves_with_paths(state["opt"]["mu"]),
+                                      leaves_with_paths(g_r)))
+    if not (loss_rel <= ZAMBA_LOSS_TOL and grad_rel <= ZAMBA_GRAD_TOL):
+        raise AssertionError(f"15c Zamba2 mesh step against 14c's plain "
+                             f"SSD: loss rel {loss_rel:.3e} (tol "
+                             f"{ZAMBA_LOSS_TOL:.0e}), gradient {where} rel "
+                             f"{grad_rel:.3e} (tol {ZAMBA_GRAD_TOL:.0e})")
+    phase("mesh15c zamba2 train step mesh with K5 vs 14c plain", t0,
+          layers=f"{cfg.n_layers} Mamba2 + shared attention",
+          tokens=f"1x{ZAMBA_TRAIN_SEQ}", k5_launches=launches["ssd_chunk"],
+          loss=f"{float(metrics['loss']):.6f}", loss_rel=f"{loss_rel:.3e}",
+          worst_grad_rel=f"{grad_rel:.3e}", worst_leaf=json.dumps(where),
+          grads="from mu after the first AdamW step",
+          step_ms=f"{t_step.elapsed_time(t_end):.3f}")
+    return launches["ssd_chunk"]
+
+
+def mesh_phase(dev, dense, zamba) -> int:
+    """Phase 15: one NCCL process group of one rank (a HashStore, no
+    network) and a (1, 1) mesh, destroyed when the phase ends; 15a-15c.
+    A failed NCCL init or collective ends the run. Deterministic
+    algorithms are on for the phase: on the card the gradient of an
+    index (the embedding, the MoE dispatch) adds atomically, so two runs
+    of the plain step differ in their last bits, and the gate could not
+    tell the paths apart from that. Returns 15c's K5 launches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = make_mesh(MESH_SHAPE, ("data", "model"), dev)
+        phase("mesh15 nccl group and mesh", t0, backend=dist.get_backend(),
+              mesh=json.dumps(dict(zip(mesh.mesh_dim_names, mesh.shape))),
+              deterministic=torch.are_deterministic_algorithms_enabled())
+        mesh_dense(dev, mesh, *dense)
+        dense[1].clear()                   # 15a's state, 4.9 GB
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_moe(dev, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        k5 = mesh_zamba(dev, mesh, zamba)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("mesh", t_phase)
     return k5
 
 
@@ -4954,13 +5257,17 @@ def run(args, torch) -> int:
           allocated_gib=f"{torch.cuda.memory_allocated() / 2**30:.3f}")
     lm_families(dev)
     lm_tail(dev)
-    k5_train = lm_train(dev)
+    k5_train, dense, zamba = lm_train(dev)
+    k5_mesh = mesh_phase(dev, dense, zamba)
+    del dense, zamba
     for row in rows:
         if row["name"] == "ssd_chunk":
             row["launches_paths"] = {
                 row["launches_path"]: row["launches"],
                 f"lm14c train step, {LM_ARCH} at 9 layers, B=1, "
-                f"S={ZAMBA_TRAIN_SEQ}": k5_train}
+                f"S={ZAMBA_TRAIN_SEQ}": k5_train,
+                f"mesh15c train step on a (1, 1) mesh, {LM_ARCH} at 9 "
+                f"layers, B=1, S={ZAMBA_TRAIN_SEQ}": k5_mesh}
             row["launches"] = sum(row["launches_paths"].values())
     phase("total", t_run)
     print(json.dumps({"kernels": rows}), flush=True)

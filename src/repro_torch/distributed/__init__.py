@@ -1,3 +1,2 @@
-"""Distribution helpers. Only the bf16 gradient compression is ported; the
-shardings and the rest of the reference's `repro.distributed` come with
-the launch and distributed modules."""
+"""Distribution: the reference's sharding rules over a torch device mesh
+(`sharding`) and gradient compression (`compression`)."""

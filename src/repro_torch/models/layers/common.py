@@ -14,10 +14,35 @@ import math
 import torch
 
 
+class MetaDraws:
+    """Stands in for a torch.Generator on the meta device, which has none:
+    the init_* functions then make tensors of the right shapes and types
+    and draw nothing (a shape-only tree)."""
+
+    device = torch.device("meta")
+
+
+def generator(device: torch.device, seed: int):
+    """A torch.Generator on `device` seeded with `seed`; MetaDraws on the
+    meta device."""
+    if device.type == "meta":
+        return MetaDraws()
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def normal(gen, shape, dtype=torch.float32) -> torch.Tensor:
+    """N(0, 1) draws from `gen` on its device (none on the meta device)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
+    return torch.randn(shape, dtype=dtype, device=gen.device, generator=gen)
+
+
 def truncated_normal(gen: torch.Generator, shape, scale: float,
                      dtype=torch.float32) -> torch.Tensor:
     """scale * N(0, 1) truncated to [-2, 2], as the reference initializes."""
     t = torch.empty(shape, dtype=dtype, device=gen.device)
+    if t.is_meta:
+        return t
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(float(scale))
 

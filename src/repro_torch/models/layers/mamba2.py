@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from ...kernels.ssd_chunk.kernel import ssd_scan_plain
 from ...kernels.ssd_chunk.ops import ssd_scan
-from .common import init_linear, init_rmsnorm, linear, rmsnorm
+from .common import init_linear, init_rmsnorm, linear, normal, rmsnorm
 
 
 def init_mamba2(gen, d_model, ssm_cfg, dtype=torch.float32, stack=()):
@@ -26,8 +26,8 @@ def init_mamba2(gen, d_model, ssm_cfg, dtype=torch.float32, stack=()):
     h = d_inner // p
     conv_ch = d_inner + 2 * n  # conv over [x, B, C]
     dev = gen.device
-    conv_w = torch.randn((*stack, ssm_cfg.conv_width, conv_ch), dtype=dtype,
-                         device=dev, generator=gen).mul_(0.1)
+    conv_w = normal(gen, (*stack, ssm_cfg.conv_width, conv_ch),
+                    dtype).mul_(0.1)
     a_log = torch.log(torch.linspace(1.0, 16.0, h, dtype=dtype, device=dev))
     return {
         # in_proj -> [z, x, B, C, dt]

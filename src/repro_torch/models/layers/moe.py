@@ -16,8 +16,11 @@ the paper's machinery to it, as the reference's does:
     output up to the order of the combine's sums.
 
 The reference writes this in jnp, not Pallas, so plain torch ops are its
-port. Its expert-parallel path (a mesh, all_to_all over experts) is not
-ported: `moe_layer` runs the single-device body only.
+port. Expert parallelism (`moe_layer(mesh=)`): experts sharded over
+`ep_axis` (mesh "model"), tokens sequence-sharded over the same axis when
+the sequence divides, and the dispatch buffer moved through one
+`all_to_all_single` each way; at one expert-parallel rank the same body
+runs with no exchange.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ...distributed import sharding as SH
 from .common import init_linear, truncated_normal, wide_dtype
 
 
@@ -81,8 +85,10 @@ def capacity(n: int, moe_cfg) -> int:
     return int(math.ceil(n * k * moe_cfg.capacity_factor / e / 8)) * 8
 
 
-def _moe_body(params, x, moe_cfg):
-    """x: [b, s, d]. Returns (y [b, s, d], metrics)."""
+def _moe_body(params, x, moe_cfg, exchange=None):
+    """x: [b, s, d] local tokens. Returns (y [b, s, d], metrics). exchange:
+    None, or the (dispatch, combine) pair that moves the [E, C, d] slot
+    buffer to the ranks holding its experts and back."""
     b, s, d = x.shape
     e, k = moe_cfg.num_experts, moe_cfg.top_k
     n = b * s
@@ -118,8 +124,12 @@ def _moe_body(params, x, moe_cfg):
     buf[slot] = x_flat[tok_s]
     buf = buf[:-1].reshape(e, cap, d)
 
+    if exchange is not None:
+        buf = exchange[0](buf)             # [E/M, M*C, d]
     y_buf = _expert_ffn(buf, params["w_gate"], params["w_up"],
                         params["w_down"])
+    if exchange is not None:
+        y_buf = exchange[1](y_buf)         # [E, C, d]
 
     # combine: gather each assignment's slot output, weight, sum over k
     y_flat = torch.cat([y_buf.reshape(e * cap, d), y_buf.new_zeros((1, d))])
@@ -131,11 +141,102 @@ def _moe_body(params, x, moe_cfg):
     return y.reshape(b, s, d), metrics
 
 
-def moe_layer(params, x, moe_cfg, mesh=None):
+class _AllToAll(torch.autograd.Function):
+    """The slot buffer between token ranks and expert ranks over one mesh
+    axis of M ranks: dispatch [E, C, d] -> [E/M, M*C, d] (rank m keeps its
+    experts' slots from every rank, rank k's at [:, k*C:(k+1)*C]), combine
+    the inverse. Each is the other's transpose."""
+
+    @staticmethod
+    def forward(ctx, buf, mesh, axis, dispatch):
+        ctx.mesh, ctx.axis, ctx.dispatch = mesh, axis, dispatch
+        return _exchange(buf, mesh, axis, dispatch)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_exchange(g, ctx.mesh, ctx.axis, not ctx.dispatch), None,
+                None, None)
+
+
+def _exchange(buf, mesh, axis, dispatch):
+    m = SH.axis_sizes(mesh)[axis]
+    group = mesh.get_group(axis)
+    if dispatch:
+        e, c, d = buf.shape
+        src = buf.contiguous()                       # [M, E/M, C, d]
+        out = torch.empty_like(src)
+        torch.distributed.all_to_all_single(out, src, group=group)
+        return out.reshape(m, e // m, c, d).transpose(0, 1).reshape(
+            e // m, m * c, d)
+    el, mc, d = buf.shape
+    src = buf.reshape(el, m, mc // m, d).transpose(0, 1).contiguous()
+    out = torch.empty_like(src)
+    torch.distributed.all_to_all_single(out, src, group=group)
+    return out.reshape(m * el, mc // m, d)
+
+
+def _expert_shapes(moe_cfg, d_model: int) -> dict:
+    e, dff = moe_cfg.num_experts, moe_cfg.d_ff_expert
+    return {"w_gate": (e, d_model, dff), "w_up": (e, d_model, dff),
+            "w_down": (e, dff, d_model)}
+
+
+def expert_specs(moe_cfg, d_model: int, mesh, ep_axis: str = "model"):
+    """The specs of the expert weights on `mesh`: experts over `ep_axis`,
+    and under sharding.MOE_FSDP d_model over "data", validated against
+    the whole shapes as the state's layout is."""
+    fsdp = "data" if SH.MOE_FSDP and "data" in SH.axis_sizes(mesh) else None
+    specs = {"w_gate": (ep_axis, fsdp, None), "w_up": (ep_axis, fsdp, None),
+             "w_down": (ep_axis, None, fsdp)}
+    return {k: SH.validate_spec(shape, specs[k], mesh)
+            for k, shape in _expert_shapes(moe_cfg, d_model).items()}
+
+
+def moe_layer(params, x, moe_cfg, mesh=None, ep_axis="model",
+              dp_axes=("data",)):
     """x: [B, S, d]. Returns (y, metrics {aux_loss, router_li, drop_frac}).
-    Only the single-device path is ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_layer: the expert-parallel path over a mesh is not ported "
-            "yet; it comes with the launch and distributed modules")
-    return _moe_body(params, x, moe_cfg)
+
+    With a mesh (a DeviceMesh): x is this rank's rows (the same on every
+    rank of its dp group) and `params` this rank's shards, the router
+    whole and each expert weight by `expert_specs`. The tokens are split
+    over `ep_axis` along the sequence when S divides (each rank routes
+    B * S/M tokens, and capacity is reckoned from them), the expert weights
+    gathered over "data", and the slot buffer exchanged over `ep_axis` in
+    one all_to_all each way; y is gathered back to the whole sequence. The
+    metrics are the means of the per-rank ones over `ep_axis` and
+    `dp_axes`. The weights' gradients come back summed over the mesh, as
+    sharding.gather gives them."""
+    if mesh is None:
+        return _moe_body(params, x, moe_cfg)
+    sizes = SH.axis_sizes(mesh)
+    ep = sizes[ep_axis]
+    if moe_cfg.num_experts % ep:
+        raise ValueError(f"moe_layer: {moe_cfg.num_experts} experts do not "
+                         f"split over {ep} {ep_axis!r} ranks")
+    b, s, d = x.shape
+    specs = expert_specs(moe_cfg, d, mesh, ep_axis)
+    # experts stay on their ep rank; as in the reference, a "data" axis of
+    # one rank gathers nothing
+    keep = (ep_axis,) if sizes.get("data", 1) > 1 else (ep_axis, "data")
+    weights = {"router": {"w": SH.gather(params["router"]["w"], (), mesh)}}
+    for k, whole in _expert_shapes(moe_cfg, d).items():
+        spec = specs[k]
+        if tuple(params[k].shape) != SH.local_shape(whole, spec, mesh):
+            raise ValueError(f"moe_layer: {k} shard {tuple(params[k].shape)}"
+                             f" is not this rank's block of {whole} under "
+                             f"{spec}")
+        weights[k] = SH.gather(params[k], spec, mesh, keep=keep)
+    seq_shard = ep > 1 and s > 1 and s % ep == 0
+    xl = x
+    if seq_shard:
+        r = mesh.get_local_rank(ep_axis)
+        xl = x.narrow(1, r * (s // ep), s // ep)
+    exchange = None
+    if ep > 1:
+        exchange = (lambda t: _AllToAll.apply(t, mesh, ep_axis, True),
+                    lambda t: _AllToAll.apply(t, mesh, ep_axis, False))
+    y, metrics = _moe_body(weights, xl, moe_cfg, exchange)
+    if seq_shard:
+        y = SH.gather_dim(y, 1, ep_axis, mesh)
+    axes = (ep_axis, *(a for a in dp_axes if a != ep_axis))
+    return y, {k: SH.mesh_mean(v, mesh, axes) for k, v in metrics.items()}

@@ -19,7 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import init_linear, init_rmsnorm, linear, rmsnorm
+from .common import init_linear, init_rmsnorm, linear, normal, rmsnorm
 
 NEG_INF = -1e30
 
@@ -33,9 +33,8 @@ def init_rwkv6(gen, d_model, rwkv_cfg, d_ff, dtype=torch.float32, stack=()):
     def full(value):
         return torch.full((*stack, d_model), value, dtype=dtype, device=dev)
 
-    def normal(shape, scale):
-        return torch.randn((*stack, *shape), dtype=dtype, device=dev,
-                           generator=gen).mul_(scale)
+    def draw(shape, scale):
+        return normal(gen, (*stack, *shape), dtype).mul_(scale)
 
     def lin(d_in, d_out):
         return init_linear(gen, d_in, d_out, False, dtype, stack=stack)
@@ -54,9 +53,9 @@ def init_rwkv6(gen, d_model, rwkv_cfg, d_ff, dtype=torch.float32, stack=()):
         "wo": lin(d_model, d_model),
         # data-dependent decay LoRA: w = exp(-exp(w0 + tanh(x A) B))
         "w0": full(-4.0),
-        "w_lora_a": normal((d_model, lora), 1.0 / math.sqrt(d_model)),
-        "w_lora_b": normal((lora, d_model), 1.0 / math.sqrt(lora)),
-        "u_bonus": normal((h, hd), 0.1),
+        "w_lora_a": draw((d_model, lora), 1.0 / math.sqrt(d_model)),
+        "w_lora_b": draw((lora, d_model), 1.0 / math.sqrt(lora)),
+        "u_bonus": draw((h, hd), 0.1),
         "ln_x": init_rmsnorm(gen, d_model, dtype, stack=stack),
         # channel-mix
         "cmix_k": full(0.5),

@@ -33,9 +33,18 @@ weights are stacked on a leading layer axis (`layers` [L, ...]; gemma2's
 ...] and `tail_layers` [rem, ...]; the vlm's `layers` [groups * (period -
 1), ...] and `cross_layers` [groups, ...]), and the reference's `lax.scan`
 over that axis is a Python loop over views of it.
+
+On a mesh (`forward(mesh=)`, a DeviceMesh with "data" and "model" axes,
+"pod" too on a multi-pod mesh) the parameters are this rank's shards, laid
+out by `param_layout` (the reference's sharding rules), and the batch is
+this rank's rows. Each layer gathers its weights to whole tensors inside
+its remat unit, so every model rank of a dp group runs the same
+tokens, except the MoE layers, which take their part of the sequence and
+exchange their expert slots over "model" (`moe.moe_layer(mesh=)`).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict
 
@@ -44,14 +53,15 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed import sharding as SH
 from .layers import attention as A
 from .layers import mamba2 as M
 from .layers import mlp as MLP
 from .layers import moe as MOE
 from .layers import rwkv6 as R
-from .layers.common import (embed, init_embedding, init_linear, init_rmsnorm,
-                            linear, rmsnorm, softmax_cross_entropy, unembed,
-                            wide_dtype)
+from .layers.common import (embed, generator, init_embedding, init_linear,
+                            init_rmsnorm, linear, rmsnorm,
+                            softmax_cross_entropy, unembed, wide_dtype)
 
 
 def _family(cfg: ModelConfig) -> str:
@@ -100,6 +110,52 @@ def _unstack(tree):
     return torch.unbind(tree)
 
 
+class _LayerGather:
+    """A stacked leaf's layers (the views `_unstack` gives) on a mesh:
+    indexing one gathers that layer's shard to the whole tensor, where the
+    layer's remat unit indexes it (recomputed in backward)."""
+
+    def __init__(self, views, spec, mesh):
+        self.views, self.spec, self.mesh = views, spec, mesh
+
+    def __len__(self):
+        return len(self.views)
+
+    def __getitem__(self, idx):
+        return SH.gather(self.views[idx], self.spec, self.mesh)
+
+
+def _layer_gathers(tree, specs, mesh):
+    """`_unstack` of a stacked tree whose layers gather as they are indexed;
+    an MoE subtree stays as its shards (`moe_layer` gathers it)."""
+    if isinstance(tree, dict):
+        return {k: _unstack(v) if k == "moe" else
+                _layer_gathers(v, specs[k], mesh) for k, v in tree.items()}
+    return _LayerGather(torch.unbind(tree), specs[1:], mesh)
+
+
+def param_layout(cfg: ModelConfig, mesh) -> dict:
+    """The specs of cfg's parameters on `mesh`: the reference's rules,
+    validated against the whole shapes (shape-only, nothing drawn)."""
+    return _layout(cfg, tuple(SH.axis_sizes(mesh).items()))
+
+
+@functools.lru_cache(maxsize=16)
+def _layout(cfg: ModelConfig, sizes: tuple) -> dict:
+    shapes = init_params(cfg, device="meta")
+    return SH.validate_specs(shapes, SH.param_specs(shapes), dict(sizes))
+
+
+def _mesh_params(params, cfg, mesh):
+    """forward's view of this rank's parameter shards: the leaves outside
+    the layer stacks gathered whole; the stacks' layers gathered as each
+    layer indexes them; MoE subtrees as shards."""
+    specs = param_layout(cfg, mesh)
+    return {k: _layer_gathers(v, specs[k], mesh) if k in _STACKED
+            else SH.gather_tree(v, specs[k], mesh)
+            for k, v in params.items()}
+
+
 def _write(tree, idx, new) -> None:
     """Copy a layer's new cache into the stacked cache, in place."""
     for k, v in tree.items():
@@ -112,10 +168,11 @@ def _write(tree, idx, new) -> None:
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
                 device=None) -> Dict[str, Any]:
     """Random parameters from a torch.Generator seeded with `seed`, drawn
-    on `device` (None: the card)."""
+    on `device` (None: the card). On the "meta" device nothing is drawn:
+    the tree holds the shapes and types only."""
     family = _family(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(dev, seed)
     p: Dict[str, Any] = {"final_norm": init_rmsnorm(gen, cfg.d_model, dtype)}
     if cfg.embed_inputs:
         p["embed"] = init_embedding(gen, cfg.padded_vocab, cfg.d_model, dtype)
@@ -230,13 +287,22 @@ def _dense_layer(lp, x, cfg, *, window, cache=None, kv_chunk=1024):
     return x + y, new_cache
 
 
-def _moe_dense_layer(lp, x, cfg, *, cache=None, kv_chunk=1024):
+def _moe_dense_layer(lp, x, cfg, *, cache=None, kv_chunk=1024, mesh=None,
+                     dp_axes=("data",)):
     h = rmsnorm(lp["attn_norm"], x, cfg.rmsnorm_eps)
     y, new_cache = _attention(lp, h, cfg, cache=cache, kv_chunk=kv_chunk)
     x = x + y
     h = rmsnorm(lp["mlp_norm"], x, cfg.rmsnorm_eps)
-    y, moe_metrics = MOE.moe_layer(lp["moe"], h, cfg.moe)
+    y, moe_metrics = MOE.moe_layer(lp["moe"], h, cfg.moe, mesh=mesh,
+                                   dp_axes=dp_axes)
     return x + y, new_cache, moe_metrics
+
+
+def _at(fn, stack, i, *args, **kw):
+    """fn(layer i of `stack`, *args, **kw): the layer is indexed inside the
+    remat unit, so that a layer whose weights gather on a mesh gathers
+    them again when backward recomputes it."""
+    return fn(_layer(stack, i), *args, **kw)
 
 
 def _rwkv_layer(lp, x, cfg, cache=None):
@@ -291,7 +357,8 @@ def _call(train: bool, fn, *args, **kw):
 
 
 def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
-            use_kernel: str = "auto", train: bool = False):
+            use_kernel: str = "auto", train: bool = False, mesh=None,
+            dp_axes=("data",)):
     """Returns (logits [B,S,V] f32, new_cache, metrics).
 
     batch: {"tokens": [B,S]}, or {"embeds": [B,S,d]} for a config that takes
@@ -304,16 +371,29 @@ def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
     SSD chunk kernel. train: each of the reference's remat units (a layer
     of the dense, audio, MoE and rwkv6 loops, a gemma2 pair, a Zamba2 group
     with its shared attention block, each Zamba2 tail layer, a vlm group)
-    runs inside a checkpoint; a cache with train raises ValueError."""
+    runs inside a checkpoint; a cache with train raises ValueError.
+
+    mesh: None, or a DeviceMesh over which `params` are this rank's shards
+    (laid out by `param_layout`) and `batch` this rank's rows (its part of
+    the batch over `dp_axes`, the same on every rank of its dp group); the
+    logits are those rows'. Each layer gathers its weights inside its remat
+    unit. A cache
+    on a mesh raises NotImplementedError (decode runs on one device)."""
     family = _family(cfg)
     if cache is not None and cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: no decode cache")
     if cache is not None and train:
         raise ValueError("forward: train=True takes no cache (decode does "
                          "not train)")
+    if mesh is not None and cache is not None:
+        raise NotImplementedError("forward: decode with a cache runs on one "
+                                  "device, not on a mesh")
     dtype = params["final_norm"]["scale"].dtype
-    params = {k: _unstack(v) if k in _STACKED else v
-              for k, v in params.items()}
+    if mesh is None:
+        params = {k: _unstack(v) if k in _STACKED else v
+                  for k, v in params.items()}
+    else:
+        params = _mesh_params(params, cfg, mesh)
     if cfg.embed_inputs:
         x = embed(params["embed"], batch["tokens"])
         if cfg.name.startswith("gemma"):
@@ -333,7 +413,8 @@ def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
         x = _vlm_forward(params, x, batch["image_embeds"].to(dtype), cfg,
                          cache, kv_chunk, train)
     elif family == "moe":
-        x, metrics = _moe_forward(params, x, cfg, cache, kv_chunk, train)
+        x, metrics = _moe_forward(params, x, cfg, cache, kv_chunk, train,
+                                  mesh, dp_axes)
     elif family == "gemma2":
         x = _pair_forward(params, x, cfg, cache, kv_chunk, train)
     else:
@@ -362,7 +443,7 @@ def _depth(stack) -> int:
 def _dense_forward(params, x, cfg, cache, kv_chunk, train):
     for i in range(_depth(params["layers"])):
         lc = None if cache is None else _kv_layer(cache, i)
-        x, nc = _call(train, _dense_layer, _layer(params["layers"], i), x,
+        x, nc = _call(train, _at, _dense_layer, params["layers"], i, x,
                       cfg, window=None, cache=lc, kv_chunk=kv_chunk)
         if cache is not None:
             cache["len"][i] = nc["len"]
@@ -387,14 +468,14 @@ def _pair_forward(params, x, cfg, cache, kv_chunk, train):
     return x
 
 
-def _moe_forward(params, x, cfg, cache, kv_chunk, train):
+def _moe_forward(params, x, cfg, cache, kv_chunk, train, mesh, dp_axes):
     acc = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in ("aux_loss", "router_li", "drop_frac")}
     for i in range(_depth(params["layers"])):
         lc = None if cache is None else _kv_layer(cache, i)
-        x, nc, mm = _call(train, _moe_dense_layer,
-                          _layer(params["layers"], i), x, cfg, cache=lc,
-                          kv_chunk=kv_chunk)
+        x, nc, mm = _call(train, _at, _moe_dense_layer, params["layers"], i,
+                          x, cfg, cache=lc, kv_chunk=kv_chunk, mesh=mesh,
+                          dp_axes=dp_axes)
         if cache is not None:
             cache["len"][i] = nc["len"]
         acc = {k: acc[k] + mm[k] for k in acc}
@@ -404,8 +485,8 @@ def _moe_forward(params, x, cfg, cache, kv_chunk, train):
 def _rwkv_forward(params, x, cfg, cache, train):
     for i in range(len(params["layers"]["wr"]["w"])):
         lc = None if cache is None else _layer(cache, i)
-        x, nc = _call(train, _rwkv_layer, _layer(params["layers"], i), x,
-                      cfg, lc)
+        x, nc = _call(train, _at, _rwkv_layer, params["layers"], i, x, cfg,
+                      lc)
         if cache is not None:
             _write(cache, i, nc)
     return x
@@ -457,9 +538,8 @@ def _zamba_forward(params, x, cfg, cache, kv_chunk, use_kernel, train):
     if "tail_layers" in params:
         for j in range(len(params["tail_layers"]["in_proj"]["w"])):
             lc = None if cache is None else _layer(cache["tail"], j)
-            x, nc = _call(train, M.mamba2_block,
-                          _layer(params["tail_layers"], j), x, cfg.ssm, lc,
-                          use_kernel)
+            x, nc = _call(train, _at, M.mamba2_block, params["tail_layers"],
+                          j, x, cfg.ssm, lc, use_kernel)
             if cache is not None:
                 _write(cache["tail"], j, nc)
     return x, cache
@@ -520,14 +600,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # loss
 # ---------------------------------------------------------------------------
 def loss_fn(params, batch, cfg: ModelConfig, train: bool = True,
-            use_kernel: str = "auto"):
+            use_kernel: str = "auto", mesh=None, dp_axes=("data",)):
     """(loss, metrics): the cross-entropy over the full padded vocabulary,
     of an encoder-only model's logits against batch["labels"], else of
     logits[:, :-1] against tokens[:, 1:]; MoE adds router_aux_weight x its
     aux_loss. metrics holds the forward's and "ce_loss", the loss (the aux
-    term included, under the reference's name)."""
+    term included, under the reference's name). On a mesh (see forward)
+    the cross-entropy is that of this rank's rows, and MoE's metrics are
+    means over the mesh."""
     logits, _, metrics = forward(params, batch, cfg, train=train,
-                                 use_kernel=use_kernel)
+                                 use_kernel=use_kernel, mesh=mesh,
+                                 dp_axes=dp_axes)
     if cfg.encoder_only:
         loss = softmax_cross_entropy(logits, batch["labels"])
     else:

@@ -77,13 +77,15 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def adamw_update(cfg: OptConfig, params, grads, state):
+def adamw_update(cfg: OptConfig, params, grads, state, gnorm=None):
     """One AdamW step. Returns (params, state, {"lr", "grad_norm"}): the
     parameters, mu and nu are updated in place and returned in the same
     trees, with the step counter advanced; grad_norm is the raw norm,
-    before clipping."""
+    before clipping: global_norm(grads), or `gnorm` where the caller holds
+    shards and passes the whole gradient's norm."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = lr_at(cfg, step)

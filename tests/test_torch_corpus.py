@@ -433,6 +433,42 @@ def test_probe_modes_and_keys_are_the_references():
         tplan.plan(tplan.SpmvProblem(mat), probe="bogus", device="cpu")
 
 
+# plan(probe=True) on each named matrix in a fresh process: the warm-up
+# count after each plan, and the candidates each plan timed
+_WARMUP_CODE = """
+import json, sys
+from repro_torch import obs
+from repro_torch.core.spmv import plan as tplan
+from repro_torch.matrices import suite
+counts, probed = [], []
+for name in sys.argv[1:]:
+    pl = tplan.plan(tplan.SpmvProblem(suite.get(name)), reorder="baseline",
+                    probe=True, cache=False, device="cpu")
+    counts.append(obs.counter("probe.warmups").value)
+    probed.append(sorted(pl.tune.probe_ms))
+print(json.dumps({"counts": counts, "probed": probed}))
+"""
+
+
+def test_probe_warms_its_timing_path_once_a_process(stores):
+    """The first probe of a process runs one untimed IOS pass before it
+    times its first candidate (probe.warmups 1), and no other probe of the
+    process does (still 1 after the second plan); the warm-up adds no
+    candidate: each plan times the reference's candidates."""
+    names = [f"corpus://{n}" for n in FIXTURES[:2]]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", _WARMUP_CODE, *names],
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["counts"] == [1, 1]
+    for name, probed in zip(names, out["probed"]):
+        want = rplan.plan(rplan.SpmvProblem(rsuite.get(name)),
+                          reorder="baseline", probe=True, cache=False)
+        assert probed == sorted(want.tune.probe_ms)
+
+
 @pytest.mark.parametrize("name", FIXTURES)
 def test_model_plans_are_unchanged(stores, name):
     seed_stores(os.environ["REPRO_RESULT_STORE"],

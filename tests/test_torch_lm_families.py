@@ -322,8 +322,10 @@ def test_sorted_and_onehot_agree(model, arch, capacity_factor):
 
 
 def test_moe_layer_refuses_a_mesh(model):
+    """A mesh that is not a DeviceMesh raises (the expert-parallel path
+    itself is in test_torch_mesh_train.py)."""
     _, cfg, _, tp = model("qwen3-moe-30b-a3b")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="not a mesh"):
         TMOE.moe_layer(TM._layer(tp["layers"]["moe"], 0),
                        torch.zeros(1, 2, cfg.d_model), cfg.moe, mesh=object())
 

@@ -163,3 +163,21 @@ def test_metis_partition_balanced(corpus):
     labels = metis_partition(mat, 8, seed=0)
     counts = np.bincount(labels, minlength=8)
     assert counts.max() <= mat.m / 8 * 1.6
+
+
+
+def test_a_general_permute_is_the_reference_permute():
+    """permute with its own column permutation (B = P A Q^T, Q != P), the
+    form the partitioners' composed orders take: the reference's arrays
+    bit for bit, in their types, and the matrix itself left as it was."""
+    rm = rsuite.get("smoke_powerlaw")
+    mat = _port(rm)
+    rng = np.random.default_rng(3)
+    rows, cols = rng.permutation(mat.m), rng.permutation(mat.n)
+    want = rm.permute(rows, cols)
+    before = mat.vals.copy()
+    got = mat.permute(rows, cols)
+    for f in ("rowptr", "cols", "vals"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        assert getattr(got, f).dtype == getattr(want, f).dtype
+    np.testing.assert_array_equal(mat.vals, before)

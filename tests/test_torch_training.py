@@ -320,9 +320,11 @@ def test_bf16_compute_step_matches_reference(dense):
 
 
 def test_a_mesh_raises(dense):
+    """A mesh that is not a DeviceMesh raises (the mesh step itself is in
+    test_torch_mesh_train.py)."""
     _, cfg, _, _ = dense
-    with pytest.raises(NotImplementedError, match="A5"):
-        TL.make_train_step(cfg, TO.OptConfig(), mesh=object())
+    with pytest.raises(TypeError, match="not a mesh"):
+        TL.make_train_step(cfg, TO.OptConfig(), mesh=object(), device=CPU)
 
 
 # -- checkpoints (the reference's five cases) ---------------------------------
