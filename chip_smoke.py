@@ -12,7 +12,8 @@
                                      # depth), then training: minicpm-2b's
                                      # train step at full width and depth,
                                      # then the mesh train step on a
-                                     # one-rank NCCL (1, 1) mesh
+                                     # one-rank NCCL (1, 1) mesh, then
+                                     # decode on such a mesh
 
 Phases, in order, one line each with its seconds; the first failure ends
 the run with a nonzero exit code (nothing is caught):
@@ -382,7 +383,29 @@ the run with a nonzero exit code (nothing is caught):
                   make_train_step(mesh=) in f32: K5 launched 18 times in
                   the step, the loss and the gradients (read from the
                   first AdamW step's mu) within 14c's gates of 14c's
-                  plain-SSD step.
+                  plain-SSD step;
+16. mesh decode — a second one-rank NCCL group and (1, 1) mesh, destroyed
+                  when the phase ends: the sharded serve step
+                  (make_serve_step(mesh=) over each cache leaf's block
+                  under launch.specs.cache_specs) against the plain serve
+                  step from the same cache, 4 tokens, f32, for kv_shard
+                  "seq" and "hd": tokens equal, logits within 1e-5 of the
+                  largest plain logit, every cache leaf within 1e-6 of its
+                  largest entry. One rank: each split is whole, so the
+                  lines say model_shards=1 combine_ranks=1 and show the
+                  path, not what a combine over ranks costs. 16a qwen2-7b
+                  at full width, 4 of 28 layers, B = 8 (decode_32k's 128
+                  cut), 32,768 positions, all but the last 6 random keys
+                  and values from a seed, 2 tokens through the plain step
+                  (a plain fill of 32k tokens would outlast the phase);
+                  then one warm-up and 3 bf16 steps of each path timed
+                  (CUDA events, the median, ms a token) with their peak
+                  memory; 16b Zamba2 at full width and 9 layers (the
+                  conv and SSM states, the shared attention's KV cache;
+                  the embedding scaled as in phase 8) and 16c rwkv6-7b at
+                  2 layers (the WKV state and the token shifts), B = 8,
+                  8 prompt tokens through the plain step. No kernel may
+                  launch (decode takes Mamba2's one-step recurrence).
 
 Every kernel launch counter is set to 0 just before the first campaign of
 phase 4, the campaign of phase 4c, the drivers of phase 4f (its fig. 1
@@ -3512,6 +3535,7 @@ def lm_prefill(dev) -> dict:
 
 def kernel_group(name: str) -> str:
     for group, keys in (("ssd_chunk (K5)", ("ssd_scan_",)),
+                        ("nccl", ("nccl",)),
                         ("matmul", ("gemm", "nvjet", "xmma", "gemv")),
                         ("copy", ("copy",)),
                         ("elementwise", ("elementwise",)),
@@ -5115,6 +5139,310 @@ def mesh_phase(dev, dense, zamba) -> int:
     return k5
 
 
+# phase 16: decode on a mesh on one card, a one-rank NCCL group and a (1, 1)
+# ("data", "model") mesh: the sharded serve step against the plain serve
+# step from the same cache. One rank shows the path on the card, not what
+# a combine over ranks costs: each line says model_shards=1
+# combine_ranks=1
+DECODE_ARCH, DECODE_BATCH, DECODE_CACHE = "qwen2-7b", 8, 32768
+DECODE_LAYERS = 4                # 16a: of qwen2-7b's 28; decode_32k's batch
+                                 # of 128 cut to 8
+DECODE_STEPS = 4                 # decode tokens through each path
+DECODE_PLAIN = 2                 # 16a: tokens the plain step writes after
+                                 # the random-filled positions
+DECODE_TIMED = 3                 # 16a bf16: steps timed after one warm-up,
+                                 # then one profiled
+DECODE_LOGIT_TOL = 1e-5          # of the largest plain logit, f32
+DECODE_CACHE_TOL = 1e-6          # of each cache leaf's largest entry, f32
+# 16b, 16c: arch -> (layers, batch, cache positions, prompt tokens through
+# the plain step)
+DECODE_STATE_CELLS = {"zamba2-7b": (9, 8, 1024, 8),
+                      "rwkv6-7b": (2, 8, 1024, 8)}
+
+
+def cache_copy(cache):
+    """A copy of a decode cache: tensors cloned, `len` lists copied."""
+    import copy
+
+    import torch
+
+    from repro_torch.training.tree import tree_map
+
+    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                    else copy.deepcopy(t), cache)
+
+
+def decode_paths(cfg, params, mesh, cache, tok, shape, kv_shard):
+    """DECODE_STEPS tokens from `cache` (left as it is) through
+    make_serve_step(mesh=) on its blocks under cache_specs(kv_shard) and
+    through the plain serve step on a copy, in the parameters' type; the
+    logits read from model.forward as each step calls it. Returns (tokens
+    equal, the largest logit error over the largest plain logit, the
+    worst cache leaf's error over its largest entry, that leaf)."""
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import model as MDL
+    from repro_torch.serving.decode import make_serve_step
+    from repro_torch.training.tree import leaves_with_paths
+
+    spec = SP.cache_specs(cache, cfg, shape, mesh, ("data",), kv_shard)
+    dtype = params["final_norm"]["scale"].dtype
+    blocks = SH.shard_tree(cache, spec, mesh)
+    whole = cache_copy(cache)
+    shards = SH.shard_tree(params, MDL.param_layout(cfg, mesh), mesh)
+    mesh_step = make_serve_step(cfg, mesh=mesh, compute_dtype=dtype)
+    plain_step = make_serve_step(cfg, compute_dtype=dtype)
+    seen, forward = [], MDL.forward
+
+    def spy(*a, **kw):
+        out = forward(*a, **kw)
+        seen.append(out[0])
+        return out
+
+    equal, logit_rel = True, 0.0
+    t_mesh = t_plain = tok
+    MDL.forward = spy
+    try:
+        for _ in range(DECODE_STEPS):
+            n_mesh, blocks = mesh_step(shards, {"tokens": t_mesh}, blocks,
+                                       spec)
+            n_plain, whole = plain_step(params, {"tokens": t_plain}, whole)
+            equal &= bool(torch.equal(n_mesh, n_plain))
+            logit_rel = max(logit_rel, rel_err(seen[0], seen[1])[1])
+            t_mesh, t_plain = n_mesh[:, None], n_plain[:, None]
+            seen.clear()
+    finally:
+        MDL.forward = forward
+    gathered = SH.unshard_tree(blocks, spec, mesh)
+    worst, where = max((rel_err(g, w)[1], path) for (path, g), (_, w) in zip(
+        leaves_with_paths(gathered), leaves_with_paths(whole))
+        if isinstance(w, torch.Tensor))
+    return equal, logit_rel, worst, where
+
+
+def decode_gate(label: str, cfg, params, mesh, cache, tok, shape,
+                **fields) -> None:
+    """decode_paths in f32 for kv_shard "seq" and "hd", each against the
+    gates: tokens equal, logits within DECODE_LOGIT_TOL, every cache leaf
+    within DECODE_CACHE_TOL; one line each."""
+    from repro_torch.distributed import sharding as SH
+
+    for kv_shard in ("seq", "hd"):
+        t0 = time.perf_counter()
+        equal, logit_rel, worst, where = decode_paths(
+            cfg, params, mesh, cache, tok, shape, kv_shard)
+        if not (equal and logit_rel <= DECODE_LOGIT_TOL
+                and worst <= DECODE_CACHE_TOL):
+            raise AssertionError(
+                f"{label} kv_shard={kv_shard}: mesh against plain: tokens "
+                f"equal {equal}, logits rel {logit_rel:.3e} (tol "
+                f"{DECODE_LOGIT_TOL:.0e}), cache leaf {where} rel "
+                f"{worst:.3e} (tol {DECODE_CACHE_TOL:.0e})")
+        phase(f"{label} decode mesh vs plain f32", t0, kv_shard=kv_shard,
+              model_shards=SH.axis_sizes(mesh)["model"],
+              combine_ranks=SH.mesh_size(mesh), steps=DECODE_STEPS,
+              tokens_equal=equal, logit_rel=f"{logit_rel:.3e}",
+              worst_cache_rel=f"{worst:.3e}", worst_leaf=json.dumps(where),
+              **fields)
+
+
+def decode_timed(label: str, cfg, params, mesh, cache, tok, shape,
+                 smi: str) -> None:
+    """16a in bf16: one warm-up and DECODE_TIMED steps of the mesh serve
+    step (kv_shard "seq") and of the plain one, each from its own copy of
+    `cache`; ms a step (one token a row; CUDA events around each step,
+    the median) and the peak memory of each path, with what the path held
+    before its first step; then one more step of each under
+    torch.profiler (`profile_call`: device time by kernel group, the
+    NCCL kernels among them)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import model as MDL
+    from repro_torch.serving.decode import make_serve_step
+
+    t0 = time.perf_counter()
+    spec = SP.cache_specs(cache, cfg, shape, mesh, ("data",), "seq")
+    runs = {}
+    for name in ("mesh", "plain"):
+        if name == "mesh":
+            step = make_serve_step(cfg, mesh=mesh)
+            args = (SH.shard_tree(params, MDL.param_layout(cfg, mesh), mesh),
+                    SH.shard_tree(cache, spec, mesh), spec)
+        else:
+            step = make_serve_step(cfg)
+            args = (params, cache_copy(cache))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        state, t, times = args[1], tok, []
+        for k in range(1 + DECODE_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t, state = step(args[0], {"tokens": t}, state, *args[2:])
+            end.record()
+            t = t[:, None]
+            if k:
+                times.append((start, end))
+        torch.cuda.synchronize()
+        runs[name] = (float(np.median([s.elapsed_time(e) for s, e in times])),
+                      torch.cuda.max_memory_allocated(), held)
+        profile_call(f"{label} {name} bf16 decode step model_shards="
+                     f"{SH.axis_sizes(mesh)['model']} combine_ranks="
+                     f"{SH.mesh_size(mesh)}",
+                     lambda: step(args[0], {"tokens": t}, state, *args[2:]))
+        del args, state
+    phase(f"{label} decode mesh vs plain bf16 timed", t0, kv_shard="seq",
+          model_shards=SH.axis_sizes(mesh)["model"],
+          combine_ranks=SH.mesh_size(mesh), batch=tok.shape[0],
+          positions=shape.seq_len, steps=DECODE_TIMED,
+          mesh_ms_per_token=f"{runs['mesh'][0]:.3f}",
+          plain_ms_per_token=f"{runs['plain'][0]:.3f}",
+          mesh_peak_gib=f"{runs['mesh'][1] / 2**30:.2f}",
+          plain_peak_gib=f"{runs['plain'][1] / 2**30:.2f}",
+          mesh_held_gib=f"{runs['mesh'][2] / 2**30:.2f}",
+          plain_held_gib=f"{runs['plain'][2] / 2**30:.2f}",
+          card=json.dumps(smi))
+
+
+def mesh_decode_dense(dev, mesh, smi: str) -> None:
+    """16a: qwen2-7b at full width (d_model 3584, 28 heads, 4 KV heads)
+    and DECODE_LAYERS layers, B = DECODE_BATCH, a cache of DECODE_CACHE
+    positions. The positions before the last DECODE_PLAIN tokens and the
+    steps after them (DECODE_STEPS, or decode_timed's DECODE_TIMED + 2 if
+    more) hold random keys and values from a seed (a plain fill of 32k
+    tokens would outlast the phase), then DECODE_PLAIN tokens go through the
+    plain serve step; decode_gate from there in f32, then decode_timed in
+    bf16 from the same cache."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import model as MDL
+    from repro_torch.serving.decode import make_serve_step
+    from repro_torch.training.tree import cast_tree
+
+    t0 = time.perf_counter()
+    full = registry.get(DECODE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=DECODE_LAYERS)
+    params = MDL.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    cache = MDL.init_cache(cfg, DECODE_BATCH, DECODE_CACHE,
+                           dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    cache["k"].normal_(generator=gen)
+    cache["v"].normal_(generator=gen)
+    start = DECODE_CACHE - DECODE_PLAIN - max(DECODE_STEPS, DECODE_TIMED + 2)
+    cache["len"] = [start] * cfg.n_layers
+    tok = torch.randint(0, cfg.vocab, (DECODE_BATCH, 1), generator=gen,
+                        device=dev)
+    plain = make_serve_step(cfg, compute_dtype=torch.float32)
+    for _ in range(DECODE_PLAIN):
+        tok, cache = plain(params, {"tokens": tok}, cache)
+        tok = tok[:, None]
+    torch.cuda.synchronize()
+    label = f"mesh16a {DECODE_ARCH}"
+    shape = ShapeConfig("decode_32k", DECODE_CACHE, DECODE_BATCH, "decode")
+    phase(f"{label} model and cache", t0,
+          layers=f"{cfg.n_layers} of {full.n_layers}", d_model=cfg.d_model,
+          heads=f"{cfg.n_heads}/{cfg.kv_heads}", batch=DECODE_BATCH,
+          positions=DECODE_CACHE,
+          filled=f"{start} random + {DECODE_PLAIN} plain")
+    decode_gate(label, cfg, params, mesh, cache, tok, shape,
+                layers=cfg.n_layers, batch=DECODE_BATCH,
+                positions=DECODE_CACHE)
+    params = cast_tree(params, torch.bfloat16)
+    cache = {"k": cache["k"].to(torch.bfloat16),
+             "v": cache["v"].to(torch.bfloat16), "len": list(cache["len"])}
+    decode_timed(label, cfg, params, mesh, cache, tok, shape, smi)
+
+
+def mesh_decode_states(dev, mesh) -> None:
+    """16b, 16c: Zamba2 (its Mamba2 conv and SSM states and the shared
+    attention's KV cache; the embedding scaled as in phase 8) and rwkv6-7b
+    (its WKV state and token shifts) at full width, cut in depth as
+    DECODE_STATE_CELLS says: a prompt through the plain serve step fills
+    the cache, then decode_gate in f32."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import model as MDL
+    from repro_torch.serving.decode import make_serve_step
+
+    for case, (arch, (layers, bsz, positions, prompt)) in zip(
+            "bc", DECODE_STATE_CELLS.items()):
+        t0 = time.perf_counter()
+        full = registry.get(arch)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        params = MDL.init_params(cfg, seed=0, dtype=torch.float32,
+                                 device=dev)
+        if cfg.ssm is not None:
+            params["embed"]["table"].mul_(EMBED_SCALE)
+        cache = MDL.init_cache(cfg, bsz, positions, dtype=torch.float32,
+                               device=dev)
+        gen = torch.Generator(device=dev).manual_seed(16)
+        toks = torch.randint(0, cfg.vocab, (bsz, prompt + 1), generator=gen,
+                             device=dev)
+        plain = make_serve_step(cfg, compute_dtype=torch.float32)
+        for t in range(prompt):
+            _, cache = plain(params, {"tokens": toks[:, t:t + 1]}, cache)
+        torch.cuda.synchronize()
+        label = f"mesh16{case} {arch}"
+        phase(f"{label} model and cache", t0,
+              layers=f"{cfg.n_layers} of {full.n_layers}",
+              d_model=cfg.d_model, batch=bsz, positions=positions,
+              filled=f"{prompt} plain")
+        decode_gate(label, cfg, params, mesh, cache, toks[:, prompt:],
+                    ShapeConfig("decode", positions, bsz, "decode"),
+                    layers=cfg.n_layers, batch=bsz, positions=positions)
+        del params, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def mesh_decode_phase(dev, smi: str) -> None:
+    """Phase 16: one NCCL process group of one rank (a HashStore, no
+    network) and a (1, 1) mesh, destroyed when the phase ends; 16a-16c.
+    No SpMV or SSD kernel may launch: a decode step takes Mamba2's
+    one-step recurrence, not K5."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    before = dict(kernels.LAUNCHES)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh(MESH_SHAPE, ("data", "model"), dev)
+        mesh_decode_dense(dev, mesh, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_decode_states(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if kernels.LAUNCHES != before:
+        raise AssertionError(f"phase 16 launched a kernel: {before} -> "
+                             f"{dict(kernels.LAUNCHES)}")
+    phase("mesh decode", t_phase, card=json.dumps(smi))
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5260,6 +5588,7 @@ def run(args, torch) -> int:
     k5_train, dense, zamba = lm_train(dev)
     k5_mesh = mesh_phase(dev, dense, zamba)
     del dense, zamba
+    mesh_decode_phase(dev, smi)
     for row in rows:
         if row["name"] == "ssd_chunk":
             row["launches_paths"] = {

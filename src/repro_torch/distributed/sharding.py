@@ -26,6 +26,7 @@ loss by the mesh size gets the gradient of the mean loss (see
 """
 from __future__ import annotations
 
+import copy
 import math
 import re
 from typing import Any
@@ -157,10 +158,18 @@ def axis_sizes(mesh) -> dict:
                     f"mesh_dim_names, or axis sizes by name)")
 
 
-def _axes(entry) -> tuple:
+def entry_axes(entry) -> tuple:
+    """The axes a spec entry names: () for None, (name,) for one axis."""
     if entry is None:
         return ()
     return entry if isinstance(entry, tuple) else (entry,)
+
+
+def split_axes(entry, mesh) -> tuple:
+    """The axes of a spec entry that hold more than one rank: a dim split
+    over one rank is whole on every rank."""
+    sizes = axis_sizes(mesh)
+    return tuple(a for a in entry_axes(entry) if sizes[a] > 1)
 
 
 def batch_spec(shape_kind: str, dp_axes) -> tuple:
@@ -175,7 +184,7 @@ def divisible(n: int, mesh, axes) -> bool:
         return True
     sizes = axis_sizes(mesh)
     size = 1
-    for a in _axes(axes):
+    for a in entry_axes(axes):
         size *= sizes[a]
     return n % size == 0
 
@@ -205,7 +214,7 @@ def placements(spec: tuple, mesh) -> list:
     names = list(axis_sizes(mesh))
     out = [Replicate()] * len(names)
     for dim, entry in enumerate(spec):
-        axes = _axes(entry)
+        axes = entry_axes(entry)
         pos = [names.index(a) for a in axes]
         if pos != sorted(pos):
             raise ValueError(f"spec {spec}: dim {dim} names {axes}, not in "
@@ -219,27 +228,40 @@ def local_shape(shape, spec: tuple, mesh) -> tuple:
     """The shape of a rank's block of a tensor of `shape` under `spec`."""
     sizes = axis_sizes(mesh)
     spec = tuple(spec) + (None,) * (len(shape) - len(spec))
-    return tuple(dim // math.prod(sizes[a] for a in _axes(ax))
+    return tuple(dim // math.prod(sizes[a] for a in entry_axes(ax))
                  for dim, ax in zip(shape, spec))
 
 
 # -- on a DeviceMesh --------------------------------------------------------
 def block_index(mesh, axes: tuple) -> int:
-    """This rank's block along a dim split over `axes` (first outermost)."""
-    sizes = axis_sizes(mesh)
+    """This rank's block along a dim split over `axes` (first outermost);
+    0 for a dim held whole (axes (), where `mesh` is not read)."""
     idx = 0
     for a in axes:
-        idx = idx * sizes[a] + mesh.get_local_rank(a)
+        idx = idx * axis_sizes(mesh)[a] + mesh.get_local_rank(a)
     return idx
+
+
+def block_start(mesh, axes: tuple, size: int, whole: int) -> int:
+    """The first index of this rank's block of `size` along a dim of
+    `whole` split over `axes` (the first outermost; () for a whole dim).
+    ValueError unless the blocks make up `whole`."""
+    if size * math.prod(axis_sizes(mesh)[a] for a in axes) != whole:
+        raise ValueError(f"a block of {size} over {axes} is not a block of "
+                         f"a dim of {whole}")
+    return block_index(mesh, axes) * size
 
 
 def shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """This rank's block of the whole tensor `t` under `spec`, as a
-    contiguous tensor of its own."""
+    contiguous tensor of its own. A leaf that is not a tensor (a decode
+    cache's `len`, a missing cache part) is whole on every rank: a copy."""
+    if not isinstance(t, torch.Tensor):
+        return copy.deepcopy(t)
     sizes = axis_sizes(mesh)
     out = t
     for dim, entry in enumerate(spec):
-        axes = _axes(entry)
+        axes = entry_axes(entry)
         if axes:
             n = math.prod(sizes[a] for a in axes)
             size = t.shape[dim] // n
@@ -276,18 +298,24 @@ def _reduce_scatter_dim(t: torch.Tensor, dim: int, axis: str, mesh):
     return out.movedim(0, dim).contiguous()
 
 
-def all_reduce(t: torch.Tensor, axes, mesh) -> torch.Tensor:
-    """The sum of `t` over the ranks along `axes`, one axis at a time, in a
-    tensor of its own (`t` is left as it is)."""
+def all_reduce(t: torch.Tensor, axes, mesh,
+               op: str = "sum") -> torch.Tensor:
+    """The sum (op="max": the largest) of `t` over the ranks along `axes`,
+    one axis at a time, in a tensor of its own (`t` is left as it is)."""
+    reduce_op = {"sum": torch.distributed.ReduceOp.SUM,
+                 "max": torch.distributed.ReduceOp.MAX}[op]
     t = t.clone(memory_format=torch.contiguous_format)
     for a in axes:
-        torch.distributed.all_reduce(t, group=_group(mesh, a))
+        torch.distributed.all_reduce(t, op=reduce_op, group=_group(mesh, a))
     return t
 
 
 def gather_whole(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """The whole tensor from each rank's block (all-gathers, no
-    gradient): for checks and checkpoints."""
+    gradient): for checks and checkpoints. A leaf that is not a tensor is
+    whole already and is returned as it is."""
+    if not isinstance(t, torch.Tensor):
+        return t
     with torch.no_grad():
         return _gather(t, _gather_dims(spec, ()), mesh)
 
@@ -298,9 +326,9 @@ def unshard_tree(tree, specs, mesh):
 
 
 def _gather_dims(spec: tuple, keep: tuple) -> tuple:
-    return tuple((dim, tuple(a for a in _axes(e) if a not in keep))
+    return tuple((dim, tuple(a for a in entry_axes(e) if a not in keep))
                  for dim, e in enumerate(spec)
-                 if any(a not in keep for a in _axes(e)))
+                 if any(a not in keep for a in entry_axes(e)))
 
 
 def _gather(t, dims, mesh):
@@ -332,17 +360,22 @@ def gather(t: torch.Tensor, spec: tuple, mesh, keep: tuple = ()):
     """The whole tensor from this rank's block `t` under `spec`, but for
     the axes in `keep` (which stay sharded). Differentiable: the gradient
     comes back summed over the mesh, reduce-scattered over the gathered
-    axes and all-reduced over the axes that `spec` does not name."""
-    named = {a for e in spec for a in _axes(e)}
-    others = tuple(a for a in axis_sizes(mesh) if a not in named)
-    return _Gather.apply(t, mesh, _gather_dims(spec, keep), others)
+    axes and all-reduced over the axes that `spec` does not name. An axis
+    of one rank moves nothing (as `split_axes`): on a (1, 1) mesh the
+    result is `t` itself, as the plain path reads it."""
+    sizes = axis_sizes(mesh)
+    single = tuple(a for a, n in sizes.items() if n == 1)
+    named = {a for e in spec for a in entry_axes(e)}
+    others = tuple(a for a in sizes if a not in named and a not in single)
+    return _Gather.apply(t, mesh, _gather_dims(spec, (*keep, *single)),
+                         others)
 
 
-def gather_dim(t: torch.Tensor, dim: int, axis: str, mesh) -> torch.Tensor:
-    """An activation's blocks along `dim` over `axis` concatenated,
-    differentiable: the gradient is reduce-scattered back, and nothing
-    else is summed."""
-    return _Gather.apply(t, mesh, ((dim, (axis,)),), ())
+def gather_dim(t: torch.Tensor, dim: int, axis, mesh) -> torch.Tensor:
+    """An activation's blocks along `dim` over `axis` (one axis, or a tuple
+    of them, the first outermost) concatenated, differentiable: the
+    gradient is reduce-scattered back, and nothing else is summed."""
+    return _Gather.apply(t, mesh, ((dim, entry_axes(axis)),), ())
 
 
 def gather_tree(tree, specs, mesh):
@@ -393,7 +426,7 @@ def global_norm(grads, specs, mesh) -> torch.Tensor:
     groups: dict = {}
     for i, (path, _) in enumerate(flat):
         named = tuple(a for a in axis_sizes(mesh)
-                      if any(a in _axes(e) for e in spec_of[path]))
+                      if any(a in entry_axes(e) for e in spec_of[path]))
         groups.setdefault((named, sums[i].dtype), []).append(i)
     for (named, _), idx in groups.items():
         vec = all_reduce(torch.stack([sums[i] for i in idx]), named, mesh)

@@ -8,14 +8,20 @@ asks for an f32 product (`preferred_element_type=jnp.float32`): operands are
 widened to f32 before the product, so a bf16 model does not round its scores
 (a float64 model keeps float64).
 Chunking over KV bounds the live score tensor to [B, H, Sq, kv_chunk].
+
+On a mesh (`kv_split`) a rank holds a block of the KV cache, its positions
+or its head_dim split over mesh axes, and decode combines the blocks'
+partial softmaxes (`sharded_decode_attention`); no rank holds the cache
+whole.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
+from ...distributed import sharding as SH
 from .common import apply_rope, init_linear, linear, softcap_fn, wide_dtype
 
 NEG_INF = -1e30
@@ -109,19 +115,110 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *, window=None,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+class KVSplit(NamedTuple):
+    """Where a rank's KV cache block lies on `mesh`: the positions split
+    over the axes `seq`, head_dim over the axes `hd` (each the first axis
+    outermost; () for a dim held whole), as the cache's spec names them."""
+    mesh: Any
+    seq: tuple
+    hd: tuple
+
+
+def sharded_decode_attention(q, k_blk, v_blk, cache_len: int,
+                             split: KVSplit, *, window=None, softcap=None):
+    """decode_attention over a KV cache split on a mesh. q [B,1,H,D] whole
+    (every rank of the split computes the same token); k_blk, v_blk
+    [B,S_blk,KVH,D_blk] this rank's block, which starts at position
+    block * S_blk and at head_dim block * D_blk.
+
+    With head_dim split, the partial q.k products are summed over `hd`
+    before the softmax ([B,H,S_blk] scores). With the positions split,
+    each rank scores its own positions (the same mask, window and softcap
+    as decode_attention) and the partial softmaxes combine by their
+    log-sum-exp: the largest score over `seq` (a max of [B,H]), the sum
+    of exp(s - max) ([B,H]), then the sum of the normalized p v
+    ([B,H,D_blk]). A head_dim split then gathers the output's slices over
+    `hd`. Returns [B,1,H,D]."""
+    b, _, h, d = q.shape
+    _, s_blk, kvh, d_blk = k_blk.shape
+    g = h // kvh
+    wide = wide_dtype(q.dtype)
+    lo = SH.block_start(split.mesh, split.hd, d_blk, d)
+    qg = q[..., lo:lo + d_blk].reshape(b, kvh, g, d_blk).to(wide)
+    kf = k_blk.permute(0, 2, 1, 3).to(wide)                # [b,kvh,S,d]
+    s = qg @ kf.transpose(-1, -2)                          # [b,kvh,g,S]
+    if split.hd:
+        s = SH.all_reduce(s, split.hd, split.mesh)
+    s = softcap_fn(s / math.sqrt(d), softcap)
+    k_pos = SH.block_index(split.mesh, split.seq) * s_blk + torch.arange(
+        s_blk, device=q.device)
+    mask = k_pos < cache_len
+    if window is not None:
+        mask = mask & (k_pos >= cache_len - window)
+    s = torch.where(mask, s, NEG_INF)
+    vf = v_blk.permute(0, 2, 1, 3).to(wide)
+    if split.seq:
+        m = SH.all_reduce(s.amax(dim=-1), split.seq, split.mesh, op="max")
+        p = torch.exp(s - m[..., None])
+        p = p / SH.all_reduce(p.sum(dim=-1), split.seq, split.mesh)[..., None]
+        out = SH.all_reduce(p.to(v_blk.dtype).to(wide) @ vf, split.seq,
+                            split.mesh)
+    else:
+        p = torch.softmax(s, dim=-1)
+        out = p.to(v_blk.dtype).to(wide) @ vf
+    out = out.reshape(b, 1, h, d_blk).to(q.dtype)
+    if split.hd:
+        out = SH.gather_dim(out, 3, split.hd, split.mesh)
+    return out
+
+
+def _check_room(base: int, s: int, whole: int) -> None:
+    """RuntimeError unless positions base .. base + s - 1 lie in a KV
+    cache of `whole` positions. Without it a write past the end would
+    drop the new keys and values without a sound (torch broadcasts a
+    [B,s,..] update onto the empty slice) and attend over a cache that
+    lacks them."""
+    if base + s > whole:
+        raise RuntimeError(f"attention_block: positions {base}..{base + s - 1}"
+                           f" are past the end of a KV cache of {whole} "
+                           f"positions")
+
+
+def _write_block(cache, k, v, base: int, split: KVSplit) -> None:
+    """Write the new token's k, v [B,1,KVH,D] at position `base` into this
+    rank's block, if its block holds that position: the head_dim slice
+    the block keeps. A position past the whole cache's end raises
+    RuntimeError on every rank, as on one device (`_check_room`)."""
+    s_blk, d_blk = cache["k"].shape[1], cache["k"].shape[-1]
+    _check_room(base, 1, s_blk * math.prod(SH.axis_sizes(split.mesh)[a]
+                                           for a in split.seq))
+    start = SH.block_index(split.mesh, split.seq) * s_blk
+    if not start <= base < start + s_blk:
+        return
+    lo = SH.block_start(split.mesh, split.hd, d_blk, k.shape[-1])
+    cache["k"][:, base - start] = k[:, 0, :, lo:lo + d_blk]
+    cache["v"][:, base - start] = v[:, 0, :, lo:lo + d_blk]
+
+
 def attention_block(params, x, *, n_heads, kv_heads, head_dim, rope_theta,
                     causal=True, window=None, softcap=None, kv_chunk=1024,
-                    cache=None, cross_kv=None):
+                    cache=None, cross_kv=None, kv_split=None):
     """Full attention sub-block: proj -> rope -> (flash | decode) -> out proj.
 
     cache: None (prefill; returns (y, None)) or {k, v, len} for decode,
     where k and v are [B, Smax, KVH, D] buffers and len the number of valid
     positions. The reference returns updated copies of the buffers; here the
     new keys and values are written into them in place, and the returned
-    cache holds the same buffers with len advanced.
+    cache holds the same buffers with len advanced. Positions past Smax
+    raise RuntimeError (`_check_room`).
     cross_kv: [B, T, d] states the keys and values come from (the vlm's
     image embeddings): no RoPE, never causal, and no cache, also in decode
     (returns (y, None)).
+    kv_split: None, or where this rank's block of the cache lies on a mesh
+    (KVSplit): the cache holds the blocks, one token is decoded (S = 1;
+    ValueError otherwise), the rank whose block holds position `len`
+    writes its part of the new key and value, and the attention is
+    sharded_decode_attention.
     """
     b, s, _ = x.shape
     kv_src = x if cross_kv is None else cross_kv
@@ -135,8 +232,18 @@ def attention_block(params, x, *, n_heads, kv_heads, head_dim, rope_theta,
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
 
-    if cache is not None and cross_kv is None:
+    if cache is not None and cross_kv is None and kv_split is not None:
+        if s != 1:
+            raise ValueError(f"attention_block: a KV cache on a mesh decodes "
+                             f"one token, got S = {s}")
+        _write_block(cache, k, v, base, kv_split)
+        y = sharded_decode_attention(q, cache["k"], cache["v"], base + 1,
+                                     kv_split, window=window,
+                                     softcap=softcap)
+        new_cache = {"k": cache["k"], "v": cache["v"], "len": base + 1}
+    elif cache is not None and cross_kv is None:
         end = base + s
+        _check_room(base, s, cache["k"].shape[1])
         cache["k"][:, base:end] = k
         cache["v"][:, base:end] = v
         y = decode_attention(q, cache["k"], cache["v"], end, window=window,

@@ -4,17 +4,22 @@ Prefill: the sequence is padded to a multiple of `chunk` and scanned by
 `ssd_scan`, one launch of the fused K5 kernel per layer on the card (81 for
 the Zamba2-7B prefill), which walks the chunks itself. Training goes
 through the same forward; the SSD's gradient comes from the plain scan
-(`SSDScan`). Decode: the O(1) recurrent state update, in torch ops.
+(`SSDScan`). Decode: the O(1) recurrent state update, in torch ops, one
+body on one device and on a mesh.
 
 As in the reference: a single B/C group, a scalar A per head, a causal conv
 of width 4. State cache = (conv_state [B, W-1, d_conv_ch], ssm_state
-[B, H, N, P]).
+[B, H, N, P]). On a mesh (`mamba2_block(split=)`) a rank holds the conv
+state's block of channels and the SSM state's block of heads.
 """
 from __future__ import annotations
+
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from ...distributed import sharding as SH
 from ...kernels.ssd_chunk.kernel import ssd_scan_plain
 from ...kernels.ssd_chunk.ops import ssd_scan
 from .common import init_linear, init_rmsnorm, linear, normal, rmsnorm
@@ -64,9 +69,9 @@ def _discretize(xh, dt, a_log):
     return la, xh * dt[..., None].to(xh.dtype)
 
 
-def _mix(params, x, ssm_cfg, conv_state=None):
-    """in_proj, dt and the causal conv: (z, xh [B,S,H,P], dt [B,S,H],
-    b_mat, c_mat [B,S,N], new conv state)."""
+def _mix(params, x, ssm_cfg):
+    """in_proj, dt and the causal conv from the zero state: (z, xh
+    [B,S,H,P], dt [B,S,H], b_mat, c_mat [B,S,N], the conv state)."""
     b, s, d = x.shape
     d_inner = ssm_cfg.expand * d
     n, p = ssm_cfg.d_state, ssm_cfg.head_dim
@@ -74,8 +79,7 @@ def _mix(params, x, ssm_cfg, conv_state=None):
     zxbcdt = linear(params["in_proj"], x)
     z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * n, h], dim=-1)
     dt = F.softplus(dt + params["dt_bias"])                    # [B,S,H]
-    xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"],
-                                 conv_state)
+    xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"])
     xs, b_mat, c_mat = torch.split(xbc, [d_inner, n, n], dim=-1)
     return z, xs.reshape(b, s, h, p), dt, b_mat, c_mat, new_conv
 
@@ -126,41 +130,88 @@ def _ssd_chunked(xh, dt, a_log, b_mat, c_mat, chunk, init_state=None,
                          chunk, use_kernel)
 
 
-def mamba2_block(params, x, ssm_cfg, cache=None, use_kernel="auto"):
+class StateSplit(NamedTuple):
+    """Where a rank's Mamba2 cache block lies on `mesh`: the conv state's
+    channels split over the axes `conv`, the SSM state's heads over the
+    axes `heads` (() for a dim held whole)."""
+    mesh: Any
+    conv: tuple
+    heads: tuple
+
+
+WHOLE = StateSplit(None, (), ())  # one device: every block is the whole
+
+
+def mamba2_block(params, x, ssm_cfg, cache=None, use_kernel="auto",
+                 split: StateSplit = WHOLE):
     """x [B,S,d]. cache None (prefill from the zero state) or {conv, ssm}
-    for decode (S = 1). Returns (y, new_cache_or_None).
+    for decode (S = 1; ValueError otherwise), this rank's blocks under
+    `split` on a mesh (`_decode_step`). Returns (y, new_cache_or_None).
 
     No residual here: the model adds none around this block."""
+    if cache is not None:
+        return _decode_step(params, x, ssm_cfg, cache, split)
     b, s, d = x.shape
     d_inner = ssm_cfg.expand * d
-    z, xh, dt, b_mat, c_mat, new_conv = _mix(
-        params, x, ssm_cfg, None if cache is None else cache["conv"])
-
-    if cache is None:
-        pad = (-s) % ssm_cfg.chunk
-        if pad:
-            xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-            dt = F.pad(dt, (0, 0, 0, pad))
-            b_mat = F.pad(b_mat, (0, 0, 0, pad))
-            c_mat = F.pad(c_mat, (0, 0, 0, pad))
-        y, _ = _ssd_chunked(xh, dt, params["a_log"], b_mat, c_mat,
-                            ssm_cfg.chunk, use_kernel=use_kernel)
-        y = y[:, :s]
-        new_cache = None
-    else:
-        # decode: s == 1, one recurrent step
-        la, xw = _discretize(xh[:, 0], dt[:, 0], params["a_log"])
-        a = torch.exp(la)                                      # [B,H]
-        state = cache["ssm"]
-        state = state * a[..., None, None].to(state.dtype) + \
-            torch.einsum("bn,bhp->bhnp", b_mat[:, 0], xw)
-        y = torch.einsum("bn,bhnp->bhp", c_mat[:, 0], state)[:, None]
-        new_cache = {"conv": new_conv, "ssm": state}
-
-    y = y + xh[:, :s] * params["d_skip"][None, None, :, None]  # D skip
+    z, xh, dt, b_mat, c_mat, _ = _mix(params, x, ssm_cfg)
+    pad = (-s) % ssm_cfg.chunk
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b_mat = F.pad(b_mat, (0, 0, 0, pad))
+        c_mat = F.pad(c_mat, (0, 0, 0, pad))
+    y, _ = _ssd_chunked(xh, dt, params["a_log"], b_mat, c_mat,
+                        ssm_cfg.chunk, use_kernel=use_kernel)
+    y = y[:, :s] + xh[:, :s] * params["d_skip"][None, None, :, None]
     y = y.reshape(b, s, d_inner)
     y = rmsnorm(params["norm"], y * F.silu(z))                   # gated norm
-    return linear(params["out_proj"], y), new_cache
+    return linear(params["out_proj"], y), None
+
+
+def _decode_step(params, x, ssm_cfg, cache, split: StateSplit):
+    """One decode token (x [B,1,d], this rank's rows) over the cache's
+    blocks under `split`: the depthwise conv on its channels of the conv
+    state, the O(1) recurrence on its heads of the SSM state. The
+    one-token slices the rest of the block needs whole are gathered: the
+    conv output ([B,1,C], whose x part the heads read and whose B and C
+    every head reads) over `split.conv`, and y ([B,1,H,P], before the
+    gated norm) over `split.heads`. Under WHOLE nothing is gathered and
+    the slices are whole. Returns (out [B,1,d], the new blocks {conv,
+    ssm})."""
+    b, s, d = x.shape
+    if s != 1:
+        raise ValueError(f"mamba2: a decode step takes one token, got "
+                         f"S = {s}")
+    d_inner = ssm_cfg.expand * d
+    n, p = ssm_cfg.d_state, ssm_cfg.head_dim
+    h = d_inner // p
+    zxbcdt = linear(params["in_proj"], x)
+    z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * n, h], dim=-1)
+    dt = F.softplus(dt + params["dt_bias"])                    # [B,1,H]
+    cb = cache["conv"].shape[-1]
+    lo = SH.block_start(split.mesh, split.conv, cb, d_inner + 2 * n)
+    xbc, new_conv = _causal_conv(xbc[..., lo:lo + cb],
+                                 params["conv_w"][:, lo:lo + cb],
+                                 params["conv_b"][lo:lo + cb], cache["conv"])
+    if split.conv:
+        xbc = SH.gather_dim(xbc, 2, split.conv, split.mesh)
+    xs, b_mat, c_mat = torch.split(xbc, [d_inner, n, n], dim=-1)
+    hb = cache["ssm"].shape[-3]
+    hl = SH.block_start(split.mesh, split.heads, hb, h)
+    xh = xs.reshape(b, 1, h, p)[:, :, hl:hl + hb]
+    la, xw = _discretize(xh[:, 0], dt[:, 0, hl:hl + hb],
+                         params["a_log"][hl:hl + hb])
+    a = torch.exp(la)                                          # [B,Hb]
+    state = cache["ssm"]
+    state = state * a[..., None, None].to(state.dtype) + \
+        torch.einsum("bn,bhp->bhnp", b_mat[:, 0], xw)
+    y = torch.einsum("bn,bhnp->bhp", c_mat[:, 0], state)[:, None]
+    y = y + xh * params["d_skip"][None, None, hl:hl + hb, None]  # D skip
+    if split.heads:
+        y = SH.gather_dim(y, 2, split.heads, split.mesh)
+    y = y.reshape(b, 1, d_inner)
+    y = rmsnorm(params["norm"], y * F.silu(z))                   # gated norm
+    return linear(params["out_proj"], y), {"conv": new_conv, "ssm": state}
 
 
 def init_mamba2_cache(batch, d_model, ssm_cfg, dtype=torch.float32,

@@ -5,20 +5,26 @@ Prefill runs the chunked parallel form: within a chunk of T tokens the
 decay products are cumulative log-decay differences (an attention-like
 [T, T] matrix per head and channel), and the running state [B, H, D, D] is
 carried across chunks by a Python loop, as the reference's `lax.scan`
-carries it. Decode is the O(1) state update of one token.
+carries it. Decode is the O(1) state update of one token, one body on one
+device and on a mesh.
 
 The reference's documented simplifications are kept: the token-shift mix
 coefficients are static (full RWKV6 uses a data-dependent LoRA lerp), and
 `ln_x` is one RMS norm over d_model, not a per-head group norm. The decay
 LoRA and the per-head bonus u are kept, as they define WKV6.
+
+On a mesh (`rwkv6_decode(split=)`) a rank holds the WKV state's block of
+heads and the token shifts' block of channels.
 """
 from __future__ import annotations
 
 import math
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from ...distributed import sharding as SH
 from .common import init_linear, init_rmsnorm, linear, normal, rmsnorm
 
 NEG_INF = -1e30
@@ -112,6 +118,18 @@ def _wkv6_chunked(r, k, v, log_w, u, chunk, init_state=None):
     return torch.cat(ys, dim=1), state
 
 
+class StateSplit(NamedTuple):
+    """Where a rank's rwkv6 cache block lies on `mesh`: the WKV state's
+    heads split over the axes `heads`, the token shifts' channels over the
+    axes `d` (() for a dim held whole)."""
+    mesh: Any
+    heads: tuple
+    d: tuple
+
+
+WHOLE = StateSplit(None, (), ())  # one device: every block is the whole
+
+
 def rwkv6_time_mix(params, x, rwkv_cfg, cache=None):
     """x [B,S,d]. cache: None (prefill from the zero state) or
     {shift_t [B,1,d], wkv [B,H,D,D]} for one decode token (S = 1; the
@@ -119,13 +137,16 @@ def rwkv6_time_mix(params, x, rwkv_cfg, cache=None):
     raises ValueError). Returns (out [B,S,d], new {shift_t, wkv} or None);
     the cache passed in is not written."""
     b, s, d = x.shape
-    if cache is not None and s != 1:
-        raise ValueError(f"rwkv6_time_mix: a cached call takes one token, "
-                         f"got S = {s}")
+    if cache is not None:
+        if s != 1:
+            raise ValueError(f"rwkv6_time_mix: a cached call takes one "
+                             f"token, got S = {s}")
+        y, state = _time_mix_step(params, x, rwkv_cfg, cache["shift_t"],
+                                  cache["wkv"], WHOLE)
+        return y, {"shift_t": x[:, -1:], "wkv": state}
     hd = rwkv_cfg.head_dim
     h = d // hd
-    last = None if cache is None else cache["shift_t"]
-    xr, xk, xv, xw, xg = (_token_shift(x, params[f"mix_{n}"], last)
+    xr, xk, xv, xw, xg = (_token_shift(x, params[f"mix_{n}"])
                           for n in "rkvwg")
     r = linear(params["wr"], xr).reshape(b, s, h, hd)
     k = linear(params["wk"], xk).reshape(b, s, h, hd)
@@ -133,32 +154,79 @@ def rwkv6_time_mix(params, x, rwkv_cfg, cache=None):
     g = F.silu(linear(params["wg"], xg))
     log_w = -torch.exp(params["w0"] + torch.tanh(xw @ params["w_lora_a"])
                        @ params["w_lora_b"]).reshape(b, s, h, hd)
-    u = params["u_bonus"]
+    pad = (-s) % rwkv_cfg.chunk
+    if pad:
+        r, k, v, log_w = (F.pad(t, (0, 0, 0, 0, 0, pad))
+                          for t in (r, k, v, log_w))
+    y, _ = _wkv6_chunked(r, k, v, log_w, params["u_bonus"], rwkv_cfg.chunk)
+    y = rmsnorm(params["ln_x"], y[:, :s].reshape(b, s, d)) * g
+    return linear(params["wo"], y), None
 
-    if cache is None:
-        pad = (-s) % rwkv_cfg.chunk
-        if pad:
-            r, k, v, log_w = (F.pad(t, (0, 0, 0, 0, 0, pad))
-                              for t in (r, k, v, log_w))
-        y, _ = _wkv6_chunked(r, k, v, log_w, u, rwkv_cfg.chunk)
-        y = y[:, :s]
-        new_cache = None
-    else:
-        state = cache["wkv"].to(r.dtype)
-        # one step: y = r . (u k v^T + state); state' = diag(w) state + k v^T
-        kv = torch.einsum("bhd,bhe->bhde", k[:, 0], v[:, 0])
-        y = torch.einsum("bhd,bhde->bhe", r[:, 0],
-                         u[None, :, :, None] * kv + state)[:, None]
-        state = state * torch.exp(log_w[:, 0])[..., None] + kv
-        new_cache = {"shift_t": x[:, -1:], "wkv": state}
-    y = rmsnorm(params["ln_x"], y.reshape(b, s, d)) * g
-    return linear(params["wo"], y), new_cache
+
+def _time_mix_step(params, x, rwkv_cfg, last, wkv, split: StateSplit):
+    """The time-mix of one decode token (x [B,1,d], this rank's rows;
+    last [B,1,d], the token before it, whole) over this rank's heads of
+    the WKV state (`wkv`, its block under `split`): one step, y = r . (u
+    k v^T + state), state' = diag(w) state + k v^T. y ([B,1,H,D], before
+    ln_x) is gathered over `split.heads`. Returns (out [B,1,d], the new
+    WKV block)."""
+    b, _, d = x.shape
+    hd = rwkv_cfg.head_dim
+    h = d // hd
+    hb = wkv.shape[-3]
+    hl = SH.block_start(split.mesh, split.heads, hb, h)
+    xr, xk, xv, xw, xg = (_token_shift(x, params[f"mix_{n}"], last)
+                          for n in "rkvwg")
+    r = linear(params["wr"], xr).reshape(b, h, hd)[:, hl:hl + hb]
+    k = linear(params["wk"], xk).reshape(b, h, hd)[:, hl:hl + hb]
+    v = linear(params["wv"], xv).reshape(b, h, hd)[:, hl:hl + hb]
+    g = F.silu(linear(params["wg"], xg))
+    log_w = -torch.exp(params["w0"] + torch.tanh(xw @ params["w_lora_a"])
+                       @ params["w_lora_b"]).reshape(b, h, hd)
+    u = params["u_bonus"][hl:hl + hb]
+    state = wkv.to(r.dtype)
+    kv = torch.einsum("bhd,bhe->bhde", k, v)
+    y = torch.einsum("bhd,bhde->bhe", r, u[None, :, :, None] * kv + state)
+    state = state * torch.exp(log_w[:, hl:hl + hb])[..., None] + kv
+    y = y[:, None]
+    if split.heads:
+        y = SH.gather_dim(y, 2, split.heads, split.mesh)
+    y = rmsnorm(params["ln_x"], y.reshape(b, 1, d)) * g
+    return linear(params["wo"], y), state
 
 
 def rwkv6_channel_mix(params, x, cache_last=None):
     xk = _token_shift(x, params["cmix_k"], cache_last)
     k = torch.square(F.relu(linear(params["wck"], xk)))
     return linear(params["wcv"], k)
+
+
+def _whole_shift(last, split: StateSplit):
+    """A token shift [B,1,d] from this rank's block of its channels."""
+    return SH.gather_dim(last, 2, split.d, split.mesh) if split.d else last
+
+
+def rwkv6_decode(params, x, rwkv_cfg, cache, split: StateSplit = WHOLE):
+    """One decode token of a layer (time-mix then channel-mix, each with
+    its residual; x [B,1,d], this rank's rows; S > 1 raises ValueError)
+    over the cache's blocks under `split` (WHOLE on one device): the WKV
+    update on this rank's heads of the state; the one-token shifts
+    gathered over `split.d`. Returns (out, the new blocks {shift_t, wkv,
+    shift_c}; shift_c is the token after the time-mix residual)."""
+    b, s, d = x.shape
+    if s != 1:
+        raise ValueError(f"rwkv6: a cached call takes one token, got S = "
+                         f"{s}")
+    db = cache["shift_t"].shape[-1]
+    dl = SH.block_start(split.mesh, split.d, db, d)
+    y, state = _time_mix_step(params, x, rwkv_cfg,
+                              _whole_shift(cache["shift_t"], split),
+                              cache["wkv"], split)
+    xc = x + y
+    out = xc + rwkv6_channel_mix(params, xc,
+                                 _whole_shift(cache["shift_c"], split))
+    return out, {"shift_t": x[..., dl:dl + db], "wkv": state,
+                 "shift_c": xc[..., dl:dl + db]}
 
 
 def init_rwkv6_cache(batch, d_model, rwkv_cfg, dtype=torch.float32,

@@ -41,6 +41,13 @@ this rank's rows. Each layer gathers its weights to whole tensors inside
 its remat unit, so every model rank of a dp group runs the same
 tokens, except the MoE layers, which take their part of the sequence and
 exchange their expert slots over "model" (`moe.moe_layer(mesh=)`).
+Decode on a mesh (`forward(mesh=, cache=, cache_spec=)`) takes each cache
+leaf as this rank's block under `launch.specs.cache_specs`: the attention
+combines its blocks of positions (or of head_dim) by their log-sum-exp,
+the Mamba2 and rwkv6 recurrences run on the rank's heads, and only one
+token's activations are gathered (`attention.sharded_decode_attention`;
+`mamba2.mamba2_block(split=)` and `rwkv6.rwkv6_decode`, the decode bodies
+of one device too).
 """
 from __future__ import annotations
 
@@ -156,6 +163,43 @@ def _mesh_params(params, cfg, mesh):
             for k, v in params.items()}
 
 
+def _subspec(spec, path):
+    for key in path:
+        spec = spec[key]
+    return spec
+
+
+def _kv_split(mesh, spec, *path):
+    """The KVSplit of the KV cache stack at `path` of a cache laid out by
+    `spec`, or None off a mesh. Only axes of more than one rank split a
+    dim: on a (1, 1) mesh every block is whole and the decode step does
+    the plain step's arithmetic."""
+    if mesh is None:
+        return None
+    k = _subspec(spec, path)["k"]
+    return A.KVSplit(mesh, SH.split_axes(k[-3], mesh),
+                     SH.split_axes(k[-1], mesh))
+
+
+def _mamba_split(mesh, spec, *path):
+    """The Mamba2 StateSplit of the cache stack at `path` (WHOLE off a
+    mesh)."""
+    if mesh is None:
+        return M.WHOLE
+    sp = _subspec(spec, path)
+    return M.StateSplit(mesh, SH.split_axes(sp["conv"][-1], mesh),
+                        SH.split_axes(sp["ssm"][-3], mesh))
+
+
+def _rwkv_split(mesh, spec):
+    """The rwkv6 StateSplit of a cache laid out by `spec` (WHOLE off a
+    mesh)."""
+    if mesh is None:
+        return R.WHOLE
+    return R.StateSplit(mesh, SH.split_axes(spec["wkv"][-3], mesh),
+                        SH.split_axes(spec["shift_t"][-1], mesh))
+
+
 def _write(tree, idx, new) -> None:
     """Copy a layer's new cache into the stacked cache, in place."""
     for k, v in tree.items():
@@ -264,19 +308,20 @@ def _init_moe_layer(gen, cfg, dtype, stack):
 # layer bodies
 # ---------------------------------------------------------------------------
 def _attention(lp, h, cfg, *, window=None, softcap=None, cache=None,
-               kv_chunk=1024):
+               kv_chunk=1024, kv_split=None):
     return A.attention_block(
         lp["attn"], h, n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
         causal=not cfg.encoder_only, window=window, softcap=softcap,
-        kv_chunk=kv_chunk, cache=cache)
+        kv_chunk=kv_chunk, cache=cache, kv_split=kv_split)
 
 
-def _dense_layer(lp, x, cfg, *, window, cache=None, kv_chunk=1024):
+def _dense_layer(lp, x, cfg, *, window, cache=None, kv_chunk=1024,
+                 kv_split=None):
     h = rmsnorm(lp["attn_norm"], x, cfg.rmsnorm_eps)
     y, new_cache = _attention(lp, h, cfg, window=window,
                               softcap=cfg.attn_softcap, cache=cache,
-                              kv_chunk=kv_chunk)
+                              kv_chunk=kv_chunk, kv_split=kv_split)
     if "attn_post_norm" in lp:
         y = rmsnorm(lp["attn_post_norm"], y, cfg.rmsnorm_eps)
     x = x + y
@@ -288,9 +333,10 @@ def _dense_layer(lp, x, cfg, *, window, cache=None, kv_chunk=1024):
 
 
 def _moe_dense_layer(lp, x, cfg, *, cache=None, kv_chunk=1024, mesh=None,
-                     dp_axes=("data",)):
+                     dp_axes=("data",), kv_split=None):
     h = rmsnorm(lp["attn_norm"], x, cfg.rmsnorm_eps)
-    y, new_cache = _attention(lp, h, cfg, cache=cache, kv_chunk=kv_chunk)
+    y, new_cache = _attention(lp, h, cfg, cache=cache, kv_chunk=kv_chunk,
+                              kv_split=kv_split)
     x = x + y
     h = rmsnorm(lp["mlp_norm"], x, cfg.rmsnorm_eps)
     y, moe_metrics = MOE.moe_layer(lp["moe"], h, cfg.moe, mesh=mesh,
@@ -305,21 +351,15 @@ def _at(fn, stack, i, *args, **kw):
     return fn(_layer(stack, i), *args, **kw)
 
 
-def _rwkv_layer(lp, x, cfg, cache=None):
+def _rwkv_layer(lp, x, cfg, cache=None, split=R.WHOLE):
     """Time-mix then channel-mix, each with its residual. cache: None or
-    this layer's {shift_t, shift_c, wkv}; returns the new one (shift_c is
-    the last position after the time-mix residual)."""
-    cache_tm = None if cache is None else {"shift_t": cache["shift_t"],
-                                           "wkv": cache["wkv"]}
-    y, new_tm = R.rwkv6_time_mix(lp, x, cfg.rwkv, cache_tm)
-    x = x + y
-    last_c = None if cache is None else cache["shift_c"]
-    y = R.rwkv6_channel_mix(lp, x, last_c)
-    new_cache = None
+    this layer's {shift_t, shift_c, wkv} (its blocks under `split` on a
+    mesh) for one decode token (`rwkv6.rwkv6_decode`); returns the new one
+    (shift_c is the last position after the time-mix residual)."""
     if cache is not None:
-        new_cache = {"shift_t": new_tm["shift_t"], "wkv": new_tm["wkv"],
-                     "shift_c": x[:, -1:]}
-    return x + y, new_cache
+        return R.rwkv6_decode(lp, x, cfg.rwkv, cache, split)
+    x = x + R.rwkv6_time_mix(lp, x, cfg.rwkv)[0]
+    return x + R.rwkv6_channel_mix(lp, x), None
 
 
 def _cross_layer(lp, x, img, cfg):
@@ -335,9 +375,11 @@ def _cross_layer(lp, x, img, cfg):
     return x + MLP.mlp(lp["mlp"], h)
 
 
-def _shared_attn_block(sp, x, cfg, cache=None, kv_chunk=1024):
+def _shared_attn_block(sp, x, cfg, cache=None, kv_chunk=1024,
+                       kv_split=None):
     h = rmsnorm(sp["norm"], x, cfg.rmsnorm_eps)
-    y, new_cache = _attention(sp, h, cfg, cache=cache, kv_chunk=kv_chunk)
+    y, new_cache = _attention(sp, h, cfg, cache=cache, kv_chunk=kv_chunk,
+                              kv_split=kv_split)
     x = x + y
     h = rmsnorm(sp["mlp_norm"], x, cfg.rmsnorm_eps)
     return x + MLP.mlp(sp["mlp"], h), new_cache
@@ -358,7 +400,7 @@ def _call(train: bool, fn, *args, **kw):
 
 def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
             use_kernel: str = "auto", train: bool = False, mesh=None,
-            dp_axes=("data",)):
+            dp_axes=("data",), cache_spec=None):
     """Returns (logits [B,S,V] f32, new_cache, metrics).
 
     batch: {"tokens": [B,S]}, or {"embeds": [B,S,d]} for a config that takes
@@ -377,17 +419,22 @@ def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
     (laid out by `param_layout`) and `batch` this rank's rows (its part of
     the batch over `dp_axes`, the same on every rank of its dp group); the
     logits are those rows'. Each layer gathers its weights inside its remat
-    unit. A cache
-    on a mesh raises NotImplementedError (decode runs on one device)."""
+    unit. A cache on a mesh holds this rank's block of each leaf under
+    `cache_spec`, the tree `launch.specs.cache_specs` gave for it (torch
+    tensors carry no layout; it is what the reference's jit takes as the
+    cache's in_shardings): one token is decoded, no rank holds a KV cache
+    or a state whole, and the blocks are updated in place and returned.
+    A cache on a mesh without its cache_spec raises ValueError."""
     family = _family(cfg)
     if cache is not None and cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: no decode cache")
     if cache is not None and train:
         raise ValueError("forward: train=True takes no cache (decode does "
                          "not train)")
-    if mesh is not None and cache is not None:
-        raise NotImplementedError("forward: decode with a cache runs on one "
-                                  "device, not on a mesh")
+    if mesh is not None and cache is not None and cache_spec is None:
+        raise ValueError("forward: a cache on a mesh needs its cache_spec "
+                         "(launch.specs.cache_specs' tree for it)")
+    on_mesh = mesh if cache is not None else None
     dtype = params["final_norm"]["scale"].dtype
     if mesh is None:
         params = {k: _unstack(v) if k in _STACKED else v
@@ -403,22 +450,28 @@ def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
     metrics: Dict[str, torch.Tensor] = {}
     if family == "hybrid":
         x, cache = _zamba_forward(params, x, cfg, cache, kv_chunk,
-                                  use_kernel, train)
+                                  use_kernel, train, on_mesh, cache_spec)
     elif family == "rwkv6":
-        x = _rwkv_forward(params, x, cfg, cache, train)
+        x = _rwkv_forward(params, x, cfg, cache, train,
+                          _rwkv_split(on_mesh, cache_spec))
     elif family == "vlm":
         if "image_embeds" not in batch:
             raise ValueError(f"{cfg.name}: the vlm's batch needs "
                              f"image_embeds [B, T, d]")
         x = _vlm_forward(params, x, batch["image_embeds"].to(dtype), cfg,
-                         cache, kv_chunk, train)
+                         cache, kv_chunk, train,
+                         _kv_split(on_mesh, cache_spec, "self"))
     elif family == "moe":
         x, metrics = _moe_forward(params, x, cfg, cache, kv_chunk, train,
-                                  mesh, dp_axes)
+                                  mesh, dp_axes,
+                                  _kv_split(on_mesh, cache_spec))
     elif family == "gemma2":
-        x = _pair_forward(params, x, cfg, cache, kv_chunk, train)
+        x = _pair_forward(params, x, cfg, cache, kv_chunk, train,
+                          {part: _kv_split(on_mesh, cache_spec, part)
+                           for part in ("local", "global")})
     else:
-        x = _dense_forward(params, x, cfg, cache, kv_chunk, train)
+        x = _dense_forward(params, x, cfg, cache, kv_chunk, train,
+                           _kv_split(on_mesh, cache_spec))
     x = rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
     if cfg.tie_embeddings and cfg.embed_inputs:
         logits = unembed(params["embed"], x, cfg.final_softcap)
@@ -440,59 +493,64 @@ def _depth(stack) -> int:
     return len(stack["attn_norm"]["scale"])
 
 
-def _dense_forward(params, x, cfg, cache, kv_chunk, train):
+def _dense_forward(params, x, cfg, cache, kv_chunk, train, kv_split):
     for i in range(_depth(params["layers"])):
         lc = None if cache is None else _kv_layer(cache, i)
         x, nc = _call(train, _at, _dense_layer, params["layers"], i, x,
-                      cfg, window=None, cache=lc, kv_chunk=kv_chunk)
+                      cfg, window=None, cache=lc, kv_chunk=kv_chunk,
+                      kv_split=kv_split)
         if cache is not None:
             cache["len"][i] = nc["len"]
     return x
 
 
-def _pair(pairs, i, x, cfg, cache, kv_chunk):
-    """gemma2's pair i: its local layer (windowed), then its global one."""
+def _pair(pairs, i, x, cfg, cache, kv_chunk, kv_splits):
+    """gemma2's pair i: its local layer (windowed), then its global one.
+    kv_splits: each part's KVSplit (None off a mesh)."""
     for part, window in (("local", cfg.sliding_window), ("global", None)):
         lc = None if cache is None else _kv_layer(cache[part], i)
         x, nc = _dense_layer(_layer(pairs[part], i), x, cfg, window=window,
-                             cache=lc, kv_chunk=kv_chunk)
+                             cache=lc, kv_chunk=kv_chunk,
+                             kv_split=kv_splits[part])
         if cache is not None:
             cache[part]["len"][i] = nc["len"]
     return x
 
 
-def _pair_forward(params, x, cfg, cache, kv_chunk, train):
+def _pair_forward(params, x, cfg, cache, kv_chunk, train, kv_splits):
     pairs = params["layers"]
     for i in range(_depth(pairs["local"])):
-        x = _call(train, _pair, pairs, i, x, cfg, cache, kv_chunk)
+        x = _call(train, _pair, pairs, i, x, cfg, cache, kv_chunk,
+                  kv_splits)
     return x
 
 
-def _moe_forward(params, x, cfg, cache, kv_chunk, train, mesh, dp_axes):
+def _moe_forward(params, x, cfg, cache, kv_chunk, train, mesh, dp_axes,
+                 kv_split):
     acc = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in ("aux_loss", "router_li", "drop_frac")}
     for i in range(_depth(params["layers"])):
         lc = None if cache is None else _kv_layer(cache, i)
         x, nc, mm = _call(train, _at, _moe_dense_layer, params["layers"], i,
                           x, cfg, cache=lc, kv_chunk=kv_chunk, mesh=mesh,
-                          dp_axes=dp_axes)
+                          dp_axes=dp_axes, kv_split=kv_split)
         if cache is not None:
             cache["len"][i] = nc["len"]
         acc = {k: acc[k] + mm[k] for k in acc}
     return x, {k: v / cfg.n_layers for k, v in acc.items()}
 
 
-def _rwkv_forward(params, x, cfg, cache, train):
+def _rwkv_forward(params, x, cfg, cache, train, split):
     for i in range(len(params["layers"]["wr"]["w"])):
         lc = None if cache is None else _layer(cache, i)
         x, nc = _call(train, _at, _rwkv_layer, params["layers"], i, x, cfg,
-                      lc)
+                      lc, split)
         if cache is not None:
             _write(cache, i, nc)
     return x
 
 
-def _vlm_group(params, g, x, img, cfg, kv, kv_chunk):
+def _vlm_group(params, g, x, img, cfg, kv, kv_chunk, kv_split):
     """The vlm's group g: period - 1 dense layers over the group's KV
     caches, then its cross layer over `img` (recomputed every call, as the
     reference does: the cross keys and values are not cached)."""
@@ -500,46 +558,55 @@ def _vlm_group(params, g, x, img, cfg, kv, kv_chunk):
     for j in range(per):
         lc = None if kv is None else _kv_layer(kv, g, j)
         x, nc = _dense_layer(_layer(params["layers"], g * per + j), x, cfg,
-                             window=None, cache=lc, kv_chunk=kv_chunk)
+                             window=None, cache=lc, kv_chunk=kv_chunk,
+                             kv_split=kv_split)
         if kv is not None:
             kv["len"][g][j] = nc["len"]
     return _cross_layer(_layer(params["cross_layers"], g), x, img, cfg)
 
 
-def _vlm_forward(params, x, img, cfg, cache, kv_chunk, train):
+def _vlm_forward(params, x, img, cfg, cache, kv_chunk, train, kv_split):
     kv = None if cache is None else cache["self"]
     for g in range(len(params["cross_layers"]["gate"])):
-        x = _call(train, _vlm_group, params, g, x, img, cfg, kv, kv_chunk)
+        x = _call(train, _vlm_group, params, g, x, img, cfg, kv, kv_chunk,
+                  kv_split)
     return x
 
 
-def _zamba_group(params, g, x, cfg, cache, kv_chunk, use_kernel):
+def _zamba_group(params, g, x, cfg, cache, kv_chunk, use_kernel, splits):
     """Zamba2's group g: its `hybrid_attn_period` Mamba2 layers, then the
-    shared attention block."""
+    shared attention block. splits: (the Mamba2 StateSplit, WHOLE off a
+    mesh; the shared attention's KVSplit, None off a mesh)."""
     period = cfg.hybrid_attn_period
+    m_split, kv_split = splits
     for j in range(period):
         lc = None if cache is None else _layer(cache["mamba"], (g, j))
         x, nc = M.mamba2_block(_layer(params["layers"], g * period + j), x,
-                               cfg.ssm, lc, use_kernel)
+                               cfg.ssm, lc, use_kernel, m_split)
         if cache is not None:
             _write(cache["mamba"], (g, j), nc)
     ac = None if cache is None else _kv_layer(cache["shared_attn"], g)
-    x, nac = _shared_attn_block(params["shared_attn"], x, cfg, ac, kv_chunk)
+    x, nac = _shared_attn_block(params["shared_attn"], x, cfg, ac, kv_chunk,
+                                kv_split)
     if cache is not None:
         cache["shared_attn"]["len"][g] = nac["len"]
     return x
 
 
-def _zamba_forward(params, x, cfg, cache, kv_chunk, use_kernel, train):
+def _zamba_forward(params, x, cfg, cache, kv_chunk, use_kernel, train,
+                   mesh, cache_spec):
     period = cfg.hybrid_attn_period
+    splits = (_mamba_split(mesh, cache_spec, "mamba"),
+              _kv_split(mesh, cache_spec, "shared_attn"))
     for g in range(len(params["layers"]["in_proj"]["w"]) // period):
         x = _call(train, _zamba_group, params, g, x, cfg, cache, kv_chunk,
-                  use_kernel)
+                  use_kernel, splits)
     if "tail_layers" in params:
+        t_split = _mamba_split(mesh, cache_spec, "tail")
         for j in range(len(params["tail_layers"]["in_proj"]["w"])):
             lc = None if cache is None else _layer(cache["tail"], j)
             x, nc = _call(train, _at, M.mamba2_block, params["tail_layers"],
-                          j, x, cfg.ssm, lc, use_kernel)
+                          j, x, cfg.ssm, lc, use_kernel, t_split)
             if cache is not None:
                 _write(cache["tail"], j, nc)
     return x, cache

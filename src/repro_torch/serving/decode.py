@@ -10,21 +10,49 @@ from ..models import model as MDL
 from ..training.tree import cast_tree
 
 
-def make_serve_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
-    """Returns serve_step(params, batch, cache) -> (next_tokens, cache).
+def make_serve_step(cfg: ModelConfig, mesh=None, dp_axes=("data",),
+                    compute_dtype=torch.bfloat16):
+    """Returns serve_step(params, batch, cache, cache_spec=None) ->
+    (next_tokens, cache).
 
     batch is {"tokens": [B, 1]}, plus {"image_embeds"} for the vlm (every
     step, as the reference passes them). Every floating parameter is taken
     in the compute type, as the reference casts it; parameters that already
     have it are used as they are, so a caller that casts once (generate)
     pays nothing per step. An encoder-only config has no decode step:
-    ValueError."""
+    ValueError.
+
+    mesh: None (one device), or a DeviceMesh ("data", "model", and "pod"
+    on a multi-pod mesh). On a mesh, `params` are this rank's shards under
+    `model.param_layout(cfg, mesh)` (each layer gathers its weights whole,
+    as the mesh train step does); `batch` is this rank's rows over
+    `dp_axes`, or all rows when the batch does not divide them; `cache`
+    holds this rank's block of each leaf under `cache_spec`, the tree
+    `launch.specs.cache_specs(..., mesh, dp_axes, kv_shard)` gave for the
+    whole cache (`sharding.shard_tree` takes the blocks), and comes back
+    updated in place, laid out the same way. The next tokens are this
+    rank's rows'. No rank holds a KV cache or a state whole, and only one
+    token's activations are gathered (see `model.forward`).
+
+    There is no constrain_weights: every path of the port gathers each
+    layer's weights by param_layout, so the reference's switch would
+    select nothing here."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
 
-    def serve_step(params, batch, cache):
+    def serve_step(params, batch, cache, cache_spec=None):
         params_c = cast_tree(params, compute_dtype)
-        logits, new_cache, _ = MDL.forward(params_c, batch, cfg, cache=cache)
+        if mesh is None:
+            logits, new_cache, _ = MDL.forward(params_c, batch, cfg,
+                                               cache=cache)
+        else:
+            where = batch["tokens"].device.type
+            if where != mesh.device_type:
+                raise ValueError(f"serve_step: the mesh is on "
+                                 f"{mesh.device_type}, the batch on {where}")
+            logits, new_cache, _ = MDL.forward(
+                params_c, batch, cfg, cache=cache, mesh=mesh,
+                dp_axes=tuple(dp_axes), cache_spec=cache_spec)
         next_tokens = logits[:, -1].argmax(dim=-1).to(torch.int32)
         return next_tokens, new_cache
 

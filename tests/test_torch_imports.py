@@ -18,15 +18,18 @@ from repro_torch.core.sparse.csr import CSRMatrix
 from repro_torch.core.spmv import plan as tplan
 from repro_torch.core.spmv.ops import make_engine
 from repro_torch.configs import registry
-from repro_torch.configs.base import smoke_config
+from repro_torch.configs.base import SHAPES, smoke_config
 from repro_torch.experiments import ExperimentSpec, MeasurePolicy, Runner
 from repro_torch.core.spmv.topology import Topology
 from repro_torch.launch import spmv_bench
+from repro_torch.launch import specs as launch_specs
+from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.router import MeshSpec, RoutedSpmvService
 from repro_torch.models import model as lm
 from repro_torch.serving.decode import generate, prefill
 from repro_torch.training import optimizer as topt
 from repro_torch.training import train_loop
+from repro_torch.training.tree import leaves
 from repro_torch.launch import train as launch_train
 
 torch.set_num_threads(1)
@@ -136,12 +139,22 @@ def test_entry_points_default_to_the_card_and_raise_without_it(monkeypatch):
             generate(cfg, params, tokens, 2, cache_len=8)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_loop.init_state(cfg)
+        # the dry-run's cache shapes touch no device: the meta device
+        shapes = launch_specs.cache_shape(cfg, SHAPES["decode_32k"])
+        assert {t.device.type for t in leaves(shapes)
+                if isinstance(t, torch.Tensor)} == {"meta"}
         step, _, _ = train_loop.make_train_step(cfg, topt.OptConfig())
         state = {"params": params, "opt": topt.init_opt_state(params)}
         with pytest.raises(RuntimeError, match="no CUDA device"):
             step(state, {"tokens": np.zeros((1, 4), np.int32)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.train(launch_train.small_lm_config(), 2, "unused")
+    # a mesh, and with it make_serve_step(mesh=), is on the card unless
+    # the caller asks for the CPU (make_cpu_mesh, make_mesh(device="cpu"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh((1, 1), ("data", "model"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_production_mesh()
 
 
 def test_cpu_runs_only_on_request():
