@@ -5443,6 +5443,66 @@ def mesh_decode_phase(dev, smi: str) -> None:
     phase("mesh decode", t_phase, card=json.dumps(smi))
 
 
+# phase 17: the dry-run's counting half on the card's host (no device
+# work): qwen2-7b x decode_32k on (16, 16) for both kv_shards, the three
+# multi-pod SpMV layouts on (16, 16) and the roofline over those records,
+# each cell in a fake process group of 256 ranks of its own, opened after
+# phase 16 destroyed its NCCL group. No train cell (about a minute on a
+# host); the records and roofline.csv go to the run's temporary results
+# directory and are printed here
+DRYRUN_ARCH, DRYRUN_SHAPE = "qwen2-7b", "decode_32k"
+
+
+def dryrun_phase() -> None:
+    """Phase 17: status ok, collectives counted, the hd variant's
+    all-reduce bytes above the seq variant's (the one-token rule holds
+    for seq only), every SpMV layout communicating, and a roofline row per
+    record; AssertionError otherwise."""
+    from repro_torch.bench import roofline
+    from repro_torch.experiments.store import result_path
+    from repro_torch.launch import dryrun, spmv_bench
+
+    t_phase = time.perf_counter()
+    recs = {}
+    for kv in ("seq", "hd"):
+        rec = dryrun.run_cell(DRYRUN_ARCH, DRYRUN_SHAPE, False, kv_shard=kv)
+        if rec["status"] != "ok":
+            raise AssertionError(f"phase 17 {DRYRUN_ARCH} x {DRYRUN_SHAPE} "
+                                 f"kv_shard={kv}: {rec['error']}\n"
+                                 f"{rec['traceback']}")
+        coll = rec["collectives"]
+        if not coll.get("total", 0) > 0:
+            raise AssertionError(f"phase 17 kv_shard={kv}: no collectives "
+                                 f"counted: {coll}")
+        print(f"[dryrun17] {DRYRUN_ARCH} x {DRYRUN_SHAPE} x 16x16 "
+              f"kv_shard={kv}: flops={rec['walk_flops']} "
+              f"bytes={rec['walk_bytes']} wire={coll['wire']} "
+              f"collectives={json.dumps(coll)} "
+              f"args={rec['argument_size_in_bytes']} "
+              f"out={rec['output_size_in_bytes']} "
+              f"lower_s={rec['lower_s']:.2f}", flush=True)
+        recs[kv] = rec
+    ratio = (recs["hd"]["collectives"].get("all-reduce", 0)
+             / max(recs["seq"]["collectives"].get("all-reduce", 0), 1))
+    print(f"[dryrun17] hd/seq all-reduce bytes: {ratio}", flush=True)
+    if not ratio > 1:
+        raise AssertionError(f"phase 17: the hd all-reduce is not above "
+                             f"the seq one ({ratio})")
+    spmv = spmv_bench.run_multi_pod()
+    for name in ("1d", "2d", "halo"):
+        if not spmv[name]["collectives"].get("total", 0) > 0:
+            raise AssertionError(f"phase 17: spmv {name} counted no "
+                                 f"collectives: {spmv[name]}")
+    print(f"[dryrun17] spmv_distributed {json.dumps(spmv)}", flush=True)
+    summary = roofline.run()
+    with open(result_path(roofline.CSV)) as f:
+        for line in f.read().splitlines():
+            print(f"[roofline17] {line}", flush=True)
+    if summary != {"cells_ok": 2, "cells_err": 0}:
+        raise AssertionError(f"phase 17 roofline: {summary}")
+    phase("dryrun", t_phase, hd_over_seq_all_reduce=f"{ratio:.2f}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5589,6 +5649,7 @@ def run(args, torch) -> int:
     k5_mesh = mesh_phase(dev, dense, zamba)
     del dense, zamba
     mesh_decode_phase(dev, smi)
+    dryrun_phase()
     for row in rows:
         if row["name"] == "ssd_chunk":
             row["launches_paths"] = {

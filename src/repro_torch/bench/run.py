@@ -7,6 +7,7 @@
     python -m repro_torch.bench.run --smoke-serve [--device cpu]
     python -m repro_torch.bench.run --smoke-route [--devices 8]
     python -m repro_torch.bench.run --smoke-workloads [--device cpu]
+    python -m repro_torch.bench.run --only roofline   # dry-run records
 
 Every run measures on the card unless it is given `--device cpu`.
 `--matrices` restricts the smoke grids, and the figures that read a
@@ -68,8 +69,9 @@ MODULES = [
     "corpus_scale",
     "workloads",
 ]
-# the JAX package's drivers that have no counterpart here yet
-NOT_PORTED = ("roofline",)
+# drivers that run only when --only names them: the roofline reads the
+# dry-run's records (launch.dryrun), which no figure run writes
+ON_REQUEST = ("roofline",)
 
 SMOKE_CSV = "smoke_campaign.csv"
 SMOKE_HEADER = ["matrix", "scheme", "engine", "plan_label", "seq_ios_ms",
@@ -612,11 +614,10 @@ def main(argv=None) -> None:
     mats = [m for m in args.matrices.split(",") if m] or None
     only = set(args.only.split(",")) if args.only else None
     if only:
-        unknown = only - set(MODULES)
+        unknown = only - set(MODULES) - set(ON_REQUEST)
         if unknown:
-            ap.error(f"--only: {sorted(unknown)} "
-                     + ("not ported yet" if unknown <= set(NOT_PORTED)
-                        else f"unknown; choose from {MODULES}"))
+            ap.error(f"--only: {sorted(unknown)} unknown; choose from "
+                     f"{MODULES + list(ON_REQUEST)}")
 
     smokes = {
         "smoke_parallel": lambda: smoke_parallel(mats, args.devices,
@@ -635,8 +636,8 @@ def main(argv=None) -> None:
     print("name,us_per_call,derived")
     failures = 0
     with obs.trace_to(args.trace):
-        for name in MODULES:
-            if only and name not in only:
+        for name in (*MODULES, *ON_REQUEST):
+            if (name not in only) if only else (name in ON_REQUEST):
                 continue
             t0 = time.time()
             try:

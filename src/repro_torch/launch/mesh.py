@@ -5,12 +5,15 @@ A mesh is a `torch.distributed.device_mesh.DeviceMesh` with named axes
 ("data", "model", and "pod" on a multi-pod mesh) over the process group
 that the caller has opened (`torch.distributed.init_process_group`: NCCL
 on the card, gloo on the CPU). Each factory checks that group's size and
-backend and raises, naming what it needs, when they do not fit.
+backend and raises, naming what it needs, when they do not fit; a fake
+group (`torch.testing._internal.distributed.fake_pg`, the dry-run's)
+stands in for either backend.
 Functions, not module-level constants: importing this module touches no
 device and no process group.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch.distributed as dist
@@ -36,9 +39,10 @@ def make_mesh(shape, axes, device=None):
         raise RuntimeError(f"make_mesh: a {shape} mesh needs a process group "
                            f"of {world} ranks; this one has "
                            f"{dist.get_world_size()}")
-    if backend not in dist.get_backend():
+    have = dist.get_backend()
+    if backend not in have and "fake" not in have:
         raise RuntimeError(f"make_mesh: a mesh on {dev.type} needs {backend}; "
-                           f"the process group runs {dist.get_backend()}")
+                           f"the process group runs {have}")
     from torch.distributed.device_mesh import init_device_mesh
 
     return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
@@ -55,6 +59,26 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
 def make_cpu_mesh(data: int = 1, model: int = 1):
     """A (data, model) mesh on the CPU, over gloo (the tests' meshes)."""
     return make_mesh((data, model), ("data", "model"), "cpu")
+
+
+@contextlib.contextmanager
+def fake_group(world: int):
+    """A fake process group of `world` ranks in this process, as rank 0,
+    destroyed on exit (`torch.testing._internal.distributed.fake_pg`, a
+    private module): its collectives take tensors on the CPU or the meta
+    device, move nothing and return at once, so one process counts what a
+    rank of a production mesh runs. RuntimeError if a group is open."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError(f"fake_group: a process group of "
+                           f"{dist.get_world_size()} ranks is open already")
+    dist.init_process_group("cpu:fake,meta:fake", store=FakeStore(),
+                            rank=0, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def dp_axes_of(mesh) -> tuple:

@@ -10,6 +10,7 @@
         --scheme rcm --devices 8 --layout 1d_rows --partition auto
     python -m repro_torch.launch.spmv_bench --serve-traffic \
         --devices 4 --meshes 2 --placement nnz_balance [--device cpu]
+    python -m repro_torch.launch.spmv_bench [--multi-pod]    # host only
 
 The port's counterpart of the JAX package's `run_single`: one matrix, one
 reordering scheme ("auto" searches), one engine ("auto" tunes), as a
@@ -50,6 +51,21 @@ verifies the ShardedOperator in the original index space and reports the
 modelled collective bytes of the chosen schedule beside the
 modelled-parallel time. On one card a p-device plan runs simulated.
 `--fresh` deletes the cell's stored record first, so it measures again.
+
+With no `--matrix` (and no `--serve-*`) it is the distributed-SpMV
+dry-run (`run_multi_pod`): the paper's own workload on the production
+mesh, (16, 16) or with `--multi-pod` (2, 16, 16), on one rank of a fake
+process group. A synthetic matrix of M_ROWS rows in BM x BN Block-ELL
+bricks runs ITERS CG-like SpMVs (the plain `ref.spmv_bell` on meta
+blocks, as the reference runs its `ref.spmv_bell`) in three layouts, and
+`hlo_cost.analyze` counts each one's flops and collective bytes:
+`lower_1d` (row panels; x all-gathered over the mesh every iteration),
+`lower_2d` (rows over "data", columns over "model"; partial y all-reduced
+over "model", the next x segment all-gathered over "data") and
+`lower_halo` (row panels of a banded matrix after RCM; two ring permutes
+of `halo` values through `dist.batch_isend_irecv`). It prints one line a
+layout and the wire ratios, and writes spmv_distributed.json under the
+drivers' results directory.
 """
 from __future__ import annotations
 
@@ -61,12 +77,136 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.measure import cg, ios
 from ..core.sparse.csr import CSRMatrix
+from ..core.spmv import ref
 from ..core.spmv.plan import SpmvProblem, plan
 from ..device import device_kind, resolve_device, torch_dtype
+from ..distributed import sharding as SH
 from ..kernels import LAUNCHES, launches_since
+
+
+# synthetic production matrix: 4.19M rows, ~16 nnz/row, 8x128 bricks
+M_ROWS = 1 << 22
+BM, BN = 8, 128
+K_1D = 32          # padded blocks per block-row (1-D panels)
+ITERS = 8          # CG-like repeated SpMV (xs swap)
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def lower_1d(mesh, m_rows: int = M_ROWS, iters: int = ITERS):
+    """The 1-D layout on this rank, as a thunk: its row panel's blocks
+    [nbr, K_1D, BM, BN], and the x panel all-gathered over the whole mesh
+    (the process group) every iteration, the 1-D layout's cost in CG."""
+    n_dev = SH.mesh_size(mesh)
+    panel_n = m_rows // n_dev
+    blocks = _meta(panel_n // BM, K_1D, BM, BN)
+    cols = _meta(panel_n // BM, K_1D, dtype=torch.int32)
+
+    def run():
+        x = _meta(panel_n)
+        for _ in range(iters):
+            xs = _meta(panel_n * n_dev)
+            dist.all_gather_into_tensor(xs, x)
+            y = ref.spmv_bell(blocks, cols, xs.reshape(-1, BN, 1))
+            x = y.reshape(-1)[:panel_n]
+        return x
+    return run
+
+
+def lower_2d(mesh, m_rows: int = M_ROWS, iters: int = ITERS):
+    """The 2-D layout on this rank, as a thunk: rows over "data", columns
+    over "model" (blocks [nbr, max(K_1D / model, 2), BM, BN]); each
+    iteration all-reduces the partial y over "model" and all-gathers the
+    next x segment over "data"."""
+    sizes = SH.axis_sizes(mesh)
+    d, m = sizes["data"], sizes["model"]
+    seg_n = m_rows // m
+    k2 = max(K_1D // m, 2)
+    blocks = _meta(m_rows // d // BM, k2, BM, BN)
+    cols = _meta(m_rows // d // BM, k2, dtype=torch.int32)
+    part = seg_n // d if seg_n // d else seg_n
+
+    def run():
+        x = _meta(seg_n)
+        for _ in range(iters):
+            y = ref.spmv_bell(blocks, cols, x.reshape(-1, BN, 1))
+            y = SH.all_reduce(y.reshape(-1), ("model",), mesh)
+            x_next = _meta(part * d)
+            dist.all_gather_into_tensor(x_next, y[:part].contiguous(),
+                                        group=mesh.get_group("data"))
+            x = x_next[:seg_n]
+        return x
+    return run
+
+
+def lower_halo(mesh, halo: int = 128, m_rows: int = M_ROWS,
+               iters: int = ITERS):
+    """The RCM-enabled halo exchange on this rank, as a thunk: a banded
+    matrix (bandwidth <= halo after reordering; 2 blocks a block row) in
+    row panels, and two ring permutes of `halo` values each way instead of
+    the all-gather (`dist.batch_isend_irecv` over the process group)."""
+    n_dev = SH.mesh_size(mesh)
+    rank = dist.get_rank()
+    panel_n = m_rows // n_dev
+    blocks = _meta(panel_n // BM, 2, BM, BN)
+    cols = _meta(panel_n // BM, 2, dtype=torch.int32)
+    nxt, prv = (rank + 1) % n_dev, (rank - 1) % n_dev
+
+    def run():
+        x = _meta(panel_n)
+        for _ in range(iters):
+            lh, rh = _meta(halo), _meta(halo)
+            ops = [dist.P2POp(dist.isend, x[-halo:].contiguous(), nxt),
+                   dist.P2POp(dist.irecv, lh, prv),
+                   dist.P2POp(dist.isend, x[:halo].contiguous(), prv),
+                   dist.P2POp(dist.irecv, rh, nxt)]
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+            xw = torch.cat([lh, x, rh])
+            y = ref.spmv_bell(blocks, cols, xw.reshape(-1, BN, 1))
+            x = y.reshape(-1)[:panel_n]
+        return x
+    return run
+
+
+def run_multi_pod(multi_pod: bool = False, m_rows: int = M_ROWS,
+                  iters: int = ITERS, out_dir=None) -> dict:
+    """The three layouts' flops and collectives per rank on the
+    production mesh, in a fake process group of its size; prints one line
+    a layout and the wire ratios and writes spmv_distributed.json under
+    `out_dir` (None: the drivers' results directory)."""
+    from ..experiments.store import results_dir
+    from . import hlo_cost
+    from .mesh import fake_group, make_production_mesh
+
+    out = {}
+    with fake_group(512 if multi_pod else 256):
+        mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+        for name, lower in [("1d", lower_1d), ("2d", lower_2d),
+                            ("halo", lower_halo)]:
+            walk = hlo_cost.analyze(lower(mesh, m_rows=m_rows, iters=iters))
+            out[name] = {"flops": walk["flops"],
+                         "collectives": walk["collectives"]}
+            print(f"[spmv-{name}] flops/dev={walk['flops']:.3e} "
+                  f"coll wire/dev={walk['collectives'].get('wire', 0):.3e} "
+                  f"B (per {iters} SpMVs)", flush=True)
+    wire = {k: out[k]["collectives"].get("wire", 0) for k in out}
+    r = wire["1d"] / max(wire["2d"], 1)
+    rh = wire["1d"] / max(wire["halo"], 1)
+    out["wire_ratio_1d_over_2d"] = r
+    out["wire_ratio_1d_over_halo"] = rh
+    print(f"[spmv] 1d/2d wire ratio: {r:.1f}x; 1d/halo: {rh:.0f}x")
+    out_dir = out_dir or results_dir()
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "spmv_distributed.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
 
 
 def structure_twin(mat: CSRMatrix, seed: int = 0) -> CSRMatrix:
@@ -605,6 +745,9 @@ def main(argv=None):
     ap.add_argument("--partition", default=None,
                     help="partitioner name or 'auto' (with --devices; "
                          "default nnz_balanced)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with no --matrix: the distributed-SpMV dry-run "
+                         "on the (2, 16, 16) mesh, not (16, 16)")
     ap.add_argument("--trace", default="", metavar="PATH",
                     help="record the run's spans (repro_torch.obs): "
                          ".jsonl -> raw event log, anything else -> "
@@ -666,8 +809,13 @@ def _dispatch(ap, args):
                              f"{rec['max_rel_err']:.2e}")
         return
     if not args.matrix:
-        ap.error("give --matrix (the campaigns are repro_torch.bench.run "
-                 "--smoke, --smoke-route, ...)")
+        if args.spmm != 1 or probe or args.devices > 1:
+            ap.error("--spmm/--probe/--learned/--devices require --matrix "
+                     "(single-cell mode)")
+        run_multi_pod(multi_pod=args.multi_pod)
+        return
+    if args.multi_pod:
+        ap.error("--multi-pod is the dry-run's (no --matrix)")
     if args.devices <= 1 and (args.layout or args.partition):
         ap.error("--layout/--partition require --devices > 1 "
                  "(sharded single-cell mode)")

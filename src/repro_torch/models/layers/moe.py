@@ -67,8 +67,12 @@ def _aux_loss(probs, experts, num_experts):
     f = F.one_hot(experts[:, 0], num_experts).to(probs.dtype).mean(0)
     p = probs.mean(0)
     aux = num_experts * torch.sum(f * p)
-    counts = torch.bincount(experts.reshape(-1),
-                            minlength=num_experts).to(torch.float32)
+    # bincount by scatter_add_: the same counts, and shapes that do not
+    # depend on the data (the dry-run runs this on meta tensors)
+    ef = experts.reshape(-1)
+    counts = torch.zeros(num_experts, dtype=ef.dtype, device=ef.device
+                         ).scatter_add_(0, ef, torch.ones_like(ef)
+                                        ).to(torch.float32)
     li = counts.max() / torch.clamp(counts.mean(), min=1e-9)  # paper §6.1
     return aux, li
 
@@ -181,11 +185,14 @@ def _expert_shapes(moe_cfg, d_model: int) -> dict:
             "w_down": (e, dff, d_model)}
 
 
-def expert_specs(moe_cfg, d_model: int, mesh, ep_axis: str = "model"):
+def expert_specs(moe_cfg, d_model: int, mesh, ep_axis: str = "model",
+                 weight_stationary: bool = False):
     """The specs of the expert weights on `mesh`: experts over `ep_axis`,
-    and under sharding.MOE_FSDP d_model over "data", validated against
-    the whole shapes as the state's layout is."""
-    fsdp = "data" if SH.MOE_FSDP and "data" in SH.axis_sizes(mesh) else None
+    and under sharding.MOE_FSDP d_model over "data" (not when
+    weight_stationary), validated against the whole shapes as the state's
+    layout is."""
+    fsdp = ("data" if SH.MOE_FSDP and not weight_stationary
+            and "data" in SH.axis_sizes(mesh) else None)
     specs = {"w_gate": (ep_axis, fsdp, None), "w_up": (ep_axis, fsdp, None),
              "w_down": (ep_axis, None, fsdp)}
     return {k: SH.validate_spec(shape, specs[k], mesh)
@@ -193,7 +200,7 @@ def expert_specs(moe_cfg, d_model: int, mesh, ep_axis: str = "model"):
 
 
 def moe_layer(params, x, moe_cfg, mesh=None, ep_axis="model",
-              dp_axes=("data",)):
+              dp_axes=("data",), weight_stationary=False):
     """x: [B, S, d]. Returns (y, metrics {aux_loss, router_li, drop_frac}).
 
     With a mesh (a DeviceMesh): x is this rank's rows (the same on every
@@ -205,7 +212,8 @@ def moe_layer(params, x, moe_cfg, mesh=None, ep_axis="model",
     one all_to_all each way; y is gathered back to the whole sequence. The
     metrics are the means of the per-rank ones over `ep_axis` and
     `dp_axes`. The weights' gradients come back summed over the mesh, as
-    sharding.gather gives them."""
+    sharding.gather gives them. weight_stationary: the expert weights
+    are laid out with no "data" axis (`model.param_layout`'s)."""
     if mesh is None:
         return _moe_body(params, x, moe_cfg)
     sizes = SH.axis_sizes(mesh)
@@ -214,7 +222,7 @@ def moe_layer(params, x, moe_cfg, mesh=None, ep_axis="model",
         raise ValueError(f"moe_layer: {moe_cfg.num_experts} experts do not "
                          f"split over {ep} {ep_axis!r} ranks")
     b, s, d = x.shape
-    specs = expert_specs(moe_cfg, d, mesh, ep_axis)
+    specs = expert_specs(moe_cfg, d, mesh, ep_axis, weight_stationary)
     # experts stay on their ep rank; as in the reference, a "data" axis of
     # one rank gathers nothing
     keep = (ep_axis,) if sizes.get("data", 1) > 1 else (ep_axis, "data")

@@ -61,6 +61,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..distributed import sharding as SH
+from ..training.tree import tree_map
 from .layers import attention as A
 from .layers import mamba2 as M
 from .layers import mlp as MLP
@@ -141,23 +142,33 @@ def _layer_gathers(tree, specs, mesh):
     return _LayerGather(torch.unbind(tree), specs[1:], mesh)
 
 
-def param_layout(cfg: ModelConfig, mesh) -> dict:
+def param_layout(cfg: ModelConfig, mesh,
+                 weight_stationary: bool = False) -> dict:
     """The specs of cfg's parameters on `mesh`: the reference's rules,
-    validated against the whole shapes (shape-only, nothing drawn)."""
-    return _layout(cfg, tuple(SH.axis_sizes(mesh).items()))
+    validated against the whole shapes (shape-only, nothing drawn).
+    weight_stationary: "data" dropped from every spec, as the reference's
+    dry-run lays out serving weights (model axis only, no FSDP)."""
+    return _layout(cfg, tuple(SH.axis_sizes(mesh).items()), SH.MOE_FSDP,
+                   weight_stationary)
 
 
 @functools.lru_cache(maxsize=16)
-def _layout(cfg: ModelConfig, sizes: tuple) -> dict:
+def _layout(cfg: ModelConfig, sizes: tuple, moe_fsdp: bool,
+            weight_stationary: bool) -> dict:
+    # moe_fsdp keys the cache only: param_specs reads sharding.MOE_FSDP
     shapes = init_params(cfg, device="meta")
-    return SH.validate_specs(shapes, SH.param_specs(shapes), dict(sizes))
+    specs = SH.param_specs(shapes)
+    if weight_stationary:
+        specs = tree_map(lambda sp: tuple(None if a == "data" else a
+                                          for a in sp), specs)
+    return SH.validate_specs(shapes, specs, dict(sizes))
 
 
-def _mesh_params(params, cfg, mesh):
+def _mesh_params(params, cfg, mesh, weight_stationary=False):
     """forward's view of this rank's parameter shards: the leaves outside
     the layer stacks gathered whole; the stacks' layers gathered as each
     layer indexes them; MoE subtrees as shards."""
-    specs = param_layout(cfg, mesh)
+    specs = param_layout(cfg, mesh, weight_stationary)
     return {k: _layer_gathers(v, specs[k], mesh) if k in _STACKED
             else SH.gather_tree(v, specs[k], mesh)
             for k, v in params.items()}
@@ -333,14 +344,16 @@ def _dense_layer(lp, x, cfg, *, window, cache=None, kv_chunk=1024,
 
 
 def _moe_dense_layer(lp, x, cfg, *, cache=None, kv_chunk=1024, mesh=None,
-                     dp_axes=("data",), kv_split=None):
+                     dp_axes=("data",), kv_split=None,
+                     weight_stationary=False):
     h = rmsnorm(lp["attn_norm"], x, cfg.rmsnorm_eps)
     y, new_cache = _attention(lp, h, cfg, cache=cache, kv_chunk=kv_chunk,
                               kv_split=kv_split)
     x = x + y
     h = rmsnorm(lp["mlp_norm"], x, cfg.rmsnorm_eps)
     y, moe_metrics = MOE.moe_layer(lp["moe"], h, cfg.moe, mesh=mesh,
-                                   dp_axes=dp_axes)
+                                   dp_axes=dp_axes,
+                                   weight_stationary=weight_stationary)
     return x + y, new_cache, moe_metrics
 
 
@@ -400,7 +413,8 @@ def _call(train: bool, fn, *args, **kw):
 
 def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
             use_kernel: str = "auto", train: bool = False, mesh=None,
-            dp_axes=("data",), cache_spec=None):
+            dp_axes=("data",), cache_spec=None,
+            weight_stationary: bool = False):
     """Returns (logits [B,S,V] f32, new_cache, metrics).
 
     batch: {"tokens": [B,S]}, or {"embeds": [B,S,d]} for a config that takes
@@ -424,7 +438,10 @@ def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
     tensors carry no layout; it is what the reference's jit takes as the
     cache's in_shardings): one token is decoded, no rank holds a KV cache
     or a state whole, and the blocks are updated in place and returned.
-    A cache on a mesh without its cache_spec raises ValueError."""
+    A cache on a mesh without its cache_spec raises ValueError.
+    weight_stationary: `params` are shards under `param_layout(cfg, mesh,
+    weight_stationary=True)`, so each layer gathers its weights over
+    "model" only."""
     family = _family(cfg)
     if cache is not None and cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: no decode cache")
@@ -440,7 +457,7 @@ def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
         params = {k: _unstack(v) if k in _STACKED else v
                   for k, v in params.items()}
     else:
-        params = _mesh_params(params, cfg, mesh)
+        params = _mesh_params(params, cfg, mesh, weight_stationary)
     if cfg.embed_inputs:
         x = embed(params["embed"], batch["tokens"])
         if cfg.name.startswith("gemma"):
@@ -464,7 +481,8 @@ def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
     elif family == "moe":
         x, metrics = _moe_forward(params, x, cfg, cache, kv_chunk, train,
                                   mesh, dp_axes,
-                                  _kv_split(on_mesh, cache_spec))
+                                  _kv_split(on_mesh, cache_spec),
+                                  weight_stationary)
     elif family == "gemma2":
         x = _pair_forward(params, x, cfg, cache, kv_chunk, train,
                           {part: _kv_split(on_mesh, cache_spec, part)
@@ -526,14 +544,15 @@ def _pair_forward(params, x, cfg, cache, kv_chunk, train, kv_splits):
 
 
 def _moe_forward(params, x, cfg, cache, kv_chunk, train, mesh, dp_axes,
-                 kv_split):
+                 kv_split, weight_stationary=False):
     acc = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in ("aux_loss", "router_li", "drop_frac")}
     for i in range(_depth(params["layers"])):
         lc = None if cache is None else _kv_layer(cache, i)
         x, nc, mm = _call(train, _at, _moe_dense_layer, params["layers"], i,
                           x, cfg, cache=lc, kv_chunk=kv_chunk, mesh=mesh,
-                          dp_axes=dp_axes, kv_split=kv_split)
+                          dp_axes=dp_axes, kv_split=kv_split,
+                          weight_stationary=weight_stationary)
         if cache is not None:
             cache["len"][i] = nc["len"]
         acc = {k: acc[k] + mm[k] for k in acc}

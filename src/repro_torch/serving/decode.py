@@ -11,7 +11,8 @@ from ..training.tree import cast_tree
 
 
 def make_serve_step(cfg: ModelConfig, mesh=None, dp_axes=("data",),
-                    compute_dtype=torch.bfloat16):
+                    compute_dtype=torch.bfloat16,
+                    weight_stationary: bool = False):
     """Returns serve_step(params, batch, cache, cache_spec=None) ->
     (next_tokens, cache).
 
@@ -34,9 +35,11 @@ def make_serve_step(cfg: ModelConfig, mesh=None, dp_axes=("data",),
     rank's rows'. No rank holds a KV cache or a state whole, and only one
     token's activations are gathered (see `model.forward`).
 
-    There is no constrain_weights: every path of the port gathers each
-    layer's weights by param_layout, so the reference's switch would
-    select nothing here."""
+    weight_stationary: the params are shards under `model.param_layout(cfg,
+    mesh, weight_stationary=True)`, with no "data" axis, so a step gathers
+    no weight over "data" (the reference's dry-run serves with this
+    layout; its `constrain_weights=False` keeps weights where the caller
+    sharded them, and a torch tensor carries no layout to keep)."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
 
@@ -52,7 +55,8 @@ def make_serve_step(cfg: ModelConfig, mesh=None, dp_axes=("data",),
                                  f"{mesh.device_type}, the batch on {where}")
             logits, new_cache, _ = MDL.forward(
                 params_c, batch, cfg, cache=cache, mesh=mesh,
-                dp_axes=tuple(dp_axes), cache_spec=cache_spec)
+                dp_axes=tuple(dp_axes), cache_spec=cache_spec,
+                weight_stationary=weight_stationary)
         next_tokens = logits[:, -1].argmax(dim=-1).to(torch.int32)
         return next_tokens, new_cache
 

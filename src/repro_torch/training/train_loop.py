@@ -36,11 +36,13 @@ from .tree import cast_tree, leaves, leaves_with_paths, tree_map, unflatten
 
 def batch_to_device(batch: dict, device) -> dict:
     """A batch of numpy arrays or tensors on `device`: integer fields
-    (tokens, labels) as int64, floating ones in their own type."""
+    (tokens, labels) as int64, floating ones in their own type. A field
+    on the meta device (the dry-run's shapes) stays there."""
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(v)
-        out[k] = (t if t.is_floating_point() else t.long()).to(device)
+        t = t if t.is_floating_point() else t.long()
+        out[k] = t if t.is_meta else t.to(device)
     return out
 
 

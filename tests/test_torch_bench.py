@@ -258,11 +258,16 @@ def test_run_only_and_matrices_reach_the_driver(tmp_path, monkeypatch,
     rows = _read(tmp_path / "repro_torch_results_dir"
                  / "fig09_load_imbalance.csv")
     assert {r[0] for r in rows[1:]} == {"smoke_banded"}
-    for bad, msg in (("roofline", "not ported yet"), ("fig99", "unknown")):
-        with pytest.raises(SystemExit) as e:
-            run.main(["--only", bad, "--device", "cpu"])
-        assert e.value.code == 2
-        assert msg in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        run.main(["--only", "fig99", "--device", "cpu"])
+    assert e.value.code == 2
+    assert "unknown" in capsys.readouterr().err
+    # the roofline runs on request (no dry-run records here: no rows)
+    with pytest.raises(SystemExit) as e:
+        run.main(["--only", "roofline", "--device", "cpu"])
+    assert e.value.code == 0
+    last = capsys.readouterr().out.splitlines()[-1]
+    assert last.startswith("roofline,") and '"cells_ok": 0' in last
 
 
 # -- run_single ------------------------------------------------------------

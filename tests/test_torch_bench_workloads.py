@@ -11,8 +11,8 @@ moe_dispatch.py), on the CPU, on the same streams:
 - the smoke's amortization invariants pass on both sides, and
   workload_invariants counts each planted fault once;
 - bench.run: --only workloads reaches its driver, --smoke-workloads runs
-  the smoke, NOT_PORTED is ("roofline",), and --trace writes a valid
-  trace.
+  the smoke, roofline runs on request only (ON_REQUEST), and --trace
+  writes a valid trace.
 
 The reference is pointed at temporary directories by monkeypatching its
 module attributes (RESULTS_DIR) and environment; nothing under
@@ -164,7 +164,8 @@ def test_run_only_workloads_reaches_the_driver(tmp_path, monkeypatch,
                                                capsys):
     from repro_torch.bench import run
 
-    assert run.NOT_PORTED == ("roofline",)
+    assert run.ON_REQUEST == ("roofline",)
+    assert "roofline" not in run.MODULES
     assert {"workloads", "moe_dispatch", "corpus_scale"} <= set(run.MODULES)
     _env(monkeypatch, tmp_path, PORT_ENV)
     seen = []
