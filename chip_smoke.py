@@ -353,9 +353,9 @@ the run with a nonzero exit code (nothing is caught):
                   plain scan at chunk 64 against 128 beside it, and K5
                   launched exactly 18 times (2 x 9: the forward and its
                   recomputation; the SSD's backward is torch ops); 14d
-                  launch.train.train on small_lm_config(), 40 steps of 8 x
-                  256, a checkpoint every 20: crashed at 20, resumed to
-                  40, and 40 uninterrupted steps in another directory
+                  launch.train.train on small_lm_config(), 20 steps of 8 x
+                  256, a checkpoint every 10: crashed at 10, resumed to
+                  20, and 20 uninterrupted steps in another directory
                   (the checkpoints in a temporary directory): the resumed
                   losses within 1e-5 of the uninterrupted ones, the
                   final loss below the first by more than 0.3, and
@@ -406,6 +406,15 @@ the run with a nonzero exit code (nothing is caught):
                   2 layers (the WKV state and the token shifts), B = 8,
                   8 prompt tokens through the plain step. No kernel may
                   launch (decode takes Mamba2's one-step recurrence).
+17. dry-run     — on the host: qwen2-7b x decode_32k on (16, 16) for both
+                  kv_shards (hd's all-reduce bytes above seq's), qwen2-7b
+                  x prefill_32k, whose tensor-parallel per-rank flops
+                  must stay within 1.5e14, the multi-pod SpMV layouts
+                  and the roofline over those records.
+
+`--tp-cards N` runs phase 15t alone instead, over N cards of one host:
+the tensor-parallel mesh train step over NCCL on a (1, N) mesh against
+the plain step on one card (see `tp_cards_phase`).
 
 Every kernel launch counter is set to 0 just before the first campaign of
 phase 4, the campaign of phase 4c, the drivers of phase 4f (its fig. 1
@@ -4502,7 +4511,7 @@ ZAMBA_TRAIN_SEQ = 1024
 ZAMBA_LOSS_TOL = 1e-4            # K5 against the plain SSD, relative
 ZAMBA_GRAD_TOL = 1e-3            # of each leaf's largest entry
 # 14d: the training driver on small_lm_config
-LOOP_STEPS, LOOP_CRASH, LOOP_EVERY = 40, 20, 20
+LOOP_STEPS, LOOP_CRASH, LOOP_EVERY = 20, 10, 10
 LOOP_BATCH, LOOP_SEQ = 8, 256
 LOOP_TOL = 1e-5                  # resumed losses against uninterrupted
 LOOP_DROP = 0.3                  # the reference test's bar on the loss
@@ -4793,9 +4802,10 @@ def zamba_train_phase(dev):
 
 
 def train_loop_phase(dev) -> None:
-    """14d: repro_torch.launch.train on small_lm_config(): 40 steps of 8 x
-    256 with a checkpoint every 20, crashed at 20 and resumed to 40, beside
-    an uninterrupted run in another directory."""
+    """14d: repro_torch.launch.train on small_lm_config(): LOOP_STEPS steps
+    of 8 x 256 with a checkpoint every LOOP_EVERY, crashed at LOOP_CRASH and
+    resumed to the end, beside an uninterrupted run in another
+    directory."""
     import torch
 
     from repro_torch.launch.train import small_lm_config, train
@@ -5444,20 +5454,26 @@ def mesh_decode_phase(dev, smi: str) -> None:
 
 
 # phase 17: the dry-run's counting half on the card's host (no device
-# work): qwen2-7b x decode_32k on (16, 16) for both kv_shards, the three
-# multi-pod SpMV layouts on (16, 16) and the roofline over those records,
-# each cell in a fake process group of 256 ranks of its own, opened after
-# phase 16 destroyed its NCCL group. No train cell (about a minute on a
-# host); the records and roofline.csv go to the run's temporary results
-# directory and are printed here
+# work): qwen2-7b x decode_32k on (16, 16) for both kv_shards, qwen2-7b x
+# prefill_32k on (16, 16), the three multi-pod SpMV layouts on (16, 16)
+# and the roofline over those records, each cell in a fake process group
+# of 256 ranks of its own, opened after phase 16 destroyed its NCCL group.
+# No train cell (about a minute on a host); the records and roofline.csv
+# go to the run's temporary results directory and are printed here
 DRYRUN_ARCH, DRYRUN_SHAPE = "qwen2-7b", "decode_32k"
+# the tensor-parallel prefill's per-rank flops gate: 1788733619699712
+# before the step split its matmuls over "model"; the gate holds only if
+# the attention (28 heads, 4 KV heads on 16 ranks: the sequence split)
+# splits too
+PREFILL_SHAPE, PREFILL_MAX_FLOPS = "prefill_32k", 1.5e14
 
 
 def dryrun_phase() -> None:
     """Phase 17: status ok, collectives counted, the hd variant's
     all-reduce bytes above the seq variant's (the one-token rule holds
-    for seq only), every SpMV layout communicating, and a roofline row per
-    record; AssertionError otherwise."""
+    for seq only), the prefill's per-rank flops within PREFILL_MAX_FLOPS,
+    every SpMV layout communicating, and a roofline row per record;
+    AssertionError otherwise."""
     from repro_torch.bench import roofline
     from repro_torch.experiments.store import result_path
     from repro_torch.launch import dryrun, spmv_bench
@@ -5488,6 +5504,19 @@ def dryrun_phase() -> None:
     if not ratio > 1:
         raise AssertionError(f"phase 17: the hd all-reduce is not above "
                              f"the seq one ({ratio})")
+    rec = dryrun.run_cell(DRYRUN_ARCH, PREFILL_SHAPE, False)
+    if rec["status"] != "ok":
+        raise AssertionError(f"phase 17 {DRYRUN_ARCH} x {PREFILL_SHAPE}: "
+                             f"{rec['error']}\n{rec['traceback']}")
+    model_over = roofline.model_flops_per_device(rec) / rec["walk_flops"]
+    print(f"[dryrun17] {DRYRUN_ARCH} x {PREFILL_SHAPE} x 16x16: "
+          f"flops={rec['walk_flops']} bytes={rec['walk_bytes']} "
+          f"wire={rec['collectives']['wire']} "
+          f"model_over_counted={model_over:.4f} "
+          f"lower_s={rec['lower_s']:.2f}", flush=True)
+    if not rec["walk_flops"] <= PREFILL_MAX_FLOPS:
+        raise AssertionError(f"phase 17 {PREFILL_SHAPE}: {rec['walk_flops']}"
+                             f" flops a rank, over {PREFILL_MAX_FLOPS:.1e}")
     spmv = spmv_bench.run_multi_pod()
     for name in ("1d", "2d", "halo"):
         if not spmv[name]["collectives"].get("total", 0) > 0:
@@ -5498,9 +5527,161 @@ def dryrun_phase() -> None:
     with open(result_path(roofline.CSV)) as f:
         for line in f.read().splitlines():
             print(f"[roofline17] {line}", flush=True)
-    if summary != {"cells_ok": 2, "cells_err": 0}:
+    if summary != {"cells_ok": 3, "cells_err": 0}:
         raise AssertionError(f"phase 17 roofline: {summary}")
-    phase("dryrun", t_phase, hd_over_seq_all_reduce=f"{ratio:.2f}")
+    phase("dryrun", t_phase, hd_over_seq_all_reduce=f"{ratio:.2f}",
+          prefill_flops=rec["walk_flops"],
+          prefill_model_over_counted=f"{model_over:.4f}")
+
+
+# phase 15t, only with --tp-cards N (N cards of one host; the default run
+# needs one card and skips it): the tensor-parallel mesh train step over
+# NCCL, one process a card (a TCP store on localhost), a (1, N) ("data",
+# "model") mesh. qwen2-7b at full width cut to TP_LAYERS layers (its 28
+# heads and 4 KV heads split over 4 ranks), and the same with TP_KV_SPLIT
+# KV heads, which do not split, so its attention splits the sequence: one
+# f32 step against the plain step on one card from the same state (loss,
+# grad_norm and every leaf of mu, (1 - b1) x the clipped gradient, within
+# TP_TOL of the leaf's largest entry), then TP_STEPS bf16 steps of each
+# path timed with CUDA events, with their peak memory
+TP_LAYERS, TP_BATCH, TP_SEQ, TP_STEPS = 2, 2, 4096, 3
+TP_KV_SPLIT, TP_TOL = 2, 1e-4
+
+
+def tp_cards_phase(world: int) -> None:
+    """Phase 15t over `world` cards; AssertionError past TP_TOL or if a
+    rank fails."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        mp.start_processes(_tp_worker, args=(world, port, out), nprocs=world,
+                           join=True, start_method="spawn")
+        with open(os.path.join(out, "tp.json")) as f:
+            rows = json.load(f)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for name, row in rows.items():
+        phase(f"tp15t {name} train step on {world} cards vs one card",
+              t_phase, **{k: json.dumps(v) if isinstance(v, list) else v
+                          for k, v in row.items()})
+        worst = max(row["loss_rel"], row["grad_norm_rel"], row["worst_mu_rel"])
+        if not worst <= TP_TOL:
+            raise AssertionError(f"phase 15t {name}: {row}")
+    phase("tp cards", t_phase, cards=world)
+
+
+def _tp_worker(rank: int, world: int, port: int, out: str) -> None:
+    """One card's process of phase 15t; rank 0 also runs the plain steps
+    and writes the rows."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, SRC)
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world, device_id=dev,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = make_mesh((1, world), ("data", "model"), dev)
+        rows = {name: _tp_case(dev, mesh, rank, kv) for name, kv in (
+            ("qwen2-7b", None), (f"qwen2-7b-kv{TP_KV_SPLIT}", TP_KV_SPLIT))}
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(os.path.join(out, "tp.json"), "w") as f:
+            json.dump(rows, f)
+
+
+def _tp_case(dev, mesh, rank: int, kv_heads) -> dict:
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.training import data as DATA
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.tree import leaves_with_paths, tree_map
+
+    cfg = dataclasses.replace(registry.get("qwen2-7b"), n_layers=TP_LAYERS,
+                              kv_heads=kv_heads or registry.get(
+                                  "qwen2-7b").kv_heads)
+    state = TL.init_state(cfg, seed=0, device=dev)
+    for _, t in leaves_with_paths(state):
+        dist.broadcast(t, 0)                 # rank 0's draws on every card
+    data = DATA.SyntheticLM(DATA.DataConfig(
+        vocab=cfg.vocab, seq_len=TP_SEQ, global_batch=TP_BATCH))
+    batches = [data.batch_for_model(k, cfg) for k in range(TP_STEPS)]
+    opt_cfg = OPT.OptConfig(**TRAIN_OPT)
+
+    def steps(dtype, mesh_):
+        kw = {"mesh": mesh_, "dp_axes": ("data",)} if mesh_ else {}
+        return TL.make_train_step(cfg, opt_cfg, compute_dtype=dtype,
+                                  device=dev, **kw)
+
+    f32, shardings, _ = steps(torch.float32, mesh)
+    specs = shardings(state["params"])
+    got, got_m = f32(SH.shard_tree(state, specs, mesh), batches[0])
+    mu = SH.unshard_tree(got["opt"]["mu"], specs["opt"]["mu"], mesh)
+    row = {}
+    if rank == 0:
+        want, want_m = steps(torch.float32, None)[0](
+            tree_map(torch.clone, state), batches[0])
+        worst, where = 0.0, ""
+        for (path, a), (_, b) in zip(leaves_with_paths(mu),
+                                     leaves_with_paths(want["opt"]["mu"])):
+            rel = float((a.double() - b.double()).abs().max()
+                        / max(float(b.abs().max()), 1e-30))
+            worst, where = max((worst, where), (rel, path))
+        row = {"layers": f"{TP_LAYERS} of 28", "kv_heads": cfg.kv_heads,
+               "tokens": f"{TP_BATCH}x{TP_SEQ}",
+               "loss": round(float(got_m["loss"]), 6),
+               "loss_rel": abs(float(got_m["loss"]) - float(want_m["loss"]))
+               / abs(float(want_m["loss"])),
+               "grad_norm_rel": abs(float(got_m["grad_norm"])
+                                    - float(want_m["grad_norm"]))
+               / float(want_m["grad_norm"]),
+               "worst_mu_rel": worst, "worst_leaf": where}
+        row.update(_tp_timed("plain", steps(torch.bfloat16, None)[0], want,
+                             batches))
+        del want
+    del mu, state
+    dist.barrier()
+    row.update(_tp_timed("mesh", steps(torch.bfloat16, mesh)[0], got,
+                         batches))
+    dist.barrier()
+    return row
+
+
+def _tp_timed(name: str, step_fn, state, batches) -> dict:
+    """TP_STEPS bf16 steps of `step_fn` from `state`: each step's ms
+    (CUDA events), loss and the peak memory over them."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, metrics, times = timed_steps(lambda s, b, mark: step_fn(s, b), state,
+                                    batches)
+    return {f"{name}_ms": [round(t[0], 3) for t in times],
+            f"{name}_loss": [round(float(m["loss"]), 6) for m in metrics],
+            f"{name}_peak_gib": round(torch.cuda.max_memory_allocated()
+                                      / 2**30, 2)}
 
 
 def main(argv=None) -> int:
@@ -5511,6 +5692,9 @@ def main(argv=None) -> int:
     ap.add_argument("--shuffled", default="fig1_shuffled")
     ap.add_argument("--banded", default="fig1_banded")
     ap.add_argument("--iters", type=int, default=ITERS)
+    ap.add_argument("--tp-cards", type=int, default=0,
+                    help="run phase 15t alone over this many cards of one "
+                         "host, instead of the one-card run")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print(f"chip_smoke: {SRC}/repro_torch not found; run this script "
@@ -5537,9 +5721,30 @@ def main(argv=None) -> int:
                      ("REPRO_TORCH_CORPUS_CACHE", "corpus")):
         os.environ[var] = os.path.join(stores, sub)
     try:
-        return run(args, torch)
+        return tp_run(args, torch) if args.tp_cards else run(args, torch)
     finally:
         shutil.rmtree(stores, ignore_errors=True)
+
+
+def tp_run(args, torch) -> int:
+    """`--tp-cards N`: the environment, phase 15t over N cards, the cards'
+    name and power limit, and the contract's last line."""
+    t_run = time.perf_counter()
+    if torch.cuda.device_count() < args.tp_cards:
+        print(f"chip_smoke: --tp-cards {args.tp_cards} needs as many cards; "
+              f"this host has {torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    smi = nvidia_smi()
+    phase("environment", t_run, nvidia_smi=json.dumps(smi),
+          torch=torch.__version__, cuda=torch.version.cuda,
+          count=torch.cuda.device_count())
+    tp_cards_phase(args.tp_cards)
+    phase("total", t_run)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def run(args, torch) -> int:

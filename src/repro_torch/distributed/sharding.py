@@ -16,20 +16,33 @@ spec functions also take anything whose `shape` maps axis names to sizes
 (the reference reads only `mesh.shape`), or such a dict itself.
 
 A rank holds the block of each leaf that its mesh coordinates name
-(`shard`). Inside the model the layers gather their weights to whole
-tensors (`gather`): the forward all-gathers over the axes the spec names,
-and the backward reduce-scatters the gradient over them and all-reduces it
-over the others, so that every rank's gradient shard is the sum over the
-mesh of what each rank's loss contributes. A step that divides each rank's
-loss by the mesh size gets the gradient of the mean loss (see
-`training.train_loop`).
+(`shard`). Inside the model the layers gather their weights (`gather`):
+the forward all-gathers over the axes the spec names but those it is told
+to keep, and the backward reduce-scatters the gradient over them and
+all-reduces it over the axes the spec does not name. A tensor-parallel
+layer (`TensorParallel`) keeps "model": it computes with this rank's block
+of heads, d_ff, vocabulary or SSM heads, and moves its activations with
+`gather_dim` (all-gather, reduce-scatter back), `reduce_scatter_dim`
+(reduce-scatter, all-gather back) and `psum` (all-reduce, all-reduce back).
+
+The gradient rule. Every collective's backward is its forward's adjoint,
+so when each rank backpropagates its loss divided by the mesh size, the
+ranks together take the gradient of the sum of those losses, which is the
+mean loss over the global batch (a "model" group's ranks hold one loss,
+its dp rows', M times over; see `training.train_loop`). A leaf's gradient
+is then summed over the axes whose ranks each hold a part of it: over the
+dp axes always; over "model" for a replicated leaf (a norm scale, an
+rwkv6 mix, the router), whose uses on a rank see its block of the sequence
+or of the heads only, and for a leaf a layer gathers whole over "model";
+never over "model" for a leaf kept split over it, whose block only its
+rank uses.
 """
 from __future__ import annotations
 
 import copy
 import math
 import re
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -378,11 +391,103 @@ def gather_dim(t: torch.Tensor, dim: int, axis, mesh) -> torch.Tensor:
     return _Gather.apply(t, mesh, ((dim, entry_axes(axis)),), ())
 
 
-def gather_tree(tree, specs, mesh):
-    """`gather` over a tree and its tree of specs."""
+class _ReduceScatter(torch.autograd.Function):
+    """Forward: reduce-scatter along `dim` over `axis`. Backward: all-gather
+    the gradient along it (the adjoint)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim, axis):
+        ctx.mesh, ctx.dim, ctx.axis = mesh, dim, axis
+        return _reduce_scatter_dim(t, dim, axis, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_gather_dim(g, ctx.dim, ctx.axis, ctx.mesh), None, None,
+                None)
+
+
+def reduce_scatter_dim(t: torch.Tensor, dim: int, axis: str,
+                       mesh) -> torch.Tensor:
+    """The sum of `t` over the ranks of `axis`, of which this rank keeps its
+    block along `dim`; differentiable (the gradient is all-gathered back)."""
+    return _ReduceScatter.apply(t, mesh, dim, axis)
+
+
+class _Psum(torch.autograd.Function):
+    """Forward: the sum over `axes`. Backward: the sum of the gradients
+    over them (the adjoint)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce(t, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axes, ctx.mesh), None, None
+
+
+def psum(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """The sum of `t` over the ranks along `axes`, differentiable: the
+    reference's psum."""
+    return _Psum.apply(t, mesh, tuple(axes))
+
+
+class TensorParallel(NamedTuple):
+    """The ranks of one mesh axis (`axis`, "model") splitting a layer's
+    matmuls: `size` ranks, this one `rank`. Between layers each holds its
+    block of the sequence (dim 1) of the residual stream."""
+    mesh: Any
+    axis: str
+    size: int
+    rank: int
+
+    def divides(self, n: int) -> bool:
+        return n % self.size == 0
+
+    def block(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of the whole `t` along `dim` (a view)."""
+        n = t.shape[dim] // self.size
+        return t.narrow(dim, self.rank * n, n)
+
+    def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole sequence from each rank's block (dim 1)."""
+        return gather_dim(x, 1, self.axis, self.mesh)
+
+    def scatter_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the sequence (dim 1) of the sum of every
+        rank's partial `x`."""
+        return reduce_scatter_dim(x, 1, self.axis, self.mesh)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return psum(x, (self.axis,), self.mesh)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """The largest `x` over the group, no gradient."""
+        return all_reduce(x.detach(), (self.axis,), self.mesh, op="max")
+
+
+def tensor_parallel(mesh, dp_axes):
+    """The TensorParallel group of "model" on `mesh`, or None off a mesh or
+    where "model" holds one rank: a layer then runs its plain body.
+    ValueError if the batch is split over "model" too."""
+    if mesh is None or axis_sizes(mesh).get("model", 1) == 1:
+        return None
+    if "model" in dp_axes:
+        raise ValueError(f"tensor_parallel: the batch is split over "
+                         f"'model' (dp_axes {tuple(dp_axes)}), whose ranks "
+                         f"split the matmuls")
+    return TensorParallel(mesh, "model", axis_sizes(mesh)["model"],
+                          mesh.get_local_rank("model"))
+
+
+def gather_tree(tree, specs, mesh, keep, path: str):
+    """`gather` over the tree at the "/"-joined `path` and its tree of
+    specs; keep(a leaf's path) names the axes that leaf stays split over."""
     if isinstance(tree, dict):
-        return {k: gather_tree(v, specs[k], mesh) for k, v in tree.items()}
-    return gather(tree, specs, mesh)
+        return {k: gather_tree(v, specs[k], mesh, keep, f"{path}/{k}")
+                for k, v in tree.items()}
+    return gather(tree, specs, mesh, keep=keep(path))
 
 
 class _Mean(torch.autograd.Function):

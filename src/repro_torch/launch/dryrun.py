@@ -26,11 +26,14 @@ under `hlo_cost.trace`, which counts its flops, bytes and collectives:
   decode  — `make_serve_step(mesh=)` on the rank's rows and its blocks of
             the cache under `launch.specs.cache_specs(kv_shard)`.
 
-What is counted is what the port runs. Its mesh paths gather each
-layer's weights whole and split the rows over the dp axes only, so every
-rank of the "model" axis computes its dp rows through the whole model
-(ROADMAP C7): the flops per rank are about model-axis-size times those
-of the reference's SPMD program.
+What is counted is what the port runs. The train and prefill steps are
+tensor-parallel over "model", as the reference's SPMD program is: each
+rank computes its heads, its part of d_ff, its experts and its block of
+the vocabulary, or its block of the sequence where the heads do not split
+(`models.model`), so their flops per rank are the reference's share
+(ROADMAP C7a). The decode step still gathers each layer's weights whole
+and splits the rows over the dp axes only, so every rank of the "model"
+axis computes its dp rows through the whole model (ROADMAP C7b).
 
 A record (<arch>__<shape>__<mesh>[__hd][__ws].json under
 `dryrun_dir()`, the variants kv_shard="hd" and --weight-stationary)

@@ -13,6 +13,20 @@ On a mesh (`kv_split`) a rank holds a block of the KV cache, its positions
 or its head_dim split over mesh axes, and decode combines the blocks'
 partial softmaxes (`sharded_decode_attention`); no rank holds the cache
 whole.
+
+Tensor-parallel (`attention_block(tp=)`, train and prefill on a mesh): the
+residual stream holds each rank's block of the sequence, and the layer
+splits its work over the group's M ranks in one of two ways
+(`heads_split`):
+  * heads, where n_heads and kv_heads both divide by M: the sequence is
+    gathered, the rank projects its heads (its columns of wq, wk, wv), attends
+    over the whole sequence, and its rows of wo give a partial sum that is
+    reduce-scattered back to the sequence blocks;
+  * sequence, otherwise (qwen2-7b's 28 heads and 4 KV heads on 16 ranks):
+    the weights are whole, the rank projects its S/M rows, gathers the keys
+    and values of every rank's rows, and attends its queries against them
+    with the causal mask offset to its rows. A cross-attention's keys and
+    values come from the whole image embeddings on every rank.
 """
 from __future__ import annotations
 
@@ -200,9 +214,45 @@ def _write_block(cache, k, v, base: int, split: KVSplit) -> None:
     cache["v"][:, base - start] = v[:, 0, :, lo:lo + d_blk]
 
 
+def heads_split(tp, n_heads: int, kv_heads: int) -> bool:
+    """Whether a tensor-parallel attention splits its heads over `tp`'s
+    ranks (both head counts divide), rather than its sequence."""
+    return tp.divides(n_heads) and tp.divides(kv_heads)
+
+
+def _tp_attention(params, x, *, n_heads, kv_heads, head_dim, rope_theta,
+                  causal, window, softcap, kv_chunk, cross_kv, tp):
+    """attention_block on this rank's block x [B, S/M, d] of the sequence
+    (see the module docstring); returns its block of the output."""
+    b, s, _ = x.shape
+    by_heads = heads_split(tp, n_heads, kv_heads)
+    if by_heads:
+        h, kvh = n_heads // tp.size, kv_heads // tp.size
+        x = tp.gather_seq(x)
+        s, lo = x.shape[1], 0
+    else:
+        h, kvh = n_heads, kv_heads
+        lo = tp.rank * s
+    kv_src = x if cross_kv is None else cross_kv
+    q = _split_heads(linear(params["wq"], x), h, head_dim)
+    k = _split_heads(linear(params["wk"], kv_src), kvh, head_dim)
+    v = _split_heads(linear(params["wv"], kv_src), kvh, head_dim)
+    if cross_kv is None:
+        positions = (lo + torch.arange(s, device=x.device)).expand(b, s)
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+        if not by_heads:
+            k, v = tp.gather_seq(k), tp.gather_seq(v)
+    y = flash_attention(q, k, v, causal=causal and cross_kv is None,
+                        window=window, softcap=softcap, kv_chunk=kv_chunk,
+                        q_offset=lo)
+    y = linear(params["wo"], y.reshape(b, s, h * head_dim))
+    return (tp.scatter_seq(y) if by_heads else y), None
+
+
 def attention_block(params, x, *, n_heads, kv_heads, head_dim, rope_theta,
                     causal=True, window=None, softcap=None, kv_chunk=1024,
-                    cache=None, cross_kv=None, kv_split=None):
+                    cache=None, cross_kv=None, kv_split=None, tp=None):
     """Full attention sub-block: proj -> rope -> (flash | decode) -> out proj.
 
     cache: None (prefill; returns (y, None)) or {k, v, len} for decode,
@@ -219,7 +269,16 @@ def attention_block(params, x, *, n_heads, kv_heads, head_dim, rope_theta,
     ValueError otherwise), the rank whose block holds position `len`
     writes its part of the new key and value, and the attention is
     sharded_decode_attention.
+    tp: None, or the tensor-parallel group (`sharding.TensorParallel`) of a
+    train or prefill step on a mesh, no cache: x is this rank's block of
+    the sequence, the weights its heads' columns (rows of wo) or whole as
+    `heads_split` says, and the result its block of the output.
     """
+    if tp is not None:
+        return _tp_attention(params, x, n_heads=n_heads, kv_heads=kv_heads,
+                             head_dim=head_dim, rope_theta=rope_theta,
+                             causal=causal, window=window, softcap=softcap,
+                             kv_chunk=kv_chunk, cross_kv=cross_kv, tp=tp)
     b, s, _ = x.shape
     kv_src = x if cross_kv is None else cross_kv
     q = _split_heads(linear(params["wq"], x), n_heads, head_dim)

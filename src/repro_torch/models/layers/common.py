@@ -73,11 +73,20 @@ def init_rmsnorm(gen, d, dtype=torch.float32, stack=()):
     return {"scale": torch.ones((*stack, d), dtype=dtype, device=gen.device)}
 
 
-def rmsnorm(p, x, eps=1e-5):
-    """RMS norm computed in f32 (f64 for f64); returns the input's type."""
+def rmsnorm(p, x, eps=1e-5, tp=None):
+    """RMS norm computed in f32 (f64 for f64); returns the input's type.
+    tp: x [..., d/M] is this rank's block of a last dim split over the
+    tensor-parallel group (`sharding.TensorParallel`) and p["scale"] the
+    block's scale; the mean of squares is over the whole dim (its sum
+    all-reduced)."""
     dt = x.dtype
     x = x.to(wide_dtype(dt))
-    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    if tp is None:
+        ms = (x * x).mean(dim=-1, keepdim=True)
+    else:
+        ms = tp.psum((x * x).sum(dim=-1, keepdim=True)) / (x.shape[-1]
+                                                           * tp.size)
+    x = x * torch.rsqrt(ms + eps)
     return (x * p["scale"].to(x.dtype)).to(dt)
 
 
@@ -85,8 +94,25 @@ def init_embedding(gen, vocab, d, dtype=torch.float32):
     return {"table": truncated_normal(gen, (vocab, d), 0.02, dtype)}
 
 
-def embed(p, tokens):
-    return p["table"][tokens]
+def embed(p, tokens, tp=None):
+    """The table's rows of `tokens` [B, S]. tp: the table is this rank's
+    block of the vocabulary (rows), and the result is this rank's block of
+    the sequence [B, S/M, d]: each rank looks up the tokens in its rows,
+    zeros the others, and the blocks are summed over the group."""
+    if tp is None:
+        return p["table"][tokens]
+    table = p["table"]
+    local, inside = _vocab_block(tokens, table.shape[0], tp)
+    rows = table[local] * inside[..., None].to(table.device, table.dtype)
+    return tp.scatter_seq(rows)
+
+
+def _vocab_block(ids, rows: int, tp):
+    """(index into this rank's `rows` of the vocabulary, inside it): ids
+    outside the rank's block index row 0 and are not inside."""
+    local = ids.long() - tp.rank * rows
+    inside = (local >= 0) & (local < rows)
+    return torch.where(inside, local, 0), inside
 
 
 def unembed(p, x, softcap=None):
@@ -126,10 +152,22 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 # Losses
 # ---------------------------------------------------------------------------
-def softmax_cross_entropy(logits, labels):
+def softmax_cross_entropy(logits, labels, tp=None):
     """logits [..., V], labels [...] int -> the mean of logsumexp - gold over
     every position. Every column counts, the padded ones too: they are
-    real rows of the (tied) embedding, as in the reference."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    real rows of the (tied) embedding, as in the reference.
+
+    tp: logits [..., V/M] are this rank's block of the vocabulary; the
+    largest logit, the sum of exponentials and the gold logit are reduced
+    over the group, so every rank returns the same loss and no rank holds
+    the whole vocabulary."""
+    if tp is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return torch.mean(logz - gold)
+    m = tp.pmax(logits.amax(dim=-1))
+    logz = torch.log(tp.psum(torch.exp(logits - m[..., None]).sum(dim=-1))) + m
+    local, inside = _vocab_block(labels, logits.shape[-1], tp)
+    gold = torch.gather(logits, -1, local[..., None].to(logits.device))[..., 0]
+    gold = tp.psum(gold * inside.to(logits.device, logits.dtype))
     return torch.mean(logz - gold)

@@ -11,6 +11,17 @@ As in the reference: a single B/C group, a scalar A per head, a causal conv
 of width 4. State cache = (conv_state [B, W-1, d_conv_ch], ssm_state
 [B, H, N, P]). On a mesh (`mamba2_block(split=)`) a rank holds the conv
 state's block of channels and the SSM state's block of heads.
+
+Tensor-parallel (`mamba2_block(tp=)`, train and prefill on a mesh): each
+rank runs its block of the heads over the whole sequence, which it
+gathers. in_proj packs [z | x | B | C | dt] and conv_w [x | B | C], so the
+reference's contiguous "model" split of those columns does not follow the
+heads: the two are gathered whole and the rank takes its heads' columns
+of z, x and dt, and B and C whole (every head reads them). a_log, dt_bias,
+d_skip, the gated norm's scale and out_proj's rows are split by heads as
+stored; the gated norm over d_inner all-reduces its sum of squares, and
+out_proj's partial sums are reduce-scattered back to the sequence blocks.
+The SSD (K5 on the card) runs on the rank's heads.
 """
 from __future__ import annotations
 
@@ -143,17 +154,26 @@ WHOLE = StateSplit(None, (), ())  # one device: every block is the whole
 
 
 def mamba2_block(params, x, ssm_cfg, cache=None, use_kernel="auto",
-                 split: StateSplit = WHOLE):
+                 split: StateSplit = WHOLE, tp=None):
     """x [B,S,d]. cache None (prefill from the zero state) or {conv, ssm}
     for decode (S = 1; ValueError otherwise), this rank's blocks under
     `split` on a mesh (`_decode_step`). Returns (y, new_cache_or_None).
+    tp: the tensor-parallel group of a train or prefill step on a mesh
+    (no cache): x and y are this rank's blocks of the sequence, and the
+    rank runs its heads (see the module docstring).
 
     No residual here: the model adds none around this block."""
     if cache is not None:
         return _decode_step(params, x, ssm_cfg, cache, split)
+    if tp is not None:
+        x = tp.gather_seq(x)
     b, s, d = x.shape
     d_inner = ssm_cfg.expand * d
-    z, xh, dt, b_mat, c_mat, _ = _mix(params, x, ssm_cfg)
+    if tp is None:
+        z, xh, dt, b_mat, c_mat, _ = _mix(params, x, ssm_cfg)
+    else:
+        z, xh, dt, b_mat, c_mat = _tp_mix(params, x, ssm_cfg, tp)
+        d_inner //= tp.size
     pad = (-s) % ssm_cfg.chunk
     if pad:
         xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
@@ -164,8 +184,39 @@ def mamba2_block(params, x, ssm_cfg, cache=None, use_kernel="auto",
                         ssm_cfg.chunk, use_kernel=use_kernel)
     y = y[:, :s] + xh[:, :s] * params["d_skip"][None, None, :, None]
     y = y.reshape(b, s, d_inner)
-    y = rmsnorm(params["norm"], y * F.silu(z))                   # gated norm
-    return linear(params["out_proj"], y), None
+    y = rmsnorm(params["norm"], y * F.silu(z), tp=tp)            # gated norm
+    y = linear(params["out_proj"], y)
+    return (y if tp is None else tp.scatter_seq(y)), None
+
+
+def _tp_mix(params, x, ssm_cfg, tp):
+    """_mix on this rank's heads (x [B,S,d] the whole sequence; in_proj,
+    conv_w and conv_b whole, dt_bias the rank's heads): (z, xh [B,S,H/M,P],
+    dt [B,S,H/M], b_mat, c_mat [B,S,N] whole)."""
+    b, s, d = x.shape
+    d_inner = ssm_cfg.expand * d
+    n, p = ssm_cfg.d_state, ssm_cfg.head_dim
+    h = d_inner // p
+    if not tp.divides(h):
+        raise ValueError(f"mamba2: {h} heads do not split over {tp.size} "
+                         f"{tp.axis!r} ranks")
+    hb, db = h // tp.size, d_inner // tp.size
+
+    def span(lo, size):
+        return torch.arange(lo, lo + size, device=x.device)
+
+    mine = span(tp.rank * db, db)
+    bc = span(d_inner, 2 * n)
+    cols = torch.cat([mine, d_inner + mine, d_inner + bc,
+                      span(2 * d_inner + 2 * n + tp.rank * hb, hb)])
+    w = params["in_proj"]["w"].index_select(-1, cols)
+    z, xbc, dt = torch.split(x @ w, [db, db + 2 * n, hb], dim=-1)
+    dt = F.softplus(dt + params["dt_bias"])                    # [B,S,H/M]
+    ch = torch.cat([mine, bc])
+    xbc, _ = _causal_conv(xbc, params["conv_w"].index_select(-1, ch),
+                          params["conv_b"].index_select(-1, ch))
+    xs, b_mat, c_mat = torch.split(xbc, [db, n, n], dim=-1)
+    return z, xs.reshape(b, s, hb, p), dt, b_mat, c_mat
 
 
 def _decode_step(params, x, ssm_cfg, cache, split: StateSplit):

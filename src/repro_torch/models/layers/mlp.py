@@ -1,4 +1,4 @@
-"""Dense MLP block: SwiGLU."""
+"""Dense MLP block: SwiGLU, plain or tensor-parallel."""
 from __future__ import annotations
 
 import torch
@@ -15,7 +15,14 @@ def init_mlp(gen, d_model, d_ff, dtype=torch.float32, stack=()):
     }
 
 
-def mlp(params, x, activation=F.silu):
+def mlp(params, x, activation=F.silu, tp=None):
+    """x [..., d] -> [..., d]. tp (`sharding.TensorParallel`): x [B, S/M, d]
+    is this rank's block of the sequence, w_gate and w_up hold its columns
+    of d_ff and w_down its rows (column- then row-parallel); the sequence
+    is gathered before and the partial sums reduce-scattered after, so the
+    rank returns its block of the sequence."""
+    if tp is not None:
+        return tp.scatter_seq(mlp(params, tp.gather_seq(x), activation))
     return linear(params["w_down"],
                   activation(linear(params["w_gate"], x))
                   * linear(params["w_up"], x))

@@ -17,10 +17,10 @@ the paper's machinery to it, as the reference's does:
 
 The reference writes this in jnp, not Pallas, so plain torch ops are its
 port. Expert parallelism (`moe_layer(mesh=)`): experts sharded over
-`ep_axis` (mesh "model"), tokens sequence-sharded over the same axis when
-the sequence divides, and the dispatch buffer moved through one
-`all_to_all_single` each way; at one expert-parallel rank the same body
-runs with no exchange.
+`ep_axis` (mesh "model"), each rank routing the tokens it holds (its
+block of the sequence in the tensor-parallel forward), and the dispatch
+buffer moved through one `all_to_all_single` each way; at one
+expert-parallel rank the same body runs with no exchange.
 """
 from __future__ import annotations
 
@@ -203,13 +203,13 @@ def moe_layer(params, x, moe_cfg, mesh=None, ep_axis="model",
               dp_axes=("data",), weight_stationary=False):
     """x: [B, S, d]. Returns (y, metrics {aux_loss, router_li, drop_frac}).
 
-    With a mesh (a DeviceMesh): x is this rank's rows (the same on every
-    rank of its dp group) and `params` this rank's shards, the router
-    whole and each expert weight by `expert_specs`. The tokens are split
-    over `ep_axis` along the sequence when S divides (each rank routes
-    B * S/M tokens, and capacity is reckoned from them), the expert weights
-    gathered over "data", and the slot buffer exchanged over `ep_axis` in
-    one all_to_all each way; y is gathered back to the whole sequence. The
+    With a mesh (a DeviceMesh): x is the tokens this rank routes (in the
+    tensor-parallel forward its block of the sequence of its rows; in
+    decode its rows, the same on every rank of its dp group) and `params`
+    this rank's shards, the router whole and each expert weight by
+    `expert_specs`. Capacity is reckoned from the rank's tokens, the expert
+    weights gathered over "data", and the slot buffer exchanged over
+    `ep_axis` in one all_to_all each way; y holds the rank's tokens. The
     metrics are the means of the per-rank ones over `ep_axis` and
     `dp_axes`. The weights' gradients come back summed over the mesh, as
     sharding.gather gives them. weight_stationary: the expert weights
@@ -221,7 +221,7 @@ def moe_layer(params, x, moe_cfg, mesh=None, ep_axis="model",
     if moe_cfg.num_experts % ep:
         raise ValueError(f"moe_layer: {moe_cfg.num_experts} experts do not "
                          f"split over {ep} {ep_axis!r} ranks")
-    b, s, d = x.shape
+    d = x.shape[-1]
     specs = expert_specs(moe_cfg, d, mesh, ep_axis, weight_stationary)
     # experts stay on their ep rank; as in the reference, a "data" axis of
     # one rank gathers nothing
@@ -234,17 +234,10 @@ def moe_layer(params, x, moe_cfg, mesh=None, ep_axis="model",
                              f" is not this rank's block of {whole} under "
                              f"{spec}")
         weights[k] = SH.gather(params[k], spec, mesh, keep=keep)
-    seq_shard = ep > 1 and s > 1 and s % ep == 0
-    xl = x
-    if seq_shard:
-        r = mesh.get_local_rank(ep_axis)
-        xl = x.narrow(1, r * (s // ep), s // ep)
     exchange = None
     if ep > 1:
         exchange = (lambda t: _AllToAll.apply(t, mesh, ep_axis, True),
                     lambda t: _AllToAll.apply(t, mesh, ep_axis, False))
-    y, metrics = _moe_body(weights, xl, moe_cfg, exchange)
-    if seq_shard:
-        y = SH.gather_dim(y, 1, ep_axis, mesh)
+    y, metrics = _moe_body(weights, x, moe_cfg, exchange)
     axes = (ep_axis, *(a for a in dp_axes if a != ep_axis))
     return y, {k: SH.mesh_mean(v, mesh, axes) for k, v in metrics.items()}

@@ -15,6 +15,14 @@ LoRA and the per-head bonus u are kept, as they define WKV6.
 
 On a mesh (`rwkv6_decode(split=)`) a rank holds the WKV state's block of
 heads and the token shifts' block of channels.
+
+Tensor-parallel (`rwkv6_time_mix(tp=)`, `rwkv6_channel_mix(tp=)`, train
+and prefill on a mesh): the rank gathers the sequence, takes the token
+shifts whole, and runs its block of the heads: its columns of wr, wk, wv,
+wg and w_lora_b, its rows of u_bonus, its channels of w0 and ln_x (whose
+sum of squares over d_model is all-reduced), and its rows of wo, whose
+partial sums are reduce-scattered back to the sequence blocks. The channel
+mix is column- (wck) then row-parallel (wcv) over d_ff.
 """
 from __future__ import annotations
 
@@ -130,12 +138,16 @@ class StateSplit(NamedTuple):
 WHOLE = StateSplit(None, (), ())  # one device: every block is the whole
 
 
-def rwkv6_time_mix(params, x, rwkv_cfg, cache=None):
+def rwkv6_time_mix(params, x, rwkv_cfg, cache=None, tp=None):
     """x [B,S,d]. cache: None (prefill from the zero state) or
     {shift_t [B,1,d], wkv [B,H,D,D]} for one decode token (S = 1; the
     reference's decode update reads position 0 only, so S > 1 with a cache
     raises ValueError). Returns (out [B,S,d], new {shift_t, wkv} or None);
-    the cache passed in is not written."""
+    the cache passed in is not written. tp: the tensor-parallel group of a
+    train or prefill step on a mesh (no cache): x and out are this rank's
+    blocks of the sequence (see the module docstring)."""
+    if tp is not None:
+        x = tp.gather_seq(x)
     b, s, d = x.shape
     if cache is not None:
         if s != 1:
@@ -146,21 +158,29 @@ def rwkv6_time_mix(params, x, rwkv_cfg, cache=None):
         return y, {"shift_t": x[:, -1:], "wkv": state}
     hd = rwkv_cfg.head_dim
     h = d // hd
+    w0, ln_x = params["w0"], params["ln_x"]
+    if tp is not None:
+        if not tp.divides(h):
+            raise ValueError(f"rwkv6: {h} heads do not split over "
+                             f"{tp.size} {tp.axis!r} ranks")
+        h, d = h // tp.size, d // tp.size
+        w0, ln_x = tp.block(w0, -1), {"scale": tp.block(ln_x["scale"], -1)}
     xr, xk, xv, xw, xg = (_token_shift(x, params[f"mix_{n}"])
                           for n in "rkvwg")
     r = linear(params["wr"], xr).reshape(b, s, h, hd)
     k = linear(params["wk"], xk).reshape(b, s, h, hd)
     v = linear(params["wv"], xv).reshape(b, s, h, hd)
     g = F.silu(linear(params["wg"], xg))
-    log_w = -torch.exp(params["w0"] + torch.tanh(xw @ params["w_lora_a"])
+    log_w = -torch.exp(w0 + torch.tanh(xw @ params["w_lora_a"])
                        @ params["w_lora_b"]).reshape(b, s, h, hd)
     pad = (-s) % rwkv_cfg.chunk
     if pad:
         r, k, v, log_w = (F.pad(t, (0, 0, 0, 0, 0, pad))
                           for t in (r, k, v, log_w))
     y, _ = _wkv6_chunked(r, k, v, log_w, params["u_bonus"], rwkv_cfg.chunk)
-    y = rmsnorm(params["ln_x"], y[:, :s].reshape(b, s, d)) * g
-    return linear(params["wo"], y), None
+    y = rmsnorm(ln_x, y[:, :s].reshape(b, s, d), tp=tp) * g
+    y = linear(params["wo"], y)
+    return (y if tp is None else tp.scatter_seq(y)), None
 
 
 def _time_mix_step(params, x, rwkv_cfg, last, wkv, split: StateSplit):
@@ -195,7 +215,12 @@ def _time_mix_step(params, x, rwkv_cfg, last, wkv, split: StateSplit):
     return linear(params["wo"], y), state
 
 
-def rwkv6_channel_mix(params, x, cache_last=None):
+def rwkv6_channel_mix(params, x, cache_last=None, tp=None):
+    """The channel mix of x [B,S,d] (cache_last: the token before x[:, 0],
+    None for zero). tp: x and the result are this rank's blocks of the
+    sequence, wck its columns of d_ff and wcv its rows."""
+    if tp is not None:
+        return tp.scatter_seq(rwkv6_channel_mix(params, tp.gather_seq(x)))
     xk = _token_shift(x, params["cmix_k"], cache_last)
     k = torch.square(F.relu(linear(params["wck"], xk)))
     return linear(params["wcv"], k)

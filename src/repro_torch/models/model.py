@@ -37,10 +37,20 @@ over that axis is a Python loop over views of it.
 On a mesh (`forward(mesh=)`, a DeviceMesh with "data" and "model" axes,
 "pod" too on a multi-pod mesh) the parameters are this rank's shards, laid
 out by `param_layout` (the reference's sharding rules), and the batch is
-this rank's rows. Each layer gathers its weights to whole tensors inside
-its remat unit, so every model rank of a dp group runs the same
-tokens, except the MoE layers, which take their part of the sequence and
-exchange their expert slots over "model" (`moe.moe_layer(mesh=)`).
+this rank's rows. Train and prefill are tensor-parallel over "model", as
+the reference's SPMD program is: each layer gathers its weights over the
+other axes inside its remat unit and keeps its "model" block
+(`_tp_keep`); the residual stream holds each rank's block of the sequence
+[B, S/M, d] (the reference's `make_hint`), gathered before a layer's
+attention or MLP and reduce-scattered after its row-parallel output. An
+attention splits its heads where both head counts divide by M, else its
+sequence (`attention.heads_split`); an MLP splits d_ff, a Mamba2 or rwkv6
+layer its heads, MoE its experts (`moe.moe_layer(mesh=)` on the rank's
+block of the sequence); the embedding, the logits and the
+cross-entropy split the vocabulary. `forward` returns the whole logits
+(gathered over "model"); `loss_fn` never gathers them. The sequence and
+the padded vocabulary must divide by M (ValueError). On a "model" axis of
+one rank nothing splits and the layers run their plain bodies.
 Decode on a mesh (`forward(mesh=, cache=, cache_spec=)`) takes each cache
 leaf as this rank's block under `launch.specs.cache_specs`: the attention
 combines its blocks of positions (or of head_dim) by their log-sum-exp,
@@ -53,6 +63,7 @@ from __future__ import annotations
 
 import functools
 import math
+import re
 from typing import Any, Dict
 
 import torch
@@ -120,26 +131,29 @@ def _unstack(tree):
 
 class _LayerGather:
     """A stacked leaf's layers (the views `_unstack` gives) on a mesh:
-    indexing one gathers that layer's shard to the whole tensor, where the
-    layer's remat unit indexes it (recomputed in backward)."""
+    indexing one gathers that layer's shard, but over the axes in `keep`,
+    where the layer's remat unit indexes it (recomputed in backward)."""
 
-    def __init__(self, views, spec, mesh):
-        self.views, self.spec, self.mesh = views, spec, mesh
+    def __init__(self, views, spec, mesh, keep=()):
+        self.views, self.spec, self.mesh, self.keep = views, spec, mesh, keep
 
     def __len__(self):
         return len(self.views)
 
     def __getitem__(self, idx):
-        return SH.gather(self.views[idx], self.spec, self.mesh)
+        return SH.gather(self.views[idx], self.spec, self.mesh,
+                         keep=self.keep)
 
 
-def _layer_gathers(tree, specs, mesh):
-    """`_unstack` of a stacked tree whose layers gather as they are indexed;
-    an MoE subtree stays as its shards (`moe_layer` gathers it)."""
+def _layer_gathers(tree, specs, mesh, keep, path):
+    """`_unstack` of the stacked tree at `path` whose layers gather as they
+    are indexed (keep(path) of each leaf's path stays split); an MoE subtree
+    stays as its shards (`moe_layer` gathers it)."""
     if isinstance(tree, dict):
         return {k: _unstack(v) if k == "moe" else
-                _layer_gathers(v, specs[k], mesh) for k, v in tree.items()}
-    return _LayerGather(torch.unbind(tree), specs[1:], mesh)
+                _layer_gathers(v, specs[k], mesh, keep, f"{path}/{k}")
+                for k, v in tree.items()}
+    return _LayerGather(torch.unbind(tree), specs[1:], mesh, keep(path))
 
 
 def param_layout(cfg: ModelConfig, mesh,
@@ -164,14 +178,59 @@ def _layout(cfg: ModelConfig, sizes: tuple, moe_fsdp: bool,
     return SH.validate_specs(shapes, specs, dict(sizes))
 
 
-def _mesh_params(params, cfg, mesh, weight_stationary=False):
+def _mesh_params(params, cfg, mesh, weight_stationary=False, tp=None):
     """forward's view of this rank's parameter shards: the leaves outside
-    the layer stacks gathered whole; the stacks' layers gathered as each
-    layer indexes them; MoE subtrees as shards."""
+    the layer stacks gathered; the stacks' layers gathered as each layer
+    indexes them; MoE subtrees as shards. Without `tp` every leaf is
+    gathered whole; with it a leaf stays split over "model" where its
+    layer computes with the rank's block (`_tp_keep`)."""
     specs = param_layout(cfg, mesh, weight_stationary)
-    return {k: _layer_gathers(v, specs[k], mesh) if k in _STACKED
-            else SH.gather_tree(v, specs[k], mesh)
+    keep = (lambda path: ()) if tp is None else _tp_keep(cfg, tp)
+    return {k: _layer_gathers(v, specs[k], mesh, keep, k) if k in _STACKED
+            else SH.gather_tree(v, specs[k], mesh, keep, k)
             for k, v in params.items()}
+
+
+def _tp_keep(cfg: ModelConfig, tp):
+    """keep(path) of `_mesh_params` under tensor parallelism: ("model",)
+    for a leaf whose layer computes with this rank's block of it (heads,
+    d_ff, vocabulary, SSM or rwkv6 heads), () for one the layer reads
+    whole: an attention's where its heads do not split (it splits its
+    sequence), an MLP's where d_ff does not divide (it runs on the rank's
+    rows), and Mamba2's packed in_proj and conv (the rank takes its heads'
+    columns of them). A leaf whose spec does not name "model" is whole
+    either way."""
+    by_heads = A.heads_split(tp, cfg.n_heads, cfg.kv_heads)
+    by_ffn = tp.divides(cfg.d_ff)
+
+    def keep(path: str) -> tuple:
+        if re.search(r"attn/w[qkvo]/", path):
+            split = by_heads
+        elif re.search(r"mlp/w_", path):
+            split = by_ffn
+        else:
+            split = not re.search(r"in_proj/|conv_[wb]", path)
+        return (tp.axis,) if split else ()
+    return keep
+
+
+def _tensor_parallel(cfg: ModelConfig, mesh, dp_axes, seq_len: int):
+    """The tensor-parallel group of a train or prefill forward on `mesh`:
+    None off a mesh or where "model" holds one rank. ValueError where the
+    step cannot split: a sequence or a padded vocabulary that does not
+    divide into the group's blocks, or rwkv6's d_ff."""
+    tp = SH.tensor_parallel(mesh, dp_axes)
+    if tp is None:
+        return None
+    sizes = [("the sequence", seq_len),
+             ("the padded vocabulary", cfg.padded_vocab)]
+    if cfg.rwkv is not None:
+        sizes.append(("rwkv6's d_ff", cfg.d_ff))
+    for what, n in sizes:
+        if not tp.divides(n):
+            raise ValueError(f"forward: {what} ({n}) does not split over "
+                             f"{tp.size} {tp.axis!r} ranks")
+    return tp
 
 
 def _subspec(spec, path):
@@ -319,25 +378,32 @@ def _init_moe_layer(gen, cfg, dtype, stack):
 # layer bodies
 # ---------------------------------------------------------------------------
 def _attention(lp, h, cfg, *, window=None, softcap=None, cache=None,
-               kv_chunk=1024, kv_split=None):
+               kv_chunk=1024, kv_split=None, tp=None):
     return A.attention_block(
         lp["attn"], h, n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
         causal=not cfg.encoder_only, window=window, softcap=softcap,
-        kv_chunk=kv_chunk, cache=cache, kv_split=kv_split)
+        kv_chunk=kv_chunk, cache=cache, kv_split=kv_split, tp=tp)
+
+
+def _mlp(p, h, cfg, tp):
+    """The MLP: tensor-parallel where d_ff splits over `tp`, else (and off
+    a mesh) its whole weights on h, this rank's rows."""
+    return MLP.mlp(p, h, tp=tp if tp is not None and tp.divides(cfg.d_ff)
+                   else None)
 
 
 def _dense_layer(lp, x, cfg, *, window, cache=None, kv_chunk=1024,
-                 kv_split=None):
+                 kv_split=None, tp=None):
     h = rmsnorm(lp["attn_norm"], x, cfg.rmsnorm_eps)
     y, new_cache = _attention(lp, h, cfg, window=window,
                               softcap=cfg.attn_softcap, cache=cache,
-                              kv_chunk=kv_chunk, kv_split=kv_split)
+                              kv_chunk=kv_chunk, kv_split=kv_split, tp=tp)
     if "attn_post_norm" in lp:
         y = rmsnorm(lp["attn_post_norm"], y, cfg.rmsnorm_eps)
     x = x + y
     h = rmsnorm(lp["mlp_norm"], x, cfg.rmsnorm_eps)
-    y = MLP.mlp(lp["mlp"], h)
+    y = _mlp(lp["mlp"], h, cfg, tp)
     if "mlp_post_norm" in lp:
         y = rmsnorm(lp["mlp_post_norm"], y, cfg.rmsnorm_eps)
     return x + y, new_cache
@@ -345,10 +411,10 @@ def _dense_layer(lp, x, cfg, *, window, cache=None, kv_chunk=1024,
 
 def _moe_dense_layer(lp, x, cfg, *, cache=None, kv_chunk=1024, mesh=None,
                      dp_axes=("data",), kv_split=None,
-                     weight_stationary=False):
+                     weight_stationary=False, tp=None):
     h = rmsnorm(lp["attn_norm"], x, cfg.rmsnorm_eps)
     y, new_cache = _attention(lp, h, cfg, cache=cache, kv_chunk=kv_chunk,
-                              kv_split=kv_split)
+                              kv_split=kv_split, tp=tp)
     x = x + y
     h = rmsnorm(lp["mlp_norm"], x, cfg.rmsnorm_eps)
     y, moe_metrics = MOE.moe_layer(lp["moe"], h, cfg.moe, mesh=mesh,
@@ -364,38 +430,38 @@ def _at(fn, stack, i, *args, **kw):
     return fn(_layer(stack, i), *args, **kw)
 
 
-def _rwkv_layer(lp, x, cfg, cache=None, split=R.WHOLE):
+def _rwkv_layer(lp, x, cfg, cache=None, split=R.WHOLE, tp=None):
     """Time-mix then channel-mix, each with its residual. cache: None or
     this layer's {shift_t, shift_c, wkv} (its blocks under `split` on a
     mesh) for one decode token (`rwkv6.rwkv6_decode`); returns the new one
     (shift_c is the last position after the time-mix residual)."""
     if cache is not None:
         return R.rwkv6_decode(lp, x, cfg.rwkv, cache, split)
-    x = x + R.rwkv6_time_mix(lp, x, cfg.rwkv)[0]
-    return x + R.rwkv6_channel_mix(lp, x), None
+    x = x + R.rwkv6_time_mix(lp, x, cfg.rwkv, tp=tp)[0]
+    return x + R.rwkv6_channel_mix(lp, x, tp=tp), None
 
 
-def _cross_layer(lp, x, img, cfg):
+def _cross_layer(lp, x, img, cfg, tp=None):
     """The vlm's cross layer: attention from x to the image embeddings (no
     RoPE, not causal, no cache) scaled by tanh(gate), then the MLP."""
     h = rmsnorm(lp["attn_norm"], x, cfg.rmsnorm_eps)
     y, _ = A.attention_block(
         lp["cross_attn"], h, n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-        cross_kv=img)
+        cross_kv=img, tp=tp)
     x = x + torch.tanh(lp["gate"]) * y
     h = rmsnorm(lp["mlp_norm"], x, cfg.rmsnorm_eps)
-    return x + MLP.mlp(lp["mlp"], h)
+    return x + _mlp(lp["mlp"], h, cfg, tp)
 
 
 def _shared_attn_block(sp, x, cfg, cache=None, kv_chunk=1024,
-                       kv_split=None):
+                       kv_split=None, tp=None):
     h = rmsnorm(sp["norm"], x, cfg.rmsnorm_eps)
     y, new_cache = _attention(sp, h, cfg, cache=cache, kv_chunk=kv_chunk,
-                              kv_split=kv_split)
+                              kv_split=kv_split, tp=tp)
     x = x + y
     h = rmsnorm(sp["mlp_norm"], x, cfg.rmsnorm_eps)
-    return x + MLP.mlp(sp["mlp"], h), new_cache
+    return x + _mlp(sp["mlp"], h, cfg, tp), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -432,8 +498,11 @@ def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
     mesh: None, or a DeviceMesh over which `params` are this rank's shards
     (laid out by `param_layout`) and `batch` this rank's rows (its part of
     the batch over `dp_axes`, the same on every rank of its dp group); the
-    logits are those rows'. Each layer gathers its weights inside its remat
-    unit. A cache on a mesh holds this rank's block of each leaf under
+    logits are those rows', whole. Without a cache the step is
+    tensor-parallel over "model" (see the module docstring; ValueError
+    where the sequence or the padded vocabulary does not divide). With a
+    cache each layer gathers its weights whole inside its remat unit.
+    A cache on a mesh holds this rank's block of each leaf under
     `cache_spec`, the tree `launch.specs.cache_specs` gave for it (torch
     tensors carry no layout; it is what the reference's jit takes as the
     cache's in_shardings): one token is decoded, no rank holds a KV cache
@@ -442,6 +511,31 @@ def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
     weight_stationary: `params` are shards under `param_layout(cfg, mesh,
     weight_stationary=True)`, so each layer gathers its weights over
     "model" only."""
+    x, params, cache, metrics, tp = _hidden(
+        params, batch, cfg, cache, kv_chunk, use_kernel, train, mesh,
+        dp_axes, cache_spec, weight_stationary)
+    logits = _logits(params, x, cfg, tp)
+    if tp is not None:
+        logits = SH.gather_dim(logits, 2, tp.axis, mesh)
+    return logits, cache, metrics
+
+
+def _logits(params, x, cfg, tp):
+    """The f32 logits [B, S, V] of the final hidden states x (the tied
+    embedding's or the untied head's). Under `tp` x is this rank's block
+    of the sequence, and the logits [B, S, V/M] are its block of the
+    vocabulary over the whole sequence."""
+    if tp is not None:
+        x = tp.gather_seq(x)
+    if cfg.tie_embeddings and cfg.embed_inputs:
+        return unembed(params["embed"], x, cfg.final_softcap)
+    return linear(params["head"], x).to(wide_dtype(x.dtype))
+
+
+def _hidden(params, batch, cfg, cache, kv_chunk, use_kernel, train, mesh,
+            dp_axes, cache_spec, weight_stationary):
+    """forward up to the final norm: (its hidden states, the parameters'
+    view, the cache, the metrics, the tensor-parallel group or None)."""
     family = _family(cfg)
     if cache is not None and cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: no decode cache")
@@ -452,50 +546,51 @@ def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
         raise ValueError("forward: a cache on a mesh needs its cache_spec "
                          "(launch.specs.cache_specs' tree for it)")
     on_mesh = mesh if cache is not None else None
+    inputs = batch["tokens" if cfg.embed_inputs else "embeds"]
+    tp = None if cache is not None else _tensor_parallel(
+        cfg, mesh, dp_axes, inputs.shape[1])
     dtype = params["final_norm"]["scale"].dtype
     if mesh is None:
         params = {k: _unstack(v) if k in _STACKED else v
                   for k, v in params.items()}
     else:
-        params = _mesh_params(params, cfg, mesh, weight_stationary)
+        params = _mesh_params(params, cfg, mesh, weight_stationary, tp)
     if cfg.embed_inputs:
-        x = embed(params["embed"], batch["tokens"])
+        x = embed(params["embed"], inputs, tp)
         if cfg.name.startswith("gemma"):
             x = x * math.sqrt(cfg.d_model)
     else:
-        x = batch["embeds"].to(dtype)
+        x = inputs.to(dtype)
+        if tp is not None:
+            x = tp.block(x, 1)
     metrics: Dict[str, torch.Tensor] = {}
     if family == "hybrid":
         x, cache = _zamba_forward(params, x, cfg, cache, kv_chunk,
-                                  use_kernel, train, on_mesh, cache_spec)
+                                  use_kernel, train, on_mesh, cache_spec, tp)
     elif family == "rwkv6":
         x = _rwkv_forward(params, x, cfg, cache, train,
-                          _rwkv_split(on_mesh, cache_spec))
+                          _rwkv_split(on_mesh, cache_spec), tp)
     elif family == "vlm":
         if "image_embeds" not in batch:
             raise ValueError(f"{cfg.name}: the vlm's batch needs "
                              f"image_embeds [B, T, d]")
         x = _vlm_forward(params, x, batch["image_embeds"].to(dtype), cfg,
                          cache, kv_chunk, train,
-                         _kv_split(on_mesh, cache_spec, "self"))
+                         _kv_split(on_mesh, cache_spec, "self"), tp)
     elif family == "moe":
         x, metrics = _moe_forward(params, x, cfg, cache, kv_chunk, train,
                                   mesh, dp_axes,
                                   _kv_split(on_mesh, cache_spec),
-                                  weight_stationary)
+                                  weight_stationary, tp)
     elif family == "gemma2":
         x = _pair_forward(params, x, cfg, cache, kv_chunk, train,
                           {part: _kv_split(on_mesh, cache_spec, part)
-                           for part in ("local", "global")})
+                           for part in ("local", "global")}, tp)
     else:
         x = _dense_forward(params, x, cfg, cache, kv_chunk, train,
-                           _kv_split(on_mesh, cache_spec))
+                           _kv_split(on_mesh, cache_spec), tp)
     x = rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
-    if cfg.tie_embeddings and cfg.embed_inputs:
-        logits = unembed(params["embed"], x, cfg.final_softcap)
-    else:
-        logits = linear(params["head"], x).to(wide_dtype(x.dtype))
-    return logits, cache, metrics
+    return x, params, cache, metrics, tp
 
 
 def _kv_layer(kv, *idx):
@@ -511,40 +606,40 @@ def _depth(stack) -> int:
     return len(stack["attn_norm"]["scale"])
 
 
-def _dense_forward(params, x, cfg, cache, kv_chunk, train, kv_split):
+def _dense_forward(params, x, cfg, cache, kv_chunk, train, kv_split, tp):
     for i in range(_depth(params["layers"])):
         lc = None if cache is None else _kv_layer(cache, i)
         x, nc = _call(train, _at, _dense_layer, params["layers"], i, x,
                       cfg, window=None, cache=lc, kv_chunk=kv_chunk,
-                      kv_split=kv_split)
+                      kv_split=kv_split, tp=tp)
         if cache is not None:
             cache["len"][i] = nc["len"]
     return x
 
 
-def _pair(pairs, i, x, cfg, cache, kv_chunk, kv_splits):
+def _pair(pairs, i, x, cfg, cache, kv_chunk, kv_splits, tp):
     """gemma2's pair i: its local layer (windowed), then its global one.
     kv_splits: each part's KVSplit (None off a mesh)."""
     for part, window in (("local", cfg.sliding_window), ("global", None)):
         lc = None if cache is None else _kv_layer(cache[part], i)
         x, nc = _dense_layer(_layer(pairs[part], i), x, cfg, window=window,
                              cache=lc, kv_chunk=kv_chunk,
-                             kv_split=kv_splits[part])
+                             kv_split=kv_splits[part], tp=tp)
         if cache is not None:
             cache[part]["len"][i] = nc["len"]
     return x
 
 
-def _pair_forward(params, x, cfg, cache, kv_chunk, train, kv_splits):
+def _pair_forward(params, x, cfg, cache, kv_chunk, train, kv_splits, tp):
     pairs = params["layers"]
     for i in range(_depth(pairs["local"])):
         x = _call(train, _pair, pairs, i, x, cfg, cache, kv_chunk,
-                  kv_splits)
+                  kv_splits, tp)
     return x
 
 
 def _moe_forward(params, x, cfg, cache, kv_chunk, train, mesh, dp_axes,
-                 kv_split, weight_stationary=False):
+                 kv_split, weight_stationary, tp):
     acc = {k: torch.zeros((), dtype=torch.float32, device=x.device)
            for k in ("aux_loss", "router_li", "drop_frac")}
     for i in range(_depth(params["layers"])):
@@ -552,24 +647,24 @@ def _moe_forward(params, x, cfg, cache, kv_chunk, train, mesh, dp_axes,
         x, nc, mm = _call(train, _at, _moe_dense_layer, params["layers"], i,
                           x, cfg, cache=lc, kv_chunk=kv_chunk, mesh=mesh,
                           dp_axes=dp_axes, kv_split=kv_split,
-                          weight_stationary=weight_stationary)
+                          weight_stationary=weight_stationary, tp=tp)
         if cache is not None:
             cache["len"][i] = nc["len"]
         acc = {k: acc[k] + mm[k] for k in acc}
     return x, {k: v / cfg.n_layers for k, v in acc.items()}
 
 
-def _rwkv_forward(params, x, cfg, cache, train, split):
+def _rwkv_forward(params, x, cfg, cache, train, split, tp):
     for i in range(len(params["layers"]["wr"]["w"])):
         lc = None if cache is None else _layer(cache, i)
         x, nc = _call(train, _at, _rwkv_layer, params["layers"], i, x, cfg,
-                      lc, split)
+                      lc, split, tp)
         if cache is not None:
             _write(cache, i, nc)
     return x
 
 
-def _vlm_group(params, g, x, img, cfg, kv, kv_chunk, kv_split):
+def _vlm_group(params, g, x, img, cfg, kv, kv_chunk, kv_split, tp):
     """The vlm's group g: period - 1 dense layers over the group's KV
     caches, then its cross layer over `img` (recomputed every call, as the
     reference does: the cross keys and values are not cached)."""
@@ -578,21 +673,22 @@ def _vlm_group(params, g, x, img, cfg, kv, kv_chunk, kv_split):
         lc = None if kv is None else _kv_layer(kv, g, j)
         x, nc = _dense_layer(_layer(params["layers"], g * per + j), x, cfg,
                              window=None, cache=lc, kv_chunk=kv_chunk,
-                             kv_split=kv_split)
+                             kv_split=kv_split, tp=tp)
         if kv is not None:
             kv["len"][g][j] = nc["len"]
-    return _cross_layer(_layer(params["cross_layers"], g), x, img, cfg)
+    return _cross_layer(_layer(params["cross_layers"], g), x, img, cfg, tp)
 
 
-def _vlm_forward(params, x, img, cfg, cache, kv_chunk, train, kv_split):
+def _vlm_forward(params, x, img, cfg, cache, kv_chunk, train, kv_split, tp):
     kv = None if cache is None else cache["self"]
     for g in range(len(params["cross_layers"]["gate"])):
         x = _call(train, _vlm_group, params, g, x, img, cfg, kv, kv_chunk,
-                  kv_split)
+                  kv_split, tp)
     return x
 
 
-def _zamba_group(params, g, x, cfg, cache, kv_chunk, use_kernel, splits):
+def _zamba_group(params, g, x, cfg, cache, kv_chunk, use_kernel, splits,
+                 tp):
     """Zamba2's group g: its `hybrid_attn_period` Mamba2 layers, then the
     shared attention block. splits: (the Mamba2 StateSplit, WHOLE off a
     mesh; the shared attention's KVSplit, None off a mesh)."""
@@ -601,31 +697,31 @@ def _zamba_group(params, g, x, cfg, cache, kv_chunk, use_kernel, splits):
     for j in range(period):
         lc = None if cache is None else _layer(cache["mamba"], (g, j))
         x, nc = M.mamba2_block(_layer(params["layers"], g * period + j), x,
-                               cfg.ssm, lc, use_kernel, m_split)
+                               cfg.ssm, lc, use_kernel, m_split, tp)
         if cache is not None:
             _write(cache["mamba"], (g, j), nc)
     ac = None if cache is None else _kv_layer(cache["shared_attn"], g)
     x, nac = _shared_attn_block(params["shared_attn"], x, cfg, ac, kv_chunk,
-                                kv_split)
+                                kv_split, tp)
     if cache is not None:
         cache["shared_attn"]["len"][g] = nac["len"]
     return x
 
 
 def _zamba_forward(params, x, cfg, cache, kv_chunk, use_kernel, train,
-                   mesh, cache_spec):
+                   mesh, cache_spec, tp):
     period = cfg.hybrid_attn_period
     splits = (_mamba_split(mesh, cache_spec, "mamba"),
               _kv_split(mesh, cache_spec, "shared_attn"))
     for g in range(len(params["layers"]["in_proj"]["w"]) // period):
         x = _call(train, _zamba_group, params, g, x, cfg, cache, kv_chunk,
-                  use_kernel, splits)
+                  use_kernel, splits, tp)
     if "tail_layers" in params:
         t_split = _mamba_split(mesh, cache_spec, "tail")
         for j in range(len(params["tail_layers"]["in_proj"]["w"])):
             lc = None if cache is None else _layer(cache["tail"], j)
             x, nc = _call(train, _at, M.mamba2_block, params["tail_layers"],
-                          j, x, cfg.ssm, lc, use_kernel, t_split)
+                          j, x, cfg.ssm, lc, use_kernel, t_split, tp)
             if cache is not None:
                 _write(cache["tail"], j, nc)
     return x, cache
@@ -692,15 +788,19 @@ def loss_fn(params, batch, cfg: ModelConfig, train: bool = True,
     logits[:, :-1] against tokens[:, 1:]; MoE adds router_aux_weight x its
     aux_loss. metrics holds the forward's and "ce_loss", the loss (the aux
     term included, under the reference's name). On a mesh (see forward)
-    the cross-entropy is that of this rank's rows, and MoE's metrics are
-    means over the mesh."""
-    logits, _, metrics = forward(params, batch, cfg, train=train,
-                                 use_kernel=use_kernel, mesh=mesh,
-                                 dp_axes=dp_axes)
+    the cross-entropy is that of this rank's rows, every rank of a "model"
+    group holding the same, and MoE's metrics are means over the mesh; the
+    logits stay split over the vocabulary (the cross-entropy is
+    vocab-parallel), so no rank holds [B, S, V]."""
+    x, params, _, metrics, tp = _hidden(params, batch, cfg, None, 1024,
+                                        use_kernel, train, mesh, dp_axes,
+                                        None, False)
+    logits = _logits(params, x, cfg, tp)
     if cfg.encoder_only:
-        loss = softmax_cross_entropy(logits, batch["labels"])
+        loss = softmax_cross_entropy(logits, batch["labels"], tp)
     else:
-        loss = softmax_cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+        loss = softmax_cross_entropy(logits[:, :-1], batch["tokens"][:, 1:],
+                                     tp)
     if cfg.moe is not None and "aux_loss" in metrics:
         loss = loss + cfg.moe.router_aux_weight * metrics["aux_loss"]
     metrics["ce_loss"] = loss

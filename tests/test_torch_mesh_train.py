@@ -1,14 +1,20 @@
 """The mesh paths of the port on the CPU: four gloo processes on a (2, 2)
-("data", "model") mesh, against the port's own single-device step (the
-reference's multi-device tests cannot serve as an oracle).
+and a (1, 4) ("data", "model") mesh, against the port's own
+single-device step (the reference's multi-device tests cannot serve as an
+oracle). The mesh step is tensor-parallel over "model": on (1, 4) the four
+ranks of one "model" group compute one loss together, each its heads, d_ff,
+vocabulary or experts, and its block of the sequence between layers.
 
 One spawn runs every case; the tests read what its ranks wrote:
 
 - the reference's SPMD archs (qwen2-7b, qwen3-moe-30b-a3b, gemma2-27b,
   rwkv6-7b) and zamba2-7b, each at its smoke config (MoE at capacity
-  factor 8.0 and router_aux_weight 0), batch 4 x 64: one step of
-  make_train_step(mesh=) with microbatches=2 against the single-device
-  step on the whole batch. The loss within 1e-5; mu (after one step from
+  factor 8.0 and router_aux_weight 0), and qwen2-7b's smoke config with 2
+  KV heads, which do not split over 4 ranks (its attention splits the
+  sequence on (1, 4), its heads on (2, 2)), batch 4 x 64, on each mesh:
+  one step of make_train_step(mesh=) with microbatches=2 against the
+  single-device step on the whole batch. Every case holds the same
+  tolerances. The loss within 1e-5; mu (after one step from
   zero moments, (1 - b1) x the clipped gradient) gathered within 1e-4 of
   each leaf's largest entry; the parameters within 1e-5 of each leaf's
   largest entry plus what Adam's first update makes of mu's difference
@@ -19,9 +25,9 @@ One spawn runs every case; the tests read what its ranks wrote:
 - every rank's state leaves have the shapes of their blocks under the
   state's specs;
 - the MoE layer alone at the default aux weight and a capacity that drops
-  tokens: moe_layer(mesh=) against the single-device body run on each
-  (dp, ep) token shard and concatenated, the metrics averaged, within
-  1e-6.
+  tokens: moe_layer(mesh=) on each rank's (dp, ep) token shard (its rows,
+  its block of the sequence) against the single-device body run on each
+  shard and concatenated, the metrics averaged, within 1e-6.
 
 And in this process, on a one-rank gloo group and a (1, 1) mesh (what
 chip_smoke.py's phase 15 runs on the card over NCCL): for each of the ten
@@ -52,7 +58,10 @@ from repro_torch.training.tree import leaves_with_paths, tree_map
 
 ARCHS = ("qwen2-7b", "qwen3-moe-30b-a3b", "gemma2-27b", "rwkv6-7b",
          "zamba2-7b")
+KV2 = "qwen2-7b-kv2"             # 2 KV heads: do not split over 4 ranks
+CASES = ARCHS + (KV2,)
 WORLD, MESH = 4, (2, 2)
+MESHES = {"2x2": MESH, "1x4": (1, 4)}
 BATCH, SEQ, MICRO = 4, 64, 2
 LOSS_TOL, GRAD_TOL, PARAM_TOL, MOE_TOL = 1e-5, 1e-4, 1e-5, 1e-6
 OPT_KW = dict(warmup_steps=1, total_steps=4)
@@ -60,6 +69,9 @@ MOE_CAPACITY = 0.5               # drops tokens at 32 local tokens a shard
 
 
 def _cfg(arch):
+    if arch == KV2:
+        return dataclasses.replace(smoke_config(registry.get("qwen2-7b")),
+                                   kv_heads=2)
     cfg = smoke_config(registry.get(arch))
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -83,13 +95,22 @@ def _whole_step(cfg, state, batch):
     return step(_clone(state), batch)
 
 
-def _arch_case(arch, mesh, rank):
+def _oracle(arch):
+    """(cfg, state, batch, the single-device step's state and metrics, the
+    whole batch's gradient) of one case."""
     cfg = _cfg(arch)
     state = TL.init_state(cfg, seed=0, device="cpu")
     batch = DATA.SyntheticLM(DATA.DataConfig(
         vocab=cfg.vocab, seq_len=SEQ, global_batch=BATCH)).batch_for_model(
         0, cfg)
     want_state, want_m = _whole_step(cfg, state, batch)
+    _, _, g_whole = TL.loss_and_grads(
+        state["params"], TL.batch_to_device(batch, "cpu"), cfg)
+    return cfg, state, batch, want_state, want_m, g_whole
+
+
+def _arch_case(oracle, mesh, rank):
+    cfg, state, batch, want_state, want_m, g_whole = oracle
     step, shardings, bspec = TL.make_train_step(
         cfg, OPT.OptConfig(**OPT_KW), mesh=mesh, dp_axes=("data",),
         microbatches=MICRO, compute_dtype=torch.float32, device="cpu")
@@ -112,8 +133,6 @@ def _arch_case(arch, mesh, rank):
         TL.batch_to_device({k: v[rows] for k, v in batch.items()}, "cpu"),
         cfg, mesh=mesh, dp_axes=("data",))
     g_mesh = SH.unshard_tree(g_mesh, specs["params"], mesh)
-    _, _, g_whole = TL.loss_and_grads(
-        state["params"], TL.batch_to_device(batch, "cpu"), cfg)
 
     out = {"rank": rank, "shapes_ok": shapes_ok,
            "held": sharded,
@@ -173,9 +192,10 @@ def _moe_case(mesh, rank):
     shards = {"router": whole["router"],
               **{k: SH.shard(whole[k], specs[k], mesh) for k in specs}}
     rows = TL.dp_rows(BATCH, mesh, ("data",))
-    y, metrics = MOE.moe_layer(shards, x[rows], moe_cfg, mesh=mesh,
-                               dp_axes=("data",))
-    y = SH.gather_whole(y, ("data", None, None), mesh)
+    seq = SH.block_start(mesh, ("model",), SEQ // MESH[1], SEQ)
+    y, metrics = MOE.moe_layer(shards, x[rows, seq:seq + SEQ // MESH[1]],
+                               moe_cfg, mesh=mesh, dp_axes=("data",))
+    y = SH.gather_whole(y, ("data", "model", None), mesh)
     if rank:
         return {"rank": rank}
     # the oracle: the single-device body on each (dp, ep) token shard
@@ -203,9 +223,12 @@ def _worker(rank, tmp):
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
                             rank=rank, world_size=WORLD)
     try:
-        mesh = make_cpu_mesh(*MESH)
-        out = {arch: _arch_case(arch, mesh, rank) for arch in ARCHS}
-        out["moe_layer"] = _moe_case(mesh, rank)
+        meshes = {name: make_cpu_mesh(*shape)
+                  for name, shape in MESHES.items()}
+        oracles = {arch: _oracle(arch) for arch in CASES}
+        out = {name: {arch: _arch_case(oracles[arch], mesh, rank)
+                      for arch in CASES} for name, mesh in meshes.items()}
+        out["moe_layer"] = _moe_case(meshes["2x2"], rank)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -224,32 +247,38 @@ def runs(tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_mesh_step_loss(runs, arch):
-    r = runs[0][arch]
+# the (2, 2) cases keep their arch as their id
+MESH_CASES = [pytest.param(name, arch, id=arch if name == "2x2" else
+                           f"{name}-{arch}")
+              for name in MESHES for arch in CASES]
+
+
+@pytest.mark.parametrize("mesh,arch", MESH_CASES)
+def test_mesh_step_loss(runs, mesh, arch):
+    r = runs[0][mesh][arch]
     assert r["loss_rel"] <= LOSS_TOL, r
     assert r["gnorm_rel"] <= GRAD_TOL, r
     assert r["lr_equal"] and r["step"] == 1, r
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_mesh_gradients(runs, arch):
-    r = runs[0][arch]
+@pytest.mark.parametrize("mesh,arch", MESH_CASES)
+def test_mesh_gradients(runs, mesh, arch):
+    r = runs[0][mesh][arch]
     assert r["grad_rel"] <= GRAD_TOL, r
     assert r["mu_rel"] <= GRAD_TOL, r
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_mesh_adamw_params(runs, arch):
-    assert runs[0][arch]["param_excess"] <= 1.0, runs[0][arch]
+@pytest.mark.parametrize("mesh,arch", MESH_CASES)
+def test_mesh_adamw_params(runs, mesh, arch):
+    assert runs[0][mesh][arch]["param_excess"] <= 1.0, runs[0][mesh][arch]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_each_rank_holds_its_shards(runs, arch):
+@pytest.mark.parametrize("mesh,arch", MESH_CASES)
+def test_each_rank_holds_its_shards(runs, mesh, arch):
     for r in runs:
-        assert r[arch]["shapes_ok"], (r["rank"] if "rank" in r else r, arch)
-        assert r[arch]["held"] < r[arch]["whole"], r[arch]
-        assert r[arch]["bspec"] == ["data", None]
+        assert r[mesh][arch]["shapes_ok"], (r[mesh][arch]["rank"], mesh, arch)
+        assert r[mesh][arch]["held"] < r[mesh][arch]["whole"], r[mesh][arch]
+        assert r[mesh][arch]["bspec"] == ["data", None]
 
 
 def test_moe_layer_matches_the_body_on_each_shard(runs):

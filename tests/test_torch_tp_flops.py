@@ -1,0 +1,106 @@
+"""The flop oracle of the tensor-parallel mesh step: the reference's own
+train step, compiled by XLA over 8 host devices, against the port's
+dry-run train cell on a fake group of 8.
+
+One subprocess sets `XLA_FLAGS=--xla_force_host_platform_device_count=8`,
+builds a plain `jax.sharding.Mesh` of shape (2, 4) ("data", "model") (not
+`jax.make_mesh`, whose Explicit axes `with_sharding_constraint` refuses),
+and compiles `repro`'s `make_train_step` with the state shardings it
+returns, at each arch's smoke config, batch 8 x 64, 2 microbatches; it
+prints `hlo_cost.analyze_text`'s per-device flops as JSON, which a
+module-scoped fixture reads once. The archs: the eight that take tokens,
+llama-3.2-vision-11b with its image embeddings, hubert-xlarge with its
+frame embeddings, and qwen2-7b's smoke config with 2 KV heads, which do
+not split over 4 ranks (the port's attention splits its sequence there).
+The subprocess took 80 s on a host CPU with 3 threads.
+
+Each arch is one case: the port's per-rank flops (`launch.dryrun`'s
+`build_cell` and `analyze`, the matmul flops of one step) are at most 1.10
+times the reference's, and at least 0.85 times (zamba2-7b's port counts
+0.887: it takes B and C whole on every rank where the reference's SPMD
+partitioner replicates more of the Mamba2 block). Before the mesh step
+split its matmuls over "model", the port counted 2.68-4.00 times the
+reference's.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+from repro_torch.configs import registry
+from repro_torch.configs.base import ShapeConfig, smoke_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import fake_group, make_mesh
+
+MESH = (2, 4)
+TRAIN = ShapeConfig("t", 64, 8, "train")
+MICRO = 2
+KV2 = "qwen2-7b-kv2"
+ARCHS = ("qwen2-7b", "minicpm-2b", "command-r-plus-104b", "gemma2-27b",
+         "rwkv6-7b", "zamba2-7b", "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b",
+         KV2, "llama-3.2-vision-11b", "hubert-xlarge")
+MOST, LEAST = 1.10, 0.85
+
+REF_SCRIPT = textwrap.dedent("""
+    import dataclasses, json, os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import numpy as np
+    import jax
+    from jax.sharding import Mesh
+    from repro.configs import registry
+    from repro.configs.base import ShapeConfig, smoke_config
+    from repro.launch import hlo_cost, specs
+    from repro.training import optimizer, train_loop
+    mesh = Mesh(np.array(jax.devices()).reshape(%d, %d), ("data", "model"))
+    shape = ShapeConfig("t", %d, %d, "train")
+    out = {}
+    for name in %r:
+        arch = name[:-4] if name == %r else name
+        cfg = smoke_config(registry.get(arch))
+        if name == %r:
+            cfg = dataclasses.replace(cfg, kv_heads=2)
+        with mesh:
+            step, shardings, _ = train_loop.make_train_step(
+                cfg, optimizer.OptConfig(), mesh, ("data",),
+                microbatches=%d)
+            state = train_loop.init_state_shape(cfg)
+            sh = shardings(state["params"])
+            batch = specs.batch_specs(cfg, shape, mesh, ("data",))
+            fn = jax.jit(step, in_shardings=(sh, None),
+                         out_shardings=(sh, None))
+            text = fn.lower(state, batch).compile().as_text()
+        out[name] = int(hlo_cost.analyze_text(text)["flops"])
+    print("REF " + json.dumps(out))
+""") % (*MESH, TRAIN.seq_len, TRAIN.global_batch, ARCHS, KV2, KV2, MICRO)
+
+
+@pytest.fixture(scope="module")
+def reference():
+    r = subprocess.run([sys.executable, "-c", REF_SCRIPT],
+                       capture_output=True, text=True, timeout=900,
+                       env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin",
+                            "JAX_PLATFORMS": "cpu",
+                            "HOME": os.environ.get("HOME", "/tmp")})
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("REF ")]
+    assert line, r.stdout[-2000:] + r.stderr[-3000:]
+    return json.loads(line[0][4:])
+
+
+def _port_flops(name) -> int:
+    cfg = smoke_config(registry.get("qwen2-7b" if name == KV2 else name))
+    if name == KV2:
+        cfg = dataclasses.replace(cfg, kv_heads=2)
+    with fake_group(MESH[0] * MESH[1]):
+        mesh = make_mesh(MESH, ("data", "model"), "cpu")
+        run, _ = D.build_cell(cfg, TRAIN, mesh, microbatches=MICRO)
+        return D.analyze(run)["walk_flops"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_flops_per_rank_are_the_references(reference, arch):
+    port, ref = _port_flops(arch), reference[arch]
+    assert LEAST * ref <= port <= MOST * ref, (arch, port, ref, port / ref)
