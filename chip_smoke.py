@@ -407,14 +407,20 @@ the run with a nonzero exit code (nothing is caught):
                   8 prompt tokens through the plain step. No kernel may
                   launch (decode takes Mamba2's one-step recurrence).
 17. dry-run     — on the host: qwen2-7b x decode_32k on (16, 16) for both
-                  kv_shards (hd's all-reduce bytes above seq's), qwen2-7b
-                  x prefill_32k, whose tensor-parallel per-rank flops
-                  must stay within 1.5e14, the multi-pod SpMV layouts
-                  and the roofline over those records.
+                  kv_shards (hd's all-reduce bytes above seq's), whose
+                  tensor-parallel per-rank flops must stay within 1.5e10
+                  for each, qwen2-7b x prefill_32k, whose tensor-parallel
+                  per-rank flops must stay within 1.5e14, the multi-pod
+                  SpMV layouts and the roofline over those records.
 
-`--tp-cards N` runs phase 15t alone instead, over N cards of one host:
-the tensor-parallel mesh train step over NCCL on a (1, N) mesh against
-the plain step on one card (see `tp_cards_phase`).
+`--tp-cards N` runs phases 15t and 16t alone instead, over N cards of one
+host, each over NCCL on a (1, N) mesh (see `tp_cards_phase`): 15t, the
+tensor-parallel mesh train step against the plain step on one card; 16t,
+the tensor-parallel decode step (qwen2-7b at full width and 2 layers,
+B = 8, a 32,768-position cache, kv_shard "seq" and "hd") against the
+plain serve step on one card from the same filled cache, 4 tokens in
+f32 (tokens equal, logits within 1e-5, the gathered cache within 1e-6),
+then ms a token and peak memory of each in bf16.
 
 Every kernel launch counter is set to 0 just before the first campaign of
 phase 4, the campaign of phase 4c, the drivers of phase 4f (its fig. 1
@@ -5258,6 +5264,34 @@ def decode_gate(label: str, cfg, params, mesh, cache, tok, shape,
               **fields)
 
 
+def timed_decode_steps(step, args, tok):
+    """One warm-up and DECODE_TIMED steps of a serve step, args = (params,
+    cache, *more), from the tokens `tok` [B, 1]: (the median ms a step,
+    CUDA events around each; the peak memory over them; the memory held
+    before the first; the last tokens [B, 1]; the cache after)."""
+    import numpy as np
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    state, t, times = args[1], tok, []
+    for k in range(1 + DECODE_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t, state = step(args[0], {"tokens": t}, state, *args[2:])
+        end.record()
+        t = t[:, None]
+        if k:
+            times.append((start, end))
+    torch.cuda.synchronize()
+    return (float(np.median([s.elapsed_time(e) for s, e in times])),
+            torch.cuda.max_memory_allocated(), held, t, state)
+
+
 def decode_timed(label: str, cfg, params, mesh, cache, tok, shape,
                  smi: str) -> None:
     """16a in bf16: one warm-up and DECODE_TIMED steps of the mesh serve
@@ -5267,9 +5301,6 @@ def decode_timed(label: str, cfg, params, mesh, cache, tok, shape,
     before its first step; then one more step of each under
     torch.profiler (`profile_call`: device time by kernel group, the
     NCCL kernels among them)."""
-    import numpy as np
-    import torch
-
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch import specs as SP
     from repro_torch.models import model as MDL
@@ -5286,24 +5317,8 @@ def decode_timed(label: str, cfg, params, mesh, cache, tok, shape,
         else:
             step = make_serve_step(cfg)
             args = (params, cache_copy(cache))
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        state, t, times = args[1], tok, []
-        for k in range(1 + DECODE_TIMED):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            t, state = step(args[0], {"tokens": t}, state, *args[2:])
-            end.record()
-            t = t[:, None]
-            if k:
-                times.append((start, end))
-        torch.cuda.synchronize()
-        runs[name] = (float(np.median([s.elapsed_time(e) for s, e in times])),
-                      torch.cuda.max_memory_allocated(), held)
+        ms, peak, held, t, state = timed_decode_steps(step, args, tok)
+        runs[name] = (ms, peak, held)
         profile_call(f"{label} {name} bf16 decode step model_shards="
                      f"{SH.axis_sizes(mesh)['model']} combine_ranks="
                      f"{SH.mesh_size(mesh)}",
@@ -5322,29 +5337,17 @@ def decode_timed(label: str, cfg, params, mesh, cache, tok, shape,
           card=json.dumps(smi))
 
 
-def mesh_decode_dense(dev, mesh, smi: str) -> None:
-    """16a: qwen2-7b at full width (d_model 3584, 28 heads, 4 KV heads)
-    and DECODE_LAYERS layers, B = DECODE_BATCH, a cache of DECODE_CACHE
-    positions. The positions before the last DECODE_PLAIN tokens and the
-    steps after them (DECODE_STEPS, or decode_timed's DECODE_TIMED + 2 if
-    more) hold random keys and values from a seed (a plain fill of 32k
-    tokens would outlast the phase), then DECODE_PLAIN tokens go through the
-    plain serve step; decode_gate from there in f32, then decode_timed in
-    bf16 from the same cache."""
-    import dataclasses
-
+def filled_decode_cache(cfg, params, dev):
+    """16a's cache for `cfg`, f32: DECODE_BATCH rows of DECODE_CACHE
+    positions, random keys and values from a seed before the last
+    DECODE_PLAIN tokens and the steps after them, then DECODE_PLAIN
+    tokens through the plain serve step. Returns (the cache, the last
+    tokens [B, 1], the random positions)."""
     import torch
 
-    from repro_torch.configs import registry
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.models import model as MDL
     from repro_torch.serving.decode import make_serve_step
-    from repro_torch.training.tree import cast_tree
 
-    t0 = time.perf_counter()
-    full = registry.get(DECODE_ARCH)
-    cfg = dataclasses.replace(full, n_layers=DECODE_LAYERS)
-    params = MDL.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
     cache = MDL.init_cache(cfg, DECODE_BATCH, DECODE_CACHE,
                            dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(16)
@@ -5358,6 +5361,29 @@ def mesh_decode_dense(dev, mesh, smi: str) -> None:
     for _ in range(DECODE_PLAIN):
         tok, cache = plain(params, {"tokens": tok}, cache)
         tok = tok[:, None]
+    return cache, tok, start
+
+
+def mesh_decode_dense(dev, mesh, smi: str) -> None:
+    """16a: qwen2-7b at full width (d_model 3584, 28 heads, 4 KV heads)
+    and DECODE_LAYERS layers, B = DECODE_BATCH, a cache of DECODE_CACHE
+    positions, filled by `filled_decode_cache` (a plain fill of 32k tokens
+    would outlast the phase); decode_gate from there in f32, then
+    decode_timed in bf16 from the same cache."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import model as MDL
+    from repro_torch.training.tree import cast_tree
+
+    t0 = time.perf_counter()
+    full = registry.get(DECODE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=DECODE_LAYERS)
+    params = MDL.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    cache, tok, start = filled_decode_cache(cfg, params, dev)
     torch.cuda.synchronize()
     label = f"mesh16a {DECODE_ARCH}"
     shape = ShapeConfig("decode_32k", DECODE_CACHE, DECODE_BATCH, "decode")
@@ -5466,12 +5492,17 @@ DRYRUN_ARCH, DRYRUN_SHAPE = "qwen2-7b", "decode_32k"
 # the attention (28 heads, 4 KV heads on 16 ranks: the sequence split)
 # splits too
 PREFILL_SHAPE, PREFILL_MAX_FLOPS = "prefill_32k", 1.5e14
+# the tensor-parallel decode step's per-rank flops gate, for both
+# kv_shards: 1.10 x the reference's seq count (13,646,954,496); the step
+# that gathered each layer's weights whole counted 119,701,241,856
+DECODE_MAX_FLOPS = 1.5e10
 
 
 def dryrun_phase() -> None:
-    """Phase 17: status ok, collectives counted, the hd variant's
-    all-reduce bytes above the seq variant's (the one-token rule holds
-    for seq only), the prefill's per-rank flops within PREFILL_MAX_FLOPS,
+    """Phase 17: status ok, collectives counted, each decode variant's
+    per-rank flops within DECODE_MAX_FLOPS, the hd variant's all-reduce
+    bytes above the seq variant's (the one-token rule holds for seq
+    only), the prefill's per-rank flops within PREFILL_MAX_FLOPS,
     every SpMV layout communicating, and a roofline row per record;
     AssertionError otherwise."""
     from repro_torch.bench import roofline
@@ -5497,6 +5528,10 @@ def dryrun_phase() -> None:
               f"args={rec['argument_size_in_bytes']} "
               f"out={rec['output_size_in_bytes']} "
               f"lower_s={rec['lower_s']:.2f}", flush=True)
+        if not rec["walk_flops"] <= DECODE_MAX_FLOPS:
+            raise AssertionError(f"phase 17 {DRYRUN_SHAPE} kv_shard={kv}: "
+                                 f"{rec['walk_flops']} flops a rank, over "
+                                 f"{DECODE_MAX_FLOPS:.1e}")
         recs[kv] = rec
     ratio = (recs["hd"]["collectives"].get("all-reduce", 0)
              / max(recs["seq"]["collectives"].get("all-reduce", 0), 1))
@@ -5530,6 +5565,8 @@ def dryrun_phase() -> None:
     if summary != {"cells_ok": 3, "cells_err": 0}:
         raise AssertionError(f"phase 17 roofline: {summary}")
     phase("dryrun", t_phase, hd_over_seq_all_reduce=f"{ratio:.2f}",
+          decode_flops_seq=recs["seq"]["walk_flops"],
+          decode_flops_hd=recs["hd"]["walk_flops"],
           prefill_flops=rec["walk_flops"],
           prefill_model_over_counted=f"{model_over:.4f}")
 
@@ -5546,11 +5583,19 @@ def dryrun_phase() -> None:
 # path timed with CUDA events, with their peak memory
 TP_LAYERS, TP_BATCH, TP_SEQ, TP_STEPS = 2, 2, 4096, 3
 TP_KV_SPLIT, TP_TOL = 2, 1e-4
+# phase 16t, with --tp-cards N beside 15t: the tensor-parallel decode step
+# over NCCL on the (1, N) mesh. qwen2-7b at full width and TP_LAYERS
+# layers, DECODE_BATCH rows, a DECODE_CACHE-position cache filled as 16a
+# fills it; decode_paths from there in f32 for kv_shard "seq" and "hd"
+# (every card runs the plain step too and holds its own mesh step to it;
+# rank 0's row is printed), then one warm-up and DECODE_TIMED bf16 steps
+# of the mesh step on every card and of the plain step on card 0, ms a
+# token (CUDA events, the median) and peak memory
 
 
-def tp_cards_phase(world: int) -> None:
-    """Phase 15t over `world` cards; AssertionError past TP_TOL or if a
-    rank fails."""
+def tp_cards_phase(world: int, smi: str) -> None:
+    """Phases 15t and 16t over `world` cards; AssertionError past TP_TOL
+    (15t) or the decode gates (16t), or if a rank fails."""
     import socket
 
     import torch.multiprocessing as mp
@@ -5567,19 +5612,25 @@ def tp_cards_phase(world: int) -> None:
             rows = json.load(f)
     finally:
         shutil.rmtree(out, ignore_errors=True)
-    for name, row in rows.items():
+    for name, row in rows["train"].items():
         phase(f"tp15t {name} train step on {world} cards vs one card",
               t_phase, **{k: json.dumps(v) if isinstance(v, list) else v
-                          for k, v in row.items()})
+                          for k, v in row.items()}, card=json.dumps(smi))
         worst = max(row["loss_rel"], row["grad_norm_rel"], row["worst_mu_rel"])
         if not worst <= TP_TOL:
             raise AssertionError(f"phase 15t {name}: {row}")
+    for kv, row in rows["decode"].items():
+        phase(f"tp16t {DECODE_ARCH} decode step on {world} cards vs one "
+              f"card", t_phase, kv_shard=kv, **row, card=json.dumps(smi))
+        if not (row["tokens_equal"] and row["logit_rel"] <= DECODE_LOGIT_TOL
+                and row["worst_cache_rel"] <= DECODE_CACHE_TOL):
+            raise AssertionError(f"phase 16t kv_shard={kv}: {row}")
     phase("tp cards", t_phase, cards=world)
 
 
 def _tp_worker(rank: int, world: int, port: int, out: str) -> None:
-    """One card's process of phase 15t; rank 0 also runs the plain steps
-    and writes the rows."""
+    """One card's process of phases 15t and 16t; rank 0 also runs the
+    plain steps and writes the rows."""
     import datetime
 
     import torch
@@ -5597,8 +5648,13 @@ def _tp_worker(rank: int, world: int, port: int, out: str) -> None:
                             timeout=datetime.timedelta(seconds=600))
     try:
         mesh = make_mesh((1, world), ("data", "model"), dev)
-        rows = {name: _tp_case(dev, mesh, rank, kv) for name, kv in (
-            ("qwen2-7b", None), (f"qwen2-7b-kv{TP_KV_SPLIT}", TP_KV_SPLIT))}
+        rows = {"train": {name: _tp_case(dev, mesh, rank, kv)
+                          for name, kv in (("qwen2-7b", None),
+                                           (f"qwen2-7b-kv{TP_KV_SPLIT}",
+                                            TP_KV_SPLIT))}}
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows["decode"] = _tp_decode(dev, mesh, rank)
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -5669,6 +5725,76 @@ def _tp_case(dev, mesh, rank: int, kv_heads) -> dict:
     return row
 
 
+def _tp_decode(dev, mesh, rank: int) -> dict:
+    """Phase 16t on this card: {kv_shard: row}."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import model as MDL
+    from repro_torch.training.tree import cast_tree, leaves_with_paths
+
+    cfg = dataclasses.replace(registry.get(DECODE_ARCH), n_layers=TP_LAYERS)
+    params = MDL.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    for _, t in leaves_with_paths(params):
+        dist.broadcast(t, 0)                 # rank 0's draws on every card
+    cache, tok, _ = filled_decode_cache(cfg, params, dev)
+    for t in (cache["k"], cache["v"], tok):
+        dist.broadcast(t, 0)                 # card 0's filled cache
+    shape = ShapeConfig("decode_32k", DECODE_CACHE, DECODE_BATCH, "decode")
+    rows = {}
+    for kv in ("seq", "hd"):
+        t0 = time.perf_counter()
+        equal, logit_rel, worst, where = decode_paths(cfg, params, mesh,
+                                                      cache, tok, shape, kv)
+        rows[kv] = {"layers": f"{TP_LAYERS} of 28", "batch": DECODE_BATCH,
+                    "positions": DECODE_CACHE, "steps": DECODE_STEPS,
+                    "tokens_equal": equal, "logit_rel": logit_rel,
+                    "worst_cache_rel": worst, "worst_leaf": where,
+                    "f32_s": round(time.perf_counter() - t0, 2)}
+    params = cast_tree(params, torch.bfloat16)
+    cache = {"k": cache["k"].to(torch.bfloat16),
+             "v": cache["v"].to(torch.bfloat16), "len": list(cache["len"])}
+    for kv in ("seq", "hd"):
+        rows[kv].update(_tp_decode_timed(cfg, params, mesh, cache, tok,
+                                         shape, kv, rank))
+    return rows
+
+
+def _tp_decode_timed(cfg, params, mesh, cache, tok, shape, kv: str,
+                     rank: int) -> dict:
+    """`timed_decode_steps` in bf16 of the mesh serve step on every card,
+    then of the plain serve step on card 0 (the others wait): ms a token
+    and the peak and held memory of each path on this card."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import model as MDL
+    from repro_torch.serving.decode import make_serve_step
+
+    spec = SP.cache_specs(cache, cfg, shape, mesh, ("data",), kv)
+    paths = [("mesh", make_serve_step(cfg, mesh=mesh), lambda: (
+        SH.shard_tree(params, MDL.param_layout(cfg, mesh), mesh),
+        SH.shard_tree(cache, spec, mesh), spec))]
+    if rank == 0:
+        paths.append(("plain", make_serve_step(cfg),
+                      lambda: (params, cache_copy(cache))))
+    row = {}
+    for name, step, make_args in paths:
+        args = make_args()
+        ms, peak, held, _, _ = timed_decode_steps(step, args, tok)
+        row.update({f"{name}_ms_per_token": round(ms, 3),
+                    f"{name}_peak_gib": round(peak / 2**30, 2),
+                    f"{name}_held_gib": round(held / 2**30, 2)})
+        del args
+    dist.barrier()
+    return row
+
+
 def _tp_timed(name: str, step_fn, state, batches) -> dict:
     """TP_STEPS bf16 steps of `step_fn` from `state`: each step's ms
     (CUDA events), loss and the peak memory over them."""
@@ -5693,8 +5819,8 @@ def main(argv=None) -> int:
     ap.add_argument("--banded", default="fig1_banded")
     ap.add_argument("--iters", type=int, default=ITERS)
     ap.add_argument("--tp-cards", type=int, default=0,
-                    help="run phase 15t alone over this many cards of one "
-                         "host, instead of the one-card run")
+                    help="run phases 15t and 16t alone over this many "
+                         "cards of one host, instead of the one-card run")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print(f"chip_smoke: {SRC}/repro_torch not found; run this script "
@@ -5727,8 +5853,8 @@ def main(argv=None) -> int:
 
 
 def tp_run(args, torch) -> int:
-    """`--tp-cards N`: the environment, phase 15t over N cards, the cards'
-    name and power limit, and the contract's last line."""
+    """`--tp-cards N`: the environment, phases 15t and 16t over N cards,
+    the cards' name and power limit, and the contract's last line."""
     t_run = time.perf_counter()
     if torch.cuda.device_count() < args.tp_cards:
         print(f"chip_smoke: --tp-cards {args.tp_cards} needs as many cards; "
@@ -5738,7 +5864,7 @@ def tp_run(args, torch) -> int:
     phase("environment", t_run, nvidia_smi=json.dumps(smi),
           torch=torch.__version__, cuda=torch.version.cuda,
           count=torch.cuda.device_count())
-    tp_cards_phase(args.tp_cards)
+    tp_cards_phase(args.tp_cards, smi)
     phase("total", t_run)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -433,14 +433,60 @@ def psum(t: torch.Tensor, axes, mesh) -> torch.Tensor:
     return _Psum.apply(t, mesh, tuple(axes))
 
 
+def regroup_last(t: torch.Tensor, parts, axis: str, mesh) -> torch.Tensor:
+    """`t` [..., W/M] is this rank's contiguous block of the last dim of a
+    whole [..., W] that is laid out as consecutive parts of the widths
+    `parts` (each dividing by the M ranks of `axis`); returns this rank's
+    block of each part, concatenated [..., W/M]. One all_to_all over
+    `axis`, which moves each column to the one rank that keeps it (no
+    gradient)."""
+    m, r = axis_sizes(mesh)[axis], mesh.get_local_rank(axis)
+    c = t.shape[-1]
+    offsets = [sum(parts[:i]) for i in range(len(parts))]
+
+    def cols(s: int, q: int) -> list:
+        """The columns of rank s's blocks that lie in rank q's block,
+        ascending, as (start, stop) ranges."""
+        out = []
+        for o, n in zip(offsets, parts):
+            lo, hi = max(o + s * n // m, q * c), min(o + (s + 1) * n // m,
+                                                     (q + 1) * c)
+            if lo < hi:
+                out.append((lo, hi))
+        return out
+
+    send = [range(lo - r * c, hi - r * c) for s in range(m)
+            for lo, hi in cols(s, r)]
+    index = torch.tensor([i for rg in send for i in rg], dtype=torch.long,
+                         device=t.device)
+    src = t.index_select(-1, index).movedim(-1, 0).contiguous()
+    out = src.new_empty(src.shape)
+    torch.distributed.all_to_all_single(
+        out, src, [sum(hi - lo for lo, hi in cols(r, q)) for q in range(m)],
+        [sum(hi - lo for lo, hi in cols(s, r)) for s in range(m)],
+        group=_group(mesh, axis))
+    return out.movedim(0, -1)
+
+
+def sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type a decode group forms a sum over its ranks in: float64 for
+    float32 and float64, whose split then adds no rounding of its own
+    where the one-device sum has one, and float32 for a 16-bit type."""
+    return (torch.float64 if dtype in (torch.float32, torch.float64)
+            else torch.float32)
+
+
 class TensorParallel(NamedTuple):
     """The ranks of one mesh axis (`axis`, "model") splitting a layer's
     matmuls: `size` ranks, this one `rank`. Between layers each holds its
-    block of the sequence (dim 1) of the residual stream."""
+    block of the sequence (dim 1) of the residual stream, or, with
+    `whole` (decode: one token), the whole stream, the same on every
+    rank."""
     mesh: Any
     axis: str
     size: int
     rank: int
+    whole: bool = False
 
     def divides(self, n: int) -> bool:
         return n % self.size == 0
@@ -450,26 +496,46 @@ class TensorParallel(NamedTuple):
         n = t.shape[dim] // self.size
         return t.narrow(dim, self.rank * n, n)
 
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole `t` along `dim` from each rank's block."""
+        return gather_dim(t, dim, self.axis, self.mesh)
+
     def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
-        """The whole sequence from each rank's block (dim 1)."""
-        return gather_dim(x, 1, self.axis, self.mesh)
+        """The whole sequence from each rank's block (dim 1); the stream
+        itself where it is whole."""
+        return x if self.whole else self.gather(x, 1)
 
     def scatter_seq(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's block of the sequence (dim 1) of the sum of every
-        rank's partial `x`."""
+        rank's partial `x`; the whole sum where the stream is whole."""
+        if self.whole:
+            return self.psum(x)
         return reduce_scatter_dim(x, 1, self.axis, self.mesh)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         return psum(x, (self.axis,), self.mesh)
+
+    def row_linear(self, p, x: torch.Tensor) -> torch.Tensor:
+        """x @ p["w"] of a whole stream (decode), from this rank's block
+        x [..., K/M] of the input and its rows of p["w"]: the partial
+        products and their sum over the group are formed in `sum_dtype`
+        of x's type, then rounded to it once."""
+        acc = sum_dtype(x.dtype)
+        if acc == torch.float64:
+            y = x.to(acc) @ p["w"].to(acc)
+        else:                   # a 16-bit type: its product, summed in f32
+            y = (x @ p["w"]).to(acc)
+        return self.psum(y).to(x.dtype)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         """The largest `x` over the group, no gradient."""
         return all_reduce(x.detach(), (self.axis,), self.mesh, op="max")
 
 
-def tensor_parallel(mesh, dp_axes):
+def tensor_parallel(mesh, dp_axes, whole: bool = False):
     """The TensorParallel group of "model" on `mesh`, or None off a mesh or
     where "model" holds one rank: a layer then runs its plain body.
+    whole: the residual stream is whole on every rank (decode).
     ValueError if the batch is split over "model" too."""
     if mesh is None or axis_sizes(mesh).get("model", 1) == 1:
         return None
@@ -478,7 +544,7 @@ def tensor_parallel(mesh, dp_axes):
                          f"'model' (dp_axes {tuple(dp_axes)}), whose ranks "
                          f"split the matmuls")
     return TensorParallel(mesh, "model", axis_sizes(mesh)["model"],
-                          mesh.get_local_rank("model"))
+                          mesh.get_local_rank("model"), whole)
 
 
 def gather_tree(tree, specs, mesh, keep, path: str):

@@ -31,9 +31,11 @@ tensor-parallel over "model", as the reference's SPMD program is: each
 rank computes its heads, its part of d_ff, its experts and its block of
 the vocabulary, or its block of the sequence where the heads do not split
 (`models.model`), so their flops per rank are the reference's share
-(ROADMAP C7a). The decode step still gathers each layer's weights whole
-and splits the rows over the dp axes only, so every rank of the "model"
-axis computes its dp rows through the whole model (ROADMAP C7b).
+(ROADMAP C7a). The decode step is tensor-parallel over "model" too: each
+rank computes its column and row blocks of every projection, as the
+weights are stored, on its dp rows, and attends over its block of the
+cache, so its flops per rank are the reference's share
+(`tests/test_torch_tp_decode_flops.py`).
 
 A record (<arch>__<shape>__<mesh>[__hd][__ws].json under
 `dryrun_dir()`, the variants kv_shard="hd" and --weight-stationary)

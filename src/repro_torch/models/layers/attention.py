@@ -11,8 +11,15 @@ Chunking over KV bounds the live score tensor to [B, H, Sq, kv_chunk].
 
 On a mesh (`kv_split`) a rank holds a block of the KV cache, its positions
 or its head_dim split over mesh axes, and decode combines the blocks'
-partial softmaxes (`sharded_decode_attention`); no rank holds the cache
-whole.
+partial softmaxes (`decode_attention(split=)`, the one-device body too);
+no rank holds the cache whole. Decode on a mesh is tensor-parallel over
+"model" as its weights are stored, with no need to line up with heads:
+the residual stream is whole on every rank, each rank projects the
+token's q, k and v onto its column block of wq, wk and wv, and the blocks
+are all-gathered (one token's activations), since a rank's cache block
+holds every head of its positions (or of its head_dim slice); after the
+attention the rank multiplies its slice of the heads' output by its rows
+of wo, and the partial outputs are summed over "model".
 
 Tensor-parallel (`attention_block(tp=)`, train and prefill on a mesh): the
 residual stream holds each rank's block of the sequence, and the layer
@@ -106,29 +113,6 @@ def flash_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
     return out.to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len: int, *, window=None,
-                     softcap=None):
-    """One-token decode: q [B,1,H,D]; caches [B,Smax,KVH,D]; cache_len is
-    the valid length after the new token was inserted."""
-    b, _, h, d = q.shape
-    _, smax, kvh, _ = k_cache.shape
-    g = h // kvh
-    wide = wide_dtype(q.dtype)
-    qg = q.reshape(b, kvh, g, d).to(wide)
-    kf = k_cache.permute(0, 2, 1, 3).to(wide)                 # [b,kvh,S,d]
-    s = (qg @ kf.transpose(-1, -2)) / math.sqrt(d)            # [b,kvh,g,S]
-    s = softcap_fn(s, softcap)
-    k_pos = torch.arange(smax, device=q.device)
-    mask = k_pos < cache_len
-    if window is not None:
-        mask = mask & (k_pos >= cache_len - window)
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = (p.to(v_cache.dtype).to(wide)
-           @ v_cache.permute(0, 2, 1, 3).to(wide))
-    return out.reshape(b, 1, h, d).to(q.dtype)
-
-
 class KVSplit(NamedTuple):
     """Where a rank's KV cache block lies on `mesh`: the positions split
     over the axes `seq`, head_dim over the axes `hd` (each the first axis
@@ -138,51 +122,55 @@ class KVSplit(NamedTuple):
     hd: tuple
 
 
-def sharded_decode_attention(q, k_blk, v_blk, cache_len: int,
-                             split: KVSplit, *, window=None, softcap=None):
-    """decode_attention over a KV cache split on a mesh. q [B,1,H,D] whole
-    (every rank of the split computes the same token); k_blk, v_blk
-    [B,S_blk,KVH,D_blk] this rank's block, which starts at position
-    block * S_blk and at head_dim block * D_blk.
+def decode_attention(q, k_cache, v_cache, cache_len: int, *, window=None,
+                     softcap=None, split: Optional[KVSplit] = None):
+    """One-token decode: q [B,1,H,D]; caches [B,Smax,KVH,D]; cache_len is
+    the valid length after the new token was inserted. Returns [B,1,H,D].
 
-    With head_dim split, the partial q.k products are summed over `hd`
-    before the softmax ([B,H,S_blk] scores). With the positions split,
-    each rank scores its own positions (the same mask, window and softcap
-    as decode_attention) and the partial softmaxes combine by their
-    log-sum-exp: the largest score over `seq` (a max of [B,H]), the sum
-    of exp(s - max) ([B,H]), then the sum of the normalized p v
-    ([B,H,D_blk]). A head_dim split then gathers the output's slices over
-    `hd`. Returns [B,1,H,D]."""
+    split: None on one device, or where the caches, this rank's blocks
+    [B,S_blk,KVH,D_blk], lie on a mesh: the block starts at position
+    block * S_blk and at head_dim block * D_blk, and q is whole (every rank
+    of the split computes the same token). With head_dim split, the
+    partial q.k products are summed over `hd` before the softmax
+    ([B,H,S_blk] scores). With the positions split, each rank scores its
+    own positions (the same mask, window and softcap) and the partial
+    softmaxes combine by their log-sum-exp: the largest score over `seq`
+    (a max of [B,H]), the sum of exp(s - max) ([B,H]), then the sum of
+    the normalized p v ([B,H,D_blk]). A head_dim split then gathers the
+    output's slices over `hd`. Where both are () (a (1, 1) mesh) the
+    arithmetic is the one-device body's."""
     b, _, h, d = q.shape
-    _, s_blk, kvh, d_blk = k_blk.shape
+    _, s_blk, kvh, d_blk = k_cache.shape
     g = h // kvh
     wide = wide_dtype(q.dtype)
-    lo = SH.block_start(split.mesh, split.hd, d_blk, d)
+    seq, hd = (split.seq, split.hd) if split is not None else ((), ())
+    lo = SH.block_start(split.mesh, hd, d_blk, d) if hd else 0
     qg = q[..., lo:lo + d_blk].reshape(b, kvh, g, d_blk).to(wide)
-    kf = k_blk.permute(0, 2, 1, 3).to(wide)                # [b,kvh,S,d]
-    s = qg @ kf.transpose(-1, -2)                          # [b,kvh,g,S]
-    if split.hd:
-        s = SH.all_reduce(s, split.hd, split.mesh)
+    kf = k_cache.permute(0, 2, 1, 3).to(wide)               # [b,kvh,S,d]
+    s = qg @ kf.transpose(-1, -2)                           # [b,kvh,g,S]
+    if hd:
+        s = SH.all_reduce(s, hd, split.mesh)
     s = softcap_fn(s / math.sqrt(d), softcap)
-    k_pos = SH.block_index(split.mesh, split.seq) * s_blk + torch.arange(
-        s_blk, device=q.device)
+    k_pos = torch.arange(s_blk, device=q.device)
+    if seq:
+        k_pos = SH.block_index(split.mesh, seq) * s_blk + k_pos
     mask = k_pos < cache_len
     if window is not None:
         mask = mask & (k_pos >= cache_len - window)
     s = torch.where(mask, s, NEG_INF)
-    vf = v_blk.permute(0, 2, 1, 3).to(wide)
-    if split.seq:
-        m = SH.all_reduce(s.amax(dim=-1), split.seq, split.mesh, op="max")
+    vf = v_cache.permute(0, 2, 1, 3).to(wide)
+    if seq:
+        m = SH.all_reduce(s.amax(dim=-1), seq, split.mesh, op="max")
         p = torch.exp(s - m[..., None])
-        p = p / SH.all_reduce(p.sum(dim=-1), split.seq, split.mesh)[..., None]
-        out = SH.all_reduce(p.to(v_blk.dtype).to(wide) @ vf, split.seq,
+        p = p / SH.all_reduce(p.sum(dim=-1), seq, split.mesh)[..., None]
+        out = SH.all_reduce(p.to(v_cache.dtype).to(wide) @ vf, seq,
                             split.mesh)
     else:
         p = torch.softmax(s, dim=-1)
-        out = p.to(v_blk.dtype).to(wide) @ vf
+        out = p.to(v_cache.dtype).to(wide) @ vf
     out = out.reshape(b, 1, h, d_blk).to(q.dtype)
-    if split.hd:
-        out = SH.gather_dim(out, 3, split.hd, split.mesh)
+    if hd:
+        out = SH.gather_dim(out, 3, hd, split.mesh)
     return out
 
 
@@ -223,7 +211,10 @@ def heads_split(tp, n_heads: int, kv_heads: int) -> bool:
 def _tp_attention(params, x, *, n_heads, kv_heads, head_dim, rope_theta,
                   causal, window, softcap, kv_chunk, cross_kv, tp):
     """attention_block on this rank's block x [B, S/M, d] of the sequence
-    (see the module docstring); returns its block of the output."""
+    (see the module docstring); returns its block of the output. Under a
+    decode group (whole stream) only a cross-attention comes here, which
+    has no cache: it splits its heads where both counts divide, else its
+    weights are whole and every rank computes the whole layer."""
     b, s, _ = x.shape
     by_heads = heads_split(tp, n_heads, kv_heads)
     if by_heads:
@@ -232,7 +223,7 @@ def _tp_attention(params, x, *, n_heads, kv_heads, head_dim, rope_theta,
         s, lo = x.shape[1], 0
     else:
         h, kvh = n_heads, kv_heads
-        lo = tp.rank * s
+        lo = 0 if tp.whole else tp.rank * s
     kv_src = x if cross_kv is None else cross_kv
     q = _split_heads(linear(params["wq"], x), h, head_dim)
     k = _split_heads(linear(params["wk"], kv_src), kvh, head_dim)
@@ -248,6 +239,13 @@ def _tp_attention(params, x, *, n_heads, kv_heads, head_dim, rope_theta,
                         q_offset=lo)
     y = linear(params["wo"], y.reshape(b, s, h * head_dim))
     return (tp.scatter_seq(y) if by_heads else y), None
+
+
+def _project(p, x, tp):
+    """linear(p, x); under a decode group (`tp`, whole stream) the rank's
+    column block of it, all-gathered whole: one token's activations."""
+    y = linear(p, x)
+    return y if tp is None else tp.gather(y, -1)
 
 
 def attention_block(params, x, *, n_heads, kv_heads, head_dim, rope_theta,
@@ -267,23 +265,27 @@ def attention_block(params, x, *, n_heads, kv_heads, head_dim, rope_theta,
     kv_split: None, or where this rank's block of the cache lies on a mesh
     (KVSplit): the cache holds the blocks, one token is decoded (S = 1;
     ValueError otherwise), the rank whose block holds position `len`
-    writes its part of the new key and value, and the attention is
-    sharded_decode_attention.
-    tp: None, or the tensor-parallel group (`sharding.TensorParallel`) of a
-    train or prefill step on a mesh, no cache: x is this rank's block of
-    the sequence, the weights its heads' columns (rows of wo) or whole as
-    `heads_split` says, and the result its block of the output.
+    writes its part of the new key and value, and decode_attention
+    combines the blocks.
+    tp: None, or the tensor-parallel group (`sharding.TensorParallel`).
+    Train and prefill (no cache), and a cross-attention: x is this rank's
+    block of the sequence (the whole stream in decode), the weights its
+    heads' columns (rows of wo) or whole as `heads_split` says, and the
+    result its block of the output. Decode (a cache; the group's stream
+    is whole): q, k and v are the rank's column blocks of their
+    projections, gathered whole; wo's rows are the rank's block, whose
+    partial output is summed over the group.
     """
-    if tp is not None:
+    if tp is not None and (cache is None or cross_kv is not None):
         return _tp_attention(params, x, n_heads=n_heads, kv_heads=kv_heads,
                              head_dim=head_dim, rope_theta=rope_theta,
                              causal=causal, window=window, softcap=softcap,
                              kv_chunk=kv_chunk, cross_kv=cross_kv, tp=tp)
     b, s, _ = x.shape
     kv_src = x if cross_kv is None else cross_kv
-    q = _split_heads(linear(params["wq"], x), n_heads, head_dim)
-    k = _split_heads(linear(params["wk"], kv_src), kv_heads, head_dim)
-    v = _split_heads(linear(params["wv"], kv_src), kv_heads, head_dim)
+    q = _split_heads(_project(params["wq"], x, tp), n_heads, head_dim)
+    k = _split_heads(_project(params["wk"], kv_src, tp), kv_heads, head_dim)
+    v = _split_heads(_project(params["wv"], kv_src, tp), kv_heads, head_dim)
 
     if cross_kv is None:
         base = 0 if cache is None else cache["len"]
@@ -296,9 +298,8 @@ def attention_block(params, x, *, n_heads, kv_heads, head_dim, rope_theta,
             raise ValueError(f"attention_block: a KV cache on a mesh decodes "
                              f"one token, got S = {s}")
         _write_block(cache, k, v, base, kv_split)
-        y = sharded_decode_attention(q, cache["k"], cache["v"], base + 1,
-                                     kv_split, window=window,
-                                     softcap=softcap)
+        y = decode_attention(q, cache["k"], cache["v"], base + 1,
+                             window=window, softcap=softcap, split=kv_split)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": base + 1}
     elif cache is not None and cross_kv is None:
         end = base + s
@@ -314,4 +315,6 @@ def attention_block(params, x, *, n_heads, kv_heads, head_dim, rope_theta,
                             kv_chunk=kv_chunk)
         new_cache = None
     y = y.reshape(b, s, n_heads * head_dim)
-    return linear(params["wo"], y), new_cache
+    if tp is None:
+        return linear(params["wo"], y), new_cache
+    return tp.row_linear(params["wo"], tp.block(y, -1)), new_cache

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from ...distributed.sharding import sum_dtype
+
 
 class MetaDraws:
     """Stands in for a torch.Generator on the meta device, which has none:
@@ -78,14 +80,16 @@ def rmsnorm(p, x, eps=1e-5, tp=None):
     tp: x [..., d/M] is this rank's block of a last dim split over the
     tensor-parallel group (`sharding.TensorParallel`) and p["scale"] the
     block's scale; the mean of squares is over the whole dim (its sum
-    all-reduced)."""
+    all-reduced; in decode, `tp.whole`, formed and summed in
+    `sharding.sum_dtype`, float64 for float32)."""
     dt = x.dtype
     x = x.to(wide_dtype(dt))
     if tp is None:
         ms = (x * x).mean(dim=-1, keepdim=True)
     else:
-        ms = tp.psum((x * x).sum(dim=-1, keepdim=True)) / (x.shape[-1]
-                                                           * tp.size)
+        xs = x.to(sum_dtype(x.dtype)) if tp.whole else x
+        ms = (tp.psum((xs * xs).sum(dim=-1, keepdim=True))
+              / (x.shape[-1] * tp.size)).to(x.dtype)
     x = x * torch.rsqrt(ms + eps)
     return (x * p["scale"].to(x.dtype)).to(dt)
 
@@ -97,8 +101,9 @@ def init_embedding(gen, vocab, d, dtype=torch.float32):
 def embed(p, tokens, tp=None):
     """The table's rows of `tokens` [B, S]. tp: the table is this rank's
     block of the vocabulary (rows), and the result is this rank's block of
-    the sequence [B, S/M, d]: each rank looks up the tokens in its rows,
-    zeros the others, and the blocks are summed over the group."""
+    the sequence [B, S/M, d] (in decode, `tp.whole`, the whole token):
+    each rank looks up the tokens in its rows, zeros the others, and the
+    blocks are summed over the group."""
     if tp is None:
         return p["table"][tokens]
     table = p["table"]

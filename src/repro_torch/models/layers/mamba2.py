@@ -9,8 +9,10 @@ body on one device and on a mesh.
 
 As in the reference: a single B/C group, a scalar A per head, a causal conv
 of width 4. State cache = (conv_state [B, W-1, d_conv_ch], ssm_state
-[B, H, N, P]). On a mesh (`mamba2_block(split=)`) a rank holds the conv
-state's block of channels and the SSM state's block of heads.
+[B, H, N, P]). Decode on a mesh (`mamba2_block(tp=)` with a cache) is
+tensor-parallel over "model": a rank holds the conv state's block of
+channels and the SSM state's block of heads, and its blocks of the
+weights as stored (`_decode_step`).
 
 Tensor-parallel (`mamba2_block(tp=)`, train and prefill on a mesh): each
 rank runs its block of the heads over the whole sequence, which it
@@ -24,8 +26,6 @@ out_proj's partial sums are reduce-scattered back to the sequence blocks.
 The SSD (K5 on the card) runs on the rank's heads.
 """
 from __future__ import annotations
-
-from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -141,30 +141,19 @@ def _ssd_chunked(xh, dt, a_log, b_mat, c_mat, chunk, init_state=None,
                          chunk, use_kernel)
 
 
-class StateSplit(NamedTuple):
-    """Where a rank's Mamba2 cache block lies on `mesh`: the conv state's
-    channels split over the axes `conv`, the SSM state's heads over the
-    axes `heads` (() for a dim held whole)."""
-    mesh: Any
-    conv: tuple
-    heads: tuple
-
-
-WHOLE = StateSplit(None, (), ())  # one device: every block is the whole
-
-
 def mamba2_block(params, x, ssm_cfg, cache=None, use_kernel="auto",
-                 split: StateSplit = WHOLE, tp=None):
+                 tp=None):
     """x [B,S,d]. cache None (prefill from the zero state) or {conv, ssm}
-    for decode (S = 1; ValueError otherwise), this rank's blocks under
-    `split` on a mesh (`_decode_step`). Returns (y, new_cache_or_None).
-    tp: the tensor-parallel group of a train or prefill step on a mesh
-    (no cache): x and y are this rank's blocks of the sequence, and the
-    rank runs its heads (see the module docstring).
+    for decode (S = 1; ValueError otherwise; `_decode_step`). Returns (y,
+    new_cache_or_None). tp: the tensor-parallel group on a mesh. In train
+    and prefill (no cache) x and y are this rank's blocks of the sequence
+    and the rank runs its heads (see the module docstring); in decode x
+    and y are whole, and the cache holds the rank's blocks of the conv
+    channels and of the SSM heads.
 
     No residual here: the model adds none around this block."""
     if cache is not None:
-        return _decode_step(params, x, ssm_cfg, cache, split)
+        return _decode_step(params, x, ssm_cfg, cache, tp)
     if tp is not None:
         x = tp.gather_seq(x)
     b, s, d = x.shape
@@ -219,16 +208,21 @@ def _tp_mix(params, x, ssm_cfg, tp):
     return z, xs.reshape(b, s, hb, p), dt, b_mat, c_mat
 
 
-def _decode_step(params, x, ssm_cfg, cache, split: StateSplit):
-    """One decode token (x [B,1,d], this rank's rows) over the cache's
-    blocks under `split`: the depthwise conv on its channels of the conv
-    state, the O(1) recurrence on its heads of the SSM state. The
-    one-token slices the rest of the block needs whole are gathered: the
-    conv output ([B,1,C], whose x part the heads read and whose B and C
-    every head reads) over `split.conv`, and y ([B,1,H,P], before the
-    gated norm) over `split.heads`. Under WHOLE nothing is gathered and
-    the slices are whole. Returns (out [B,1,d], the new blocks {conv,
-    ssm})."""
+def _decode_step(params, x, ssm_cfg, cache, tp=None):
+    """One decode token (x [B,1,d], this rank's rows, whole) over the
+    cache: the depthwise conv and the O(1) recurrence. Returns (out
+    [B,1,d], the new {conv, ssm}).
+
+    tp: the decode group on a mesh, whose rank holds its block of the
+    conv state's channels and of the SSM state's heads (cache_specs split
+    both over "model"), and its blocks of every weight as stored. Its
+    column block of in_proj's output is regrouped over the group
+    (`sharding.regroup_last`: each rank receives its block of z, of the
+    conv's input and of dt); the conv runs on its channels and its output
+    ([B,1,C], whose x part the heads read and whose B and C every head
+    reads) is gathered; the recurrence, the D skip and the gated norm run
+    on its heads (the norm's sum of squares all-reduced), and its rows of
+    out_proj give a partial output summed over the group."""
     b, s, d = x.shape
     if s != 1:
         raise ValueError(f"mamba2: a decode step takes one token, got "
@@ -236,33 +230,42 @@ def _decode_step(params, x, ssm_cfg, cache, split: StateSplit):
     d_inner = ssm_cfg.expand * d
     n, p = ssm_cfg.d_state, ssm_cfg.head_dim
     h = d_inner // p
+    parts = [d_inner, d_inner + 2 * n, h]
     zxbcdt = linear(params["in_proj"], x)
-    z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * n, h], dim=-1)
-    dt = F.softplus(dt + params["dt_bias"])                    # [B,1,H]
-    cb = cache["conv"].shape[-1]
-    lo = SH.block_start(split.mesh, split.conv, cb, d_inner + 2 * n)
-    xbc, new_conv = _causal_conv(xbc[..., lo:lo + cb],
-                                 params["conv_w"][:, lo:lo + cb],
-                                 params["conv_b"][lo:lo + cb], cache["conv"])
-    if split.conv:
-        xbc = SH.gather_dim(xbc, 2, split.conv, split.mesh)
+    if tp is not None:
+        if not all(tp.divides(k) for k in parts):
+            raise ValueError(f"mamba2: d_inner {d_inner}, {d_inner + 2 * n} "
+                             f"conv channels and {h} heads do not all split "
+                             f"over {tp.size} {tp.axis!r} ranks")
+        zxbcdt = SH.regroup_last(zxbcdt, parts, tp.axis, tp.mesh)
+        parts = [k // tp.size for k in parts]
+    got = (cache["conv"].shape[-1], cache["ssm"].shape[-3])
+    if got != (parts[1], parts[2]):
+        raise ValueError(f"mamba2: a cache block of {got[0]} conv channels "
+                         f"and {got[1]} SSM heads, not {parts[1]} and "
+                         f"{parts[2]}")
+    z, xbc, dt = torch.split(zxbcdt, parts, dim=-1)
+    dt = F.softplus(dt + params["dt_bias"])                    # [B,1,Hb]
+    xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"],
+                                 cache["conv"])
+    if tp is not None:
+        xbc = tp.gather(xbc, 2)
     xs, b_mat, c_mat = torch.split(xbc, [d_inner, n, n], dim=-1)
-    hb = cache["ssm"].shape[-3]
-    hl = SH.block_start(split.mesh, split.heads, hb, h)
+    hb, db = parts[2], parts[0]
+    hl = 0 if tp is None else tp.rank * hb
     xh = xs.reshape(b, 1, h, p)[:, :, hl:hl + hb]
-    la, xw = _discretize(xh[:, 0], dt[:, 0, hl:hl + hb],
-                         params["a_log"][hl:hl + hb])
+    la, xw = _discretize(xh[:, 0], dt[:, 0], params["a_log"])
     a = torch.exp(la)                                          # [B,Hb]
     state = cache["ssm"]
     state = state * a[..., None, None].to(state.dtype) + \
         torch.einsum("bn,bhp->bhnp", b_mat[:, 0], xw)
     y = torch.einsum("bn,bhnp->bhp", c_mat[:, 0], state)[:, None]
-    y = y + xh * params["d_skip"][None, None, hl:hl + hb, None]  # D skip
-    if split.heads:
-        y = SH.gather_dim(y, 2, split.heads, split.mesh)
-    y = y.reshape(b, 1, d_inner)
-    y = rmsnorm(params["norm"], y * F.silu(z))                   # gated norm
-    return linear(params["out_proj"], y), {"conv": new_conv, "ssm": state}
+    y = y + xh * params["d_skip"][None, None, :, None]         # D skip
+    y = y.reshape(b, 1, db)
+    y = rmsnorm(params["norm"], y * F.silu(z), tp=tp)           # gated norm
+    y = (linear(params["out_proj"], y) if tp is None
+         else tp.row_linear(params["out_proj"], y))
+    return y, {"conv": new_conv, "ssm": state}
 
 
 def init_mamba2_cache(batch, d_model, ssm_cfg, dtype=torch.float32,

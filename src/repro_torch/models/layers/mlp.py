@@ -20,9 +20,11 @@ def mlp(params, x, activation=F.silu, tp=None):
     is this rank's block of the sequence, w_gate and w_up hold its columns
     of d_ff and w_down its rows (column- then row-parallel); the sequence
     is gathered before and the partial sums reduce-scattered after, so the
-    rank returns its block of the sequence."""
-    if tp is not None:
+    rank returns its block of the sequence. In decode (`tp.whole`) x is
+    the whole token and the partial sums are all-reduced."""
+    if tp is not None and not tp.whole:
         return tp.scatter_seq(mlp(params, tp.gather_seq(x), activation))
-    return linear(params["w_down"],
-                  activation(linear(params["w_gate"], x))
-                  * linear(params["w_up"], x))
+    h = activation(linear(params["w_gate"], x)) * linear(params["w_up"], x)
+    if tp is not None:
+        return tp.row_linear(params["w_down"], h)
+    return linear(params["w_down"], h)

@@ -13,26 +13,28 @@ coefficients are static (full RWKV6 uses a data-dependent LoRA lerp), and
 `ln_x` is one RMS norm over d_model, not a per-head group norm. The decay
 LoRA and the per-head bonus u are kept, as they define WKV6.
 
-On a mesh (`rwkv6_decode(split=)`) a rank holds the WKV state's block of
-heads and the token shifts' block of channels.
+Decode on a mesh (`rwkv6_decode(tp=)`) is tensor-parallel over "model": a
+rank holds the WKV state's block of heads and the token shifts' block of
+channels, and runs its heads and its block of d_ff.
 
 Tensor-parallel (`rwkv6_time_mix(tp=)`, `rwkv6_channel_mix(tp=)`, train
 and prefill on a mesh): the rank gathers the sequence, takes the token
 shifts whole, and runs its block of the heads: its columns of wr, wk, wv,
 wg and w_lora_b, its rows of u_bonus, its channels of w0 and ln_x (whose
 sum of squares over d_model is all-reduced), and its rows of wo, whose
-partial sums are reduce-scattered back to the sequence blocks. The channel
-mix is column- (wck) then row-parallel (wcv) over d_ff.
+partial sums are reduce-scattered back to the sequence blocks. The decay
+LoRA's first product (`xw @ w_lora_a`, whose weight is whole) runs on the
+rank's block of the sequence and its [B, S, lora] result is gathered, as
+the reference's program splits it. The channel mix is column- (wck) then
+row-parallel (wcv) over d_ff.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from ...distributed import sharding as SH
 from .common import init_linear, init_rmsnorm, linear, normal, rmsnorm
 
 NEG_INF = -1e30
@@ -126,18 +128,6 @@ def _wkv6_chunked(r, k, v, log_w, u, chunk, init_state=None):
     return torch.cat(ys, dim=1), state
 
 
-class StateSplit(NamedTuple):
-    """Where a rank's rwkv6 cache block lies on `mesh`: the WKV state's
-    heads split over the axes `heads`, the token shifts' channels over the
-    axes `d` (() for a dim held whole)."""
-    mesh: Any
-    heads: tuple
-    d: tuple
-
-
-WHOLE = StateSplit(None, (), ())  # one device: every block is the whole
-
-
 def rwkv6_time_mix(params, x, rwkv_cfg, cache=None, tp=None):
     """x [B,S,d]. cache: None (prefill from the zero state) or
     {shift_t [B,1,d], wkv [B,H,D,D]} for one decode token (S = 1; the
@@ -146,16 +136,16 @@ def rwkv6_time_mix(params, x, rwkv_cfg, cache=None, tp=None):
     the cache passed in is not written. tp: the tensor-parallel group of a
     train or prefill step on a mesh (no cache): x and out are this rank's
     blocks of the sequence (see the module docstring)."""
+    if cache is not None:
+        if x.shape[1] != 1:
+            raise ValueError(f"rwkv6_time_mix: a cached call takes one "
+                             f"token, got S = {x.shape[1]}")
+        y, state = _time_mix_step(params, x, rwkv_cfg, cache["shift_t"],
+                                  cache["wkv"])
+        return y, {"shift_t": x[:, -1:], "wkv": state}
     if tp is not None:
         x = tp.gather_seq(x)
     b, s, d = x.shape
-    if cache is not None:
-        if s != 1:
-            raise ValueError(f"rwkv6_time_mix: a cached call takes one "
-                             f"token, got S = {s}")
-        y, state = _time_mix_step(params, x, rwkv_cfg, cache["shift_t"],
-                                  cache["wkv"], WHOLE)
-        return y, {"shift_t": x[:, -1:], "wkv": state}
     hd = rwkv_cfg.head_dim
     h = d // hd
     w0, ln_x = params["w0"], params["ln_x"]
@@ -171,8 +161,12 @@ def rwkv6_time_mix(params, x, rwkv_cfg, cache=None, tp=None):
     k = linear(params["wk"], xk).reshape(b, s, h, hd)
     v = linear(params["wv"], xv).reshape(b, s, h, hd)
     g = F.silu(linear(params["wg"], xg))
-    log_w = -torch.exp(w0 + torch.tanh(xw @ params["w_lora_a"])
-                       @ params["w_lora_b"]).reshape(b, s, h, hd)
+    if tp is None:
+        lora = torch.tanh(xw @ params["w_lora_a"])
+    else:           # on the rank's block of the sequence, then gathered
+        lora = tp.gather_seq(torch.tanh(tp.block(xw, 1)
+                                        @ params["w_lora_a"]))
+    log_w = -torch.exp(w0 + lora @ params["w_lora_b"]).reshape(b, s, h, hd)
     pad = (-s) % rwkv_cfg.chunk
     if pad:
         r, k, v, log_w = (F.pad(t, (0, 0, 0, 0, 0, pad))
@@ -183,75 +177,91 @@ def rwkv6_time_mix(params, x, rwkv_cfg, cache=None, tp=None):
     return (y if tp is None else tp.scatter_seq(y)), None
 
 
-def _time_mix_step(params, x, rwkv_cfg, last, wkv, split: StateSplit):
+def _time_mix_step(params, x, rwkv_cfg, last, wkv, tp=None):
     """The time-mix of one decode token (x [B,1,d], this rank's rows;
-    last [B,1,d], the token before it, whole) over this rank's heads of
-    the WKV state (`wkv`, its block under `split`): one step, y = r . (u
-    k v^T + state), state' = diag(w) state + k v^T. y ([B,1,H,D], before
-    ln_x) is gathered over `split.heads`. Returns (out [B,1,d], the new
-    WKV block)."""
+    last [B,1,d], the token before it; both whole) over the WKV state
+    (`wkv`): one step, y = r . (u k v^T + state), state' = diag(w) state
+    + k v^T. Returns (out [B,1,d], the new WKV state). tp: the decode
+    group on a mesh: `wkv` is the rank's block of heads, and the rank
+    projects its heads (its columns of wr, wk, wv, wg and w_lora_b, its
+    rows of u_bonus, its channels of w0 and ln_x, whose sum of squares
+    over d_model is all-reduced); its rows of wo give a partial output
+    summed over the group."""
     b, _, d = x.shape
     hd = rwkv_cfg.head_dim
     h = d // hd
-    hb = wkv.shape[-3]
-    hl = SH.block_start(split.mesh, split.heads, hb, h)
+    w0, ln_x = params["w0"], params["ln_x"]
+    if tp is not None:
+        if not tp.divides(h):
+            raise ValueError(f"rwkv6: {h} heads do not split over "
+                             f"{tp.size} {tp.axis!r} ranks")
+        h, d = h // tp.size, d // tp.size
+        w0, ln_x = tp.block(w0, -1), {"scale": tp.block(ln_x["scale"], -1)}
+    if wkv.shape[-3] != h:
+        raise ValueError(f"rwkv6: a WKV state block of {wkv.shape[-3]} "
+                         f"heads, not {h}")
     xr, xk, xv, xw, xg = (_token_shift(x, params[f"mix_{n}"], last)
                           for n in "rkvwg")
-    r = linear(params["wr"], xr).reshape(b, h, hd)[:, hl:hl + hb]
-    k = linear(params["wk"], xk).reshape(b, h, hd)[:, hl:hl + hb]
-    v = linear(params["wv"], xv).reshape(b, h, hd)[:, hl:hl + hb]
+    r = linear(params["wr"], xr).reshape(b, h, hd)
+    k = linear(params["wk"], xk).reshape(b, h, hd)
+    v = linear(params["wv"], xv).reshape(b, h, hd)
     g = F.silu(linear(params["wg"], xg))
-    log_w = -torch.exp(params["w0"] + torch.tanh(xw @ params["w_lora_a"])
+    log_w = -torch.exp(w0 + torch.tanh(xw @ params["w_lora_a"])
                        @ params["w_lora_b"]).reshape(b, h, hd)
-    u = params["u_bonus"][hl:hl + hb]
+    u = params["u_bonus"]
     state = wkv.to(r.dtype)
     kv = torch.einsum("bhd,bhe->bhde", k, v)
     y = torch.einsum("bhd,bhde->bhe", r, u[None, :, :, None] * kv + state)
-    state = state * torch.exp(log_w[:, hl:hl + hb])[..., None] + kv
-    y = y[:, None]
-    if split.heads:
-        y = SH.gather_dim(y, 2, split.heads, split.mesh)
-    y = rmsnorm(params["ln_x"], y.reshape(b, 1, d)) * g
+    state = state * torch.exp(log_w)[..., None] + kv
+    y = rmsnorm(ln_x, y[:, None].reshape(b, 1, d), tp=tp) * g
+    if tp is not None:
+        return tp.row_linear(params["wo"], y), state
     return linear(params["wo"], y), state
 
 
 def rwkv6_channel_mix(params, x, cache_last=None, tp=None):
     """The channel mix of x [B,S,d] (cache_last: the token before x[:, 0],
     None for zero). tp: x and the result are this rank's blocks of the
-    sequence, wck its columns of d_ff and wcv its rows."""
-    if tp is not None:
+    sequence (whole in decode), wck its columns of d_ff and wcv its
+    rows."""
+    if tp is not None and not tp.whole:
         return tp.scatter_seq(rwkv6_channel_mix(params, tp.gather_seq(x)))
     xk = _token_shift(x, params["cmix_k"], cache_last)
     k = torch.square(F.relu(linear(params["wck"], xk)))
+    if tp is not None:
+        return tp.row_linear(params["wcv"], k)
     return linear(params["wcv"], k)
 
 
-def _whole_shift(last, split: StateSplit):
-    """A token shift [B,1,d] from this rank's block of its channels."""
-    return SH.gather_dim(last, 2, split.d, split.mesh) if split.d else last
-
-
-def rwkv6_decode(params, x, rwkv_cfg, cache, split: StateSplit = WHOLE):
+def rwkv6_decode(params, x, rwkv_cfg, cache, tp=None):
     """One decode token of a layer (time-mix then channel-mix, each with
     its residual; x [B,1,d], this rank's rows; S > 1 raises ValueError)
-    over the cache's blocks under `split` (WHOLE on one device): the WKV
-    update on this rank's heads of the state; the one-token shifts
-    gathered over `split.d`. Returns (out, the new blocks {shift_t, wkv,
-    shift_c}; shift_c is the token after the time-mix residual)."""
+    over the cache. Returns (out, the new {shift_t, wkv, shift_c};
+    shift_c is the token after the time-mix residual). tp: the decode
+    group on a mesh, whose rank holds its block of the WKV state's heads
+    and of the token shifts' channels (the shifts are gathered whole, one
+    token's activations) and runs its heads and its block of d_ff."""
     b, s, d = x.shape
     if s != 1:
         raise ValueError(f"rwkv6: a cached call takes one token, got S = "
                          f"{s}")
-    db = cache["shift_t"].shape[-1]
-    dl = SH.block_start(split.mesh, split.d, db, d)
-    y, state = _time_mix_step(params, x, rwkv_cfg,
-                              _whole_shift(cache["shift_t"], split),
-                              cache["wkv"], split)
+
+    db = d if tp is None else d // tp.size
+    if (cache["shift_t"].shape[-1], cache["shift_c"].shape[-1]) != (db, db):
+        raise ValueError(f"rwkv6: token shift blocks of "
+                         f"{cache['shift_t'].shape[-1]} channels, not {db}")
+
+    def whole(last):
+        return last if tp is None else tp.gather(last, 2)
+
+    def mine(t):
+        return t if tp is None else tp.block(t, 2)
+
+    y, state = _time_mix_step(params, x, rwkv_cfg, whole(cache["shift_t"]),
+                              cache["wkv"], tp)
     xc = x + y
-    out = xc + rwkv6_channel_mix(params, xc,
-                                 _whole_shift(cache["shift_c"], split))
-    return out, {"shift_t": x[..., dl:dl + db], "wkv": state,
-                 "shift_c": xc[..., dl:dl + db]}
+    out = xc + rwkv6_channel_mix(params, xc, whole(cache["shift_c"]), tp)
+    return out, {"shift_t": mine(x), "wkv": state, "shift_c": mine(xc)}
 
 
 def init_rwkv6_cache(batch, d_model, rwkv_cfg, dtype=torch.float32,

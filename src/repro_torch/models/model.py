@@ -52,12 +52,25 @@ cross-entropy split the vocabulary. `forward` returns the whole logits
 the padded vocabulary must divide by M (ValueError). On a "model" axis of
 one rank nothing splits and the layers run their plain bodies.
 Decode on a mesh (`forward(mesh=, cache=, cache_spec=)`) takes each cache
-leaf as this rank's block under `launch.specs.cache_specs`: the attention
-combines its blocks of positions (or of head_dim) by their log-sum-exp,
-the Mamba2 and rwkv6 recurrences run on the rank's heads, and only one
-token's activations are gathered (`attention.sharded_decode_attention`;
-`mamba2.mamba2_block(split=)` and `rwkv6.rwkv6_decode`, the decode bodies
-of one device too).
+leaf as this rank's block under `launch.specs.cache_specs` and is
+tensor-parallel over "model" too, in a group of its own
+(`sharding.TensorParallel(whole=True)`): the one token's residual stream
+is whole on every rank, each weight stays split over "model" as
+`param_layout` stores it, a column-parallel projection computes the
+rank's column block and a row-parallel one takes its slice of the input,
+whose partial output is summed over "model" (not reduce-scattered). The
+attention gathers the token's q, k and v (the rank's cache block holds
+all heads of its positions or of its head_dim slice) and combines its
+blocks by their log-sum-exp (`attention.decode_attention(split=)`); the
+Mamba2 and rwkv6 recurrences run on the rank's heads
+(`mamba2._decode_step`, `rwkv6.rwkv6_decode`); the embedding looks up in
+the rank's rows of the table, and the logits of the token are gathered
+over the vocabulary. MoE routes the rank's rows on every "model" rank, as
+the reference's decode does, and the vlm's cross-attention (no cache)
+splits its heads where they divide, else keeps its weights whole. No
+collective moves more than one token's activations but the logits and,
+with head_dim split, the partial q.k scores. Where a weight the decode
+group splits does not divide over "model", ValueError names it.
 """
 from __future__ import annotations
 
@@ -72,7 +85,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..distributed import sharding as SH
-from ..training.tree import tree_map
+from ..training.tree import leaves_with_paths, tree_map
 from .layers import attention as A
 from .layers import mamba2 as M
 from .layers import mlp as MLP
@@ -181,9 +194,10 @@ def _layout(cfg: ModelConfig, sizes: tuple, moe_fsdp: bool,
 def _mesh_params(params, cfg, mesh, weight_stationary=False, tp=None):
     """forward's view of this rank's parameter shards: the leaves outside
     the layer stacks gathered; the stacks' layers gathered as each layer
-    indexes them; MoE subtrees as shards. Without `tp` every leaf is
-    gathered whole; with it a leaf stays split over "model" where its
-    layer computes with the rank's block (`_tp_keep`)."""
+    indexes them; MoE subtrees as shards. Without `tp` (a "model" axis of
+    one rank) every leaf is gathered whole; with it a leaf stays split
+    over "model" where its layer computes with the rank's block
+    (`_tp_keep`)."""
     specs = param_layout(cfg, mesh, weight_stationary)
     keep = (lambda path: ()) if tp is None else _tp_keep(cfg, tp)
     return {k: _layer_gathers(v, specs[k], mesh, keep, k) if k in _STACKED
@@ -199,12 +213,15 @@ def _tp_keep(cfg: ModelConfig, tp):
     sequence), an MLP's where d_ff does not divide (it runs on the rank's
     rows), and Mamba2's packed in_proj and conv (the rank takes its heads'
     columns of them). A leaf whose spec does not name "model" is whole
-    either way."""
+    either way. In decode (`tp.whole`) every leaf stays split as stored
+    but a cross-attention's whose heads do not split."""
     by_heads = A.heads_split(tp, cfg.n_heads, cfg.kv_heads)
     by_ffn = tp.divides(cfg.d_ff)
 
     def keep(path: str) -> tuple:
-        if re.search(r"attn/w[qkvo]/", path):
+        if tp.whole:
+            split = by_heads or not re.search(r"cross_attn/", path)
+        elif re.search(r"attn/w[qkvo]/", path):
             split = by_heads
         elif re.search(r"mlp/w_", path):
             split = by_ffn
@@ -214,23 +231,52 @@ def _tp_keep(cfg: ModelConfig, tp):
     return keep
 
 
-def _tensor_parallel(cfg: ModelConfig, mesh, dp_axes, seq_len: int):
-    """The tensor-parallel group of a train or prefill forward on `mesh`:
-    None off a mesh or where "model" holds one rank. ValueError where the
-    step cannot split: a sequence or a padded vocabulary that does not
-    divide into the group's blocks, or rwkv6's d_ff."""
-    tp = SH.tensor_parallel(mesh, dp_axes)
+def _tensor_parallel(cfg: ModelConfig, mesh, dp_axes, seq_len: int,
+                     weight_stationary: bool, decode: bool):
+    """The tensor-parallel group of a forward on `mesh`: None off a mesh
+    or where "model" holds one rank; in decode a group whose stream is
+    whole. ValueError where the step cannot split: a train or prefill
+    sequence, a padded vocabulary or rwkv6's d_ff that does not divide
+    into the group's blocks; in decode a weight that the group reads by
+    blocks and `param_layout` stores whole over "model"
+    (`_unsplit`)."""
+    tp = SH.tensor_parallel(mesh, dp_axes, whole=decode)
     if tp is None:
         return None
-    sizes = [("the sequence", seq_len),
-             ("the padded vocabulary", cfg.padded_vocab)]
+    sizes = [("the padded vocabulary", cfg.padded_vocab)]
+    if not decode:
+        sizes.append(("the sequence", seq_len))
     if cfg.rwkv is not None:
         sizes.append(("rwkv6's d_ff", cfg.d_ff))
     for what, n in sizes:
         if not tp.divides(n):
             raise ValueError(f"forward: {what} ({n}) does not split over "
                              f"{tp.size} {tp.axis!r} ranks")
+    if decode:
+        keep = _tp_keep(cfg, tp)
+        for path, dims in _unsplit(cfg, tuple(SH.axis_sizes(mesh).items()),
+                                   weight_stationary):
+            if keep(path):
+                raise ValueError(f"forward: decode splits {path} {dims} "
+                                 f"over 'model', which does not divide it "
+                                 f"into {tp.size} blocks")
     return tp
+
+
+@functools.lru_cache(maxsize=16)
+def _unsplit(cfg: ModelConfig, sizes: tuple, weight_stationary: bool):
+    """(path, shape) of each parameter outside the MoE experts whose rule
+    splits a dim over "model" that `param_layout` keeps whole, as it does
+    a dim that does not divide."""
+    shapes = init_params(cfg, device="meta")
+    want = dict(leaves_with_paths(SH.param_specs(shapes)))
+    got = dict(leaves_with_paths(_layout(cfg, sizes, SH.MOE_FSDP,
+                                         weight_stationary)))
+    return tuple((SH.path_str(p), tuple(t.shape))
+                 for p, t in leaves_with_paths(shapes)
+                 if "moe" not in p and
+                 any("model" in SH.entry_axes(e) for e in want[p])
+                 and not any("model" in SH.entry_axes(e) for e in got[p]))
 
 
 def _subspec(spec, path):
@@ -241,33 +287,14 @@ def _subspec(spec, path):
 
 def _kv_split(mesh, spec, *path):
     """The KVSplit of the KV cache stack at `path` of a cache laid out by
-    `spec`, or None off a mesh. Only axes of more than one rank split a
-    dim: on a (1, 1) mesh every block is whole and the decode step does
-    the plain step's arithmetic."""
-    if mesh is None:
+    `spec`, or None off a mesh or without a cache. Only axes of more than
+    one rank split a dim: on a (1, 1) mesh every block is whole and the
+    decode step does the plain step's arithmetic."""
+    if mesh is None or spec is None:
         return None
     k = _subspec(spec, path)["k"]
     return A.KVSplit(mesh, SH.split_axes(k[-3], mesh),
                      SH.split_axes(k[-1], mesh))
-
-
-def _mamba_split(mesh, spec, *path):
-    """The Mamba2 StateSplit of the cache stack at `path` (WHOLE off a
-    mesh)."""
-    if mesh is None:
-        return M.WHOLE
-    sp = _subspec(spec, path)
-    return M.StateSplit(mesh, SH.split_axes(sp["conv"][-1], mesh),
-                        SH.split_axes(sp["ssm"][-3], mesh))
-
-
-def _rwkv_split(mesh, spec):
-    """The rwkv6 StateSplit of a cache laid out by `spec` (WHOLE off a
-    mesh)."""
-    if mesh is None:
-        return R.WHOLE
-    return R.StateSplit(mesh, SH.split_axes(spec["wkv"][-3], mesh),
-                        SH.split_axes(spec["shift_t"][-1], mesh))
 
 
 def _write(tree, idx, new) -> None:
@@ -430,13 +457,13 @@ def _at(fn, stack, i, *args, **kw):
     return fn(_layer(stack, i), *args, **kw)
 
 
-def _rwkv_layer(lp, x, cfg, cache=None, split=R.WHOLE, tp=None):
+def _rwkv_layer(lp, x, cfg, cache=None, tp=None):
     """Time-mix then channel-mix, each with its residual. cache: None or
-    this layer's {shift_t, shift_c, wkv} (its blocks under `split` on a
-    mesh) for one decode token (`rwkv6.rwkv6_decode`); returns the new one
-    (shift_c is the last position after the time-mix residual)."""
+    this layer's {shift_t, shift_c, wkv} (its blocks on a mesh) for one
+    decode token (`rwkv6.rwkv6_decode`); returns the new one (shift_c is
+    the last position after the time-mix residual)."""
     if cache is not None:
-        return R.rwkv6_decode(lp, x, cfg.rwkv, cache, split)
+        return R.rwkv6_decode(lp, x, cfg.rwkv, cache, tp)
     x = x + R.rwkv6_time_mix(lp, x, cfg.rwkv, tp=tp)[0]
     return x + R.rwkv6_channel_mix(lp, x, tp=tp), None
 
@@ -498,10 +525,10 @@ def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
     mesh: None, or a DeviceMesh over which `params` are this rank's shards
     (laid out by `param_layout`) and `batch` this rank's rows (its part of
     the batch over `dp_axes`, the same on every rank of its dp group); the
-    logits are those rows', whole. Without a cache the step is
-    tensor-parallel over "model" (see the module docstring; ValueError
-    where the sequence or the padded vocabulary does not divide). With a
-    cache each layer gathers its weights whole inside its remat unit.
+    logits are those rows', whole. The step is tensor-parallel over
+    "model", with and without a cache (see the module docstring;
+    ValueError where the sequence, the padded vocabulary or, in decode, a
+    weight the step splits does not divide).
     A cache on a mesh holds this rank's block of each leaf under
     `cache_spec`, the tree `launch.specs.cache_specs` gave for it (torch
     tensors carry no layout; it is what the reference's jit takes as the
@@ -509,8 +536,7 @@ def forward(params, batch, cfg: ModelConfig, cache=None, kv_chunk: int = 1024,
     or a state whole, and the blocks are updated in place and returned.
     A cache on a mesh without its cache_spec raises ValueError.
     weight_stationary: `params` are shards under `param_layout(cfg, mesh,
-    weight_stationary=True)`, so each layer gathers its weights over
-    "model" only."""
+    weight_stationary=True)`, so no layer gathers a weight over "data"."""
     x, params, cache, metrics, tp = _hidden(
         params, batch, cfg, cache, kv_chunk, use_kernel, train, mesh,
         dp_axes, cache_spec, weight_stationary)
@@ -545,10 +571,9 @@ def _hidden(params, batch, cfg, cache, kv_chunk, use_kernel, train, mesh,
     if mesh is not None and cache is not None and cache_spec is None:
         raise ValueError("forward: a cache on a mesh needs its cache_spec "
                          "(launch.specs.cache_specs' tree for it)")
-    on_mesh = mesh if cache is not None else None
     inputs = batch["tokens" if cfg.embed_inputs else "embeds"]
-    tp = None if cache is not None else _tensor_parallel(
-        cfg, mesh, dp_axes, inputs.shape[1])
+    tp = _tensor_parallel(cfg, mesh, dp_axes, inputs.shape[1],
+                          weight_stationary, cache is not None)
     dtype = params["final_norm"]["scale"].dtype
     if mesh is None:
         params = {k: _unstack(v) if k in _STACKED else v
@@ -566,29 +591,28 @@ def _hidden(params, batch, cfg, cache, kv_chunk, use_kernel, train, mesh,
     metrics: Dict[str, torch.Tensor] = {}
     if family == "hybrid":
         x, cache = _zamba_forward(params, x, cfg, cache, kv_chunk,
-                                  use_kernel, train, on_mesh, cache_spec, tp)
+                                  use_kernel, train, mesh, cache_spec, tp)
     elif family == "rwkv6":
-        x = _rwkv_forward(params, x, cfg, cache, train,
-                          _rwkv_split(on_mesh, cache_spec), tp)
+        x = _rwkv_forward(params, x, cfg, cache, train, tp)
     elif family == "vlm":
         if "image_embeds" not in batch:
             raise ValueError(f"{cfg.name}: the vlm's batch needs "
                              f"image_embeds [B, T, d]")
         x = _vlm_forward(params, x, batch["image_embeds"].to(dtype), cfg,
                          cache, kv_chunk, train,
-                         _kv_split(on_mesh, cache_spec, "self"), tp)
+                         _kv_split(mesh, cache_spec, "self"), tp)
     elif family == "moe":
         x, metrics = _moe_forward(params, x, cfg, cache, kv_chunk, train,
                                   mesh, dp_axes,
-                                  _kv_split(on_mesh, cache_spec),
+                                  _kv_split(mesh, cache_spec),
                                   weight_stationary, tp)
     elif family == "gemma2":
         x = _pair_forward(params, x, cfg, cache, kv_chunk, train,
-                          {part: _kv_split(on_mesh, cache_spec, part)
+                          {part: _kv_split(mesh, cache_spec, part)
                            for part in ("local", "global")}, tp)
     else:
         x = _dense_forward(params, x, cfg, cache, kv_chunk, train,
-                           _kv_split(on_mesh, cache_spec), tp)
+                           _kv_split(mesh, cache_spec), tp)
     x = rmsnorm(params["final_norm"], x, cfg.rmsnorm_eps)
     return x, params, cache, metrics, tp
 
@@ -654,11 +678,11 @@ def _moe_forward(params, x, cfg, cache, kv_chunk, train, mesh, dp_axes,
     return x, {k: v / cfg.n_layers for k, v in acc.items()}
 
 
-def _rwkv_forward(params, x, cfg, cache, train, split, tp):
+def _rwkv_forward(params, x, cfg, cache, train, tp):
     for i in range(len(params["layers"]["wr"]["w"])):
         lc = None if cache is None else _layer(cache, i)
         x, nc = _call(train, _at, _rwkv_layer, params["layers"], i, x, cfg,
-                      lc, split, tp)
+                      lc, tp)
         if cache is not None:
             _write(cache, i, nc)
     return x
@@ -687,17 +711,16 @@ def _vlm_forward(params, x, img, cfg, cache, kv_chunk, train, kv_split, tp):
     return x
 
 
-def _zamba_group(params, g, x, cfg, cache, kv_chunk, use_kernel, splits,
+def _zamba_group(params, g, x, cfg, cache, kv_chunk, use_kernel, kv_split,
                  tp):
     """Zamba2's group g: its `hybrid_attn_period` Mamba2 layers, then the
-    shared attention block. splits: (the Mamba2 StateSplit, WHOLE off a
-    mesh; the shared attention's KVSplit, None off a mesh)."""
+    shared attention block. kv_split: the shared attention's KVSplit (None
+    off a mesh)."""
     period = cfg.hybrid_attn_period
-    m_split, kv_split = splits
     for j in range(period):
         lc = None if cache is None else _layer(cache["mamba"], (g, j))
         x, nc = M.mamba2_block(_layer(params["layers"], g * period + j), x,
-                               cfg.ssm, lc, use_kernel, m_split, tp)
+                               cfg.ssm, lc, use_kernel, tp)
         if cache is not None:
             _write(cache["mamba"], (g, j), nc)
     ac = None if cache is None else _kv_layer(cache["shared_attn"], g)
@@ -711,17 +734,15 @@ def _zamba_group(params, g, x, cfg, cache, kv_chunk, use_kernel, splits,
 def _zamba_forward(params, x, cfg, cache, kv_chunk, use_kernel, train,
                    mesh, cache_spec, tp):
     period = cfg.hybrid_attn_period
-    splits = (_mamba_split(mesh, cache_spec, "mamba"),
-              _kv_split(mesh, cache_spec, "shared_attn"))
+    kv_split = _kv_split(mesh, cache_spec, "shared_attn")
     for g in range(len(params["layers"]["in_proj"]["w"]) // period):
         x = _call(train, _zamba_group, params, g, x, cfg, cache, kv_chunk,
-                  use_kernel, splits, tp)
+                  use_kernel, kv_split, tp)
     if "tail_layers" in params:
-        t_split = _mamba_split(mesh, cache_spec, "tail")
         for j in range(len(params["tail_layers"]["in_proj"]["w"])):
             lc = None if cache is None else _layer(cache["tail"], j)
             x, nc = _call(train, _at, M.mamba2_block, params["tail_layers"],
-                          j, x, cfg.ssm, lc, use_kernel, t_split, tp)
+                          j, x, cfg.ssm, lc, use_kernel, tp)
             if cache is not None:
                 _write(cache["tail"], j, nc)
     return x, cache

@@ -25,15 +25,18 @@ def make_serve_step(cfg: ModelConfig, mesh=None, dp_axes=("data",),
 
     mesh: None (one device), or a DeviceMesh ("data", "model", and "pod"
     on a multi-pod mesh). On a mesh, `params` are this rank's shards under
-    `model.param_layout(cfg, mesh)` (each layer gathers its weights whole,
-    as the mesh train step does); `batch` is this rank's rows over
-    `dp_axes`, or all rows when the batch does not divide them; `cache`
-    holds this rank's block of each leaf under `cache_spec`, the tree
-    `launch.specs.cache_specs(..., mesh, dp_axes, kv_shard)` gave for the
-    whole cache (`sharding.shard_tree` takes the blocks), and comes back
-    updated in place, laid out the same way. The next tokens are this
-    rank's rows'. No rank holds a KV cache or a state whole, and only one
-    token's activations are gathered (see `model.forward`).
+    `model.param_layout(cfg, mesh)`; each layer gathers its weights over
+    "data" only and splits its matmuls over "model" as the weights are
+    stored (the decode group of `model.forward`); `batch` is this rank's
+    rows over `dp_axes`, or all rows when the batch does not divide them;
+    `cache` holds this rank's block of each leaf under `cache_spec`, the
+    tree `launch.specs.cache_specs(..., mesh, dp_axes, kv_shard)` gave
+    for the whole cache (`sharding.shard_tree` takes the blocks), and
+    comes back updated in place, laid out the same way. The next tokens
+    are this rank's rows'. No rank holds a KV cache or a state whole, and
+    no collective moves more than one token's activations but the
+    token's logits (gathered over the vocabulary) and, with head_dim
+    split, the partial q.k scores (see `model.forward`).
 
     weight_stationary: the params are shards under `model.param_layout(cfg,
     mesh, weight_stationary=True)`, with no "data" axis, so a step gathers

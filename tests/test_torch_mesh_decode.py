@@ -27,13 +27,15 @@ see below):
   moves (the all-gather's output, the all-reduce's tensor), outside the
   layers' weight gathers (`sharding.gather` of the parameter shards). No
   collective moves more than one token's activations of the rank's rows,
-  B x max(d_model, H*D, conv channels) elements, but with kv_shard "hd"
-  the all-reduce of the partial q.k scores, held by name to B x H x
-  S_blk (the rank's positions). That one outgrows a token wherever S_blk
-  > head_dim: here, at 16 positions, it does not, so a qwen2-7b case
-  at 64 positions shows it as the one collective above the token bound.
-  The MoE layers' slot exchange is an all_to_all, which the wrapper
-  does not see;
+  B x max(d_model, H*D, conv channels) elements, but two held by name:
+  the all-gather of the token's logits over the vocabulary, B x the
+  padded vocabulary (the step splits the unembedding over "model"), and
+  with kv_shard "hd" the all-reduce of the partial q.k scores, B x H x
+  S_blk (the rank's positions). The scores outgrow a token wherever
+  S_blk > head_dim: here, at 16 positions, they do not, so a qwen2-7b
+  case at 64 positions shows them above the token bound. The MoE layers'
+  slot exchange and Mamba2's regrouping of in_proj's column blocks are
+  all_to_alls, which the wrapper does not see;
 - on (2, 2), for qwen2-7b and zamba2-7b, both batches and both
   kv_shards, the mesh step and the plain step decode until the cache is
   full, and the next token raises RuntimeError through each.
@@ -298,6 +300,8 @@ def _mesh_decode(cfg, params, mesh, kv, filled, rec=None,
         "recorded": bool(sizes),
         "over": sorted([kind, n] for kind, n in sizes if n > bound),
         "bound": bound,
+        # the token's logits, gathered over the vocabulary
+        "logit_bound": rows_n * cfg.padded_vocab,
         # kv_shard "hd": the partial q.k scores, all-reduced over "model"
         "score_bound": rows_n * cfg.n_heads * s_blk,
         "logits": torch.stack(got_logits).tolist() if rec is None else None,
@@ -439,10 +443,13 @@ def test_mesh_decode_matches_the_plain_step(runs, arch, mesh_shape, batch,
 
 def _within_one_token(got, kv) -> bool:
     """No collective of a decode step moved more than one token's
-    activations (`_token_bound`), but with kv_shard "hd" the partial q.k
-    scores' all-reduce, B x H x S_blk elements (S_blk the rank's
-    positions), which the hd variant moves by design."""
-    allowed = [["reduce", got["score_bound"]]] if kv == "hd" else []
+    activations (`_token_bound`), but the gather of the token's logits
+    over the vocabulary, B x V elements, and with kv_shard "hd" the
+    partial q.k scores' all-reduce, B x H x S_blk elements (S_blk the
+    rank's positions), which the step moves by design."""
+    allowed = [["gather", got["logit_bound"]]]
+    if kv == "hd":
+        allowed.append(["reduce", got["score_bound"]])
     return got["recorded"] and all(o in allowed for o in got["over"])
 
 
@@ -456,13 +463,15 @@ def test_no_rank_holds_a_cache_whole(runs, arch, mesh_shape, batch, kv):
 
 def test_hd_scores_outgrow_one_token_at_length(runs):
     """kv_shard "hd" with a rank's positions (64) above head_dim (32):
-    the score all-reduce, B x H x S_blk, is the one collective above one
-    token's activations, as at decode_32k's length; the step still holds
-    the plain step's tokens, logits and cache."""
+    the score all-reduce, B x H x S_blk, is above one token's
+    activations, as at decode_32k's length, and the only collective
+    there beside the logits' gather; the step still holds the plain
+    step's tokens, logits and cache."""
     for r in runs[0]:
         got = r["long"]
         assert got["score_bound"] > got["bound"], got
-        assert got["over"] == [["reduce", got["score_bound"]]], got
+        assert got["over"] == [["gather", got["logit_bound"]],
+                               ["reduce", got["score_bound"]]], got
         assert got["tokens_equal"] and got["logit_rel"] <= LOGIT_TOL, got
         assert got["cache_rel"] <= CACHE_TOL and got["len_equal"], got
 

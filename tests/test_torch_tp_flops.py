@@ -18,8 +18,11 @@ Each arch is one case: the port's per-rank flops (`launch.dryrun`'s
 `build_cell` and `analyze`, the matmul flops of one step) are at most 1.10
 times the reference's, and at least 0.85 times (zamba2-7b's port counts
 0.887: it takes B and C whole on every rank where the reference's SPMD
-partitioner replicates more of the Mamba2 block). Before the mesh step
-split its matmuls over "model", the port counted 2.68-4.00 times the
+partitioner replicates more of the Mamba2 block). rwkv6-7b's band is
+0.85-1.005: its decay LoRA's first product runs on the rank's block of
+the sequence, as the reference's program splits it (it counts 0.9985;
+1.0352 while that product ran on the whole gathered sequence). Before the mesh
+step split its matmuls over "model", the port counted 2.68-4.00 times the
 reference's.
 """
 import dataclasses
@@ -44,6 +47,8 @@ ARCHS = ("qwen2-7b", "minicpm-2b", "command-r-plus-104b", "gemma2-27b",
          "rwkv6-7b", "zamba2-7b", "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b",
          KV2, "llama-3.2-vision-11b", "hubert-xlarge")
 MOST, LEAST = 1.10, 0.85
+# the archs held to a tighter top of the band
+MOST_OF = {"rwkv6-7b": 1.005}
 
 REF_SCRIPT = textwrap.dedent("""
     import dataclasses, json, os
@@ -103,4 +108,5 @@ def _port_flops(name) -> int:
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_flops_per_rank_are_the_references(reference, arch):
     port, ref = _port_flops(arch), reference[arch]
-    assert LEAST * ref <= port <= MOST * ref, (arch, port, ref, port / ref)
+    most = MOST_OF.get(arch, MOST)
+    assert LEAST * ref <= port <= most * ref, (arch, port, ref, port / ref)
